@@ -5,21 +5,29 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
-  2. build: both CUDA kernels, one nvcc each, in parallel; the ptxas lines
-     (registers, shared memory, spills);
+  2. build: the three CUDA sources (topk_distance, pq_adc, ivf_adc with its
+     three grids), one nvcc each, in parallel; the ptxas lines (registers,
+     shared memory, spills);
   3. kernel against plain version at mid size (262,144 rows, d = 768,
      m = 64): ``topk_distance`` for {dot, l2} x k in {10, 200} x Q in
-     {1, 32, 512}, ``ivf_adc`` for {dot, l2, cosine} x {float32, bfloat16,
-     int8} x Q in {1, 32, 512}, each against its stated bound;
-  4. main path at full size: ``VectorDB("flat")`` then ``VectorDB("ivf_pq")``
-     on the MS MARCO v1 passage count (8,841,823 rows) of d = 768 cosine
-     embeddings, clustered synthetic data made on the card from ``--seed``;
-     load seconds, p50/p99 latency and QPS at Q = 1, 32, 512, each
-     kernel's time beside its bound, the plain version's and a library
-     call's time, launches on the main path, recall@10 of ivf_pq against
-     flat, peak device memory, and full-size batches of each kernel against
-     its plain version (``topk_distance`` at Q = 1, 32, 512, ``ivf_adc`` at
-     Q = 1, 32);
+     {1, 32, 512}; ``pq_adc`` for {dot, l2} x {float32, bfloat16, int8} x
+     Q in {1, 32, 512} x k in {10, 200} and a scan_all-shaped case (an
+     extra subspace as wide as the cluster count); ``ivf_adc``,
+     ``ivf_adc_blocked`` and ``ivf_adc_run_resident`` for {dot, l2,
+     cosine} x {float32, bfloat16, int8} x Q in {1, 32, 512} (the grouped
+     grids at qblk 8, and 4 and 16 for float32 dot), each grouped result
+     also against the per-query kernel's, bit for bit;
+  4. main path at full size on the MS MARCO v1 passage count (8,841,823
+     rows) of d = 768 cosine embeddings, clustered synthetic data made on
+     the card from ``--seed``: ``VectorDB("flat")``, ``VectorDB("pq")``,
+     then ``VectorDB("ivf_pq")`` served under adc_mode auto (the default),
+     per_query, blocked and run_resident from one trained state (every
+     grid's ids and scores equal per_query's bit for bit), and scan_all at
+     Q = 32; load seconds, p50/p99 latency and QPS at Q = 1, 32, 512,
+     recall@10 against flat, each kernel's time beside its bound, the plain
+     version's and a library call's time, launches on each engine's path,
+     full-size batches of each kernel against its plain version, peak
+     device memory and each phase's seconds;
   5. a JSON line of the kernels, then the result line.
 
 It needs one CUDA card and the repository's ``src/`` beside it, and it
@@ -41,6 +49,7 @@ M_SUBSPACES = 64             # 12 dimensions a subspace
 MID_ROWS = 262_144
 BATCHES = (1, 32, 512)
 REPS = {1: 30, 32: 12, 512: 4}
+GROUPED = ("blocked", "run_resident")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
@@ -186,31 +195,73 @@ def compare_topk(corpus, q, metric: str, k: int, label: str) -> float:
     return float(err.max())
 
 
-def compare_ivf(bucket_codes, bucket_ids, visit, luts, coarse, *, k, spp,
-                lut_dtype, label) -> float:
-    """ops.ivf_adc_topk on the kernel and on the plain version: the same
-    float32 operations in the same order, so the bound is bit equality."""
+def same_result(a, b) -> bool:
+    """Bit equality of two (scores, ids) results, -inf matching -inf."""
     import torch
-    from repro_torch.kernels import ops
-    args = (bucket_codes, bucket_ids, visit, luts)
-    kw = dict(k=k, coarse=coarse, steps_per_probe=spp, lut_dtype=lut_dtype)
-    ks, ki = ops.ivf_adc_topk(*args, use_kernel=True, **kw)
-    ps, pi = ops.ivf_adc_topk(*args, use_kernel=False, **kw)
-    torch.cuda.synchronize()
+    (ks, ki), (ps, pi) = a, b
     same_s = (ks == ps) | (torch.isneginf(ks) & torch.isneginf(ps))
-    same_i = ki == pi.to(ki.dtype)
+    return bool(same_s.all()) and bool((ki == pi.to(ki.dtype)).all())
+
+
+def bit_equal(kern, plain, label: str) -> float:
+    """Check a kernel's result against its plain version's: the same
+    float32 operations in the same order, so the bound is bit equality.
+    Returns the largest |dscore| over finite entries (0 when equal)."""
+    import torch
+    torch.cuda.synchronize()
+    (ks, ki), (ps, pi) = kern, plain
     finite = torch.isfinite(ks) & torch.isfinite(ps)
     err = float((ks - ps)[finite].abs().max()) if bool(finite.any()) else 0.0
-    log(f"  {label}: ids agree {float(same_i.float().mean()):.4f} (bound 1), "
-        f"max |dscore| {err:.3e} (bound 0, bit equality)")
-    if not (bool(same_s.all()) and bool(same_i.all())):
+    agree = float((ki == pi.to(ki.dtype)).float().mean())
+    log(f"  {label}: ids agree {agree:.4f} (bound 1), max |dscore| "
+        f"{err:.3e} (bound 0, bit equality)")
+    if not same_result(kern, plain):
         raise AssertionError(f"{label}: kernel and plain version differ")
     return err
 
 
+def compare_ivf(bucket_codes, bucket_ids, visit, luts, coarse, *, k, spp,
+                lut_dtype, label) -> float:
+    """ops.ivf_adc_topk's per-query grid on the kernel and on the plain
+    version."""
+    from repro_torch.kernels import ops
+    args = (bucket_codes, bucket_ids, visit, luts)
+    kw = dict(k=k, coarse=coarse, steps_per_probe=spp, lut_dtype=lut_dtype,
+              mode="per_query")
+    return bit_equal(ops.ivf_adc_topk(*args, use_kernel=True, **kw),
+                     ops.ivf_adc_topk(*args, use_kernel=False, **kw), label)
+
+
+def compare_grouped(bucket_codes, bucket_ids, visit, luts, coarse, *, k, spp,
+                    lut_dtype, mode, qblk, label) -> float:
+    """A grouped grid on the kernel against its plain version, and against
+    the per-query kernel: all three bit for bit."""
+    from repro_torch.kernels import ops
+    args = (bucket_codes, bucket_ids, visit, luts)
+    kw = dict(k=k, coarse=coarse, steps_per_probe=spp, lut_dtype=lut_dtype,
+              pad_block=bucket_ids.shape[0] - 1)
+    kern = ops.ivf_adc_topk(*args, use_kernel=True, mode=mode, qblk=qblk,
+                            **kw)
+    err = bit_equal(kern, ops.ivf_adc_topk(*args, use_kernel=False, mode=mode,
+                                           qblk=qblk, **kw), label)
+    if not same_result(kern, ops.ivf_adc_topk(*args, use_kernel=True,
+                                              mode="per_query", **kw)):
+        raise AssertionError(f"{label}: differs from the per-query kernel")
+    return err
+
+
+def compare_pq(codes, luts, *, k, lut_dtype, label, valid=None,
+               extra=None) -> float:
+    """ops.adc_topk (the pq_adc kernel) against its plain version."""
+    from repro_torch.kernels import ops
+    kw = dict(k=k, valid=valid, extra_codes=extra, lut_dtype=lut_dtype)
+    return bit_equal(ops.adc_topk(codes, luts, use_kernel=True, **kw),
+                     ops.adc_topk(codes, luts, use_kernel=False, **kw), label)
+
+
 def probe_inputs(index, q):
-    """The ivf_adc kernel's inputs for queries q, as the engine builds them."""
-    import torch
+    """The ivf_adc kernels' inputs for queries q, as the engine builds them:
+    (bucket codes, bucket ids, visit, luts, coarse, steps_per_probe)."""
     from repro_torch.core import distances as D
     from repro_torch.core.pq import _ivf_probe_stage
     index._sync()
@@ -218,11 +269,39 @@ def probe_inputs(index, q):
     q = q.float()
     if metric == "cosine":
         q, metric = D.l2_normalize(q), "dot"
-    visit, luts, coarse = _ivf_probe_stage(
+    visit, luts, coarse, _ = _ivf_probe_stage(
         index.codebooks, index.centroids, q, index.block_table, metric=metric,
         nprobe=index.nprobe, steps_per_probe=index.spp,
         pad_block=index.bucket_ids.shape[0] - 1)
     return index.codes_bm, index.bucket_ids, visit, luts, coarse, index.spp
+
+
+def pq_inputs(index, q):
+    """pq_adc's inputs for queries q on a PQ engine: (codes, luts, valid)."""
+    from repro_torch.core import distances as D
+    from repro_torch.core.pq import adc_tables
+    index._sync()
+    metric = index.metric
+    q = q.float()
+    if metric == "cosine":
+        q, metric = D.l2_normalize(q), "dot"
+    return index.codes, adc_tables(index.codebooks, q, metric=metric), \
+        index.valid
+
+
+def scan_all_inputs(index, q):
+    """pq_adc's inputs on IVF-PQ's all-codes path (cosine or dot index):
+    (row-major codes, (Q, m + 1, W) tables, cluster ids, live mask)."""
+    from repro_torch.core import distances as D
+    from repro_torch.core.pq import scan_all_tables
+    index._sync()
+    q = q.float()
+    if index.metric == "cosine":
+        q = D.l2_normalize(q)
+    n = index.n
+    return (index.layout.gather_payload(n),
+            scan_all_tables(index.codebooks, index.centroids, q),
+            index.layout.assign_of(n), index.layout.live_mask(n))
 
 
 # -------------------------------------------------------------- phases
@@ -240,7 +319,7 @@ def phase_header() -> str:
 
 def phase_build() -> None:
     from repro_torch.kernels import _build
-    secs = _build.build_all(["topk_distance", "ivf_adc"])
+    secs = _build.build_all(["topk_distance", "pq_adc", "ivf_adc"])
     for name, s in secs.items():
         log(f"build {name}: {s:.1f} s")
         for line in _build.build_log(name).splitlines():
@@ -260,29 +339,76 @@ def phase_mid(seed: int, device, rank: int) -> None:
             for Q in BATCHES:
                 compare_topk(corpus, queries[:Q], metric, k,
                              f"topk_distance {metric} k={k} Q={Q}")
+    for metric in ("dot", "l2"):
+        db = VectorDB("pq", metric=metric, m=M_SUBSPACES,
+                      device=device).load(corpus)
+        for Q in BATCHES:
+            codes, luts, valid = pq_inputs(db.index, queries[:Q])
+            for lut_dtype in ("float32", "bfloat16", "int8"):
+                for k in (10, 200):
+                    compare_pq(codes, luts, k=k, lut_dtype=lut_dtype,
+                               valid=valid,
+                               label=f"pq_adc {metric} {lut_dtype} k={k} Q={Q}")
+        del db
     for metric in ("dot", "l2", "cosine"):
         db = VectorDB("ivf_pq", metric=metric, m=M_SUBSPACES,
                       device=device).load(corpus)
         for Q in BATCHES:
-            codes, ids, visit, luts, coarse, spp = probe_inputs(db.index,
-                                                                queries[:Q])
+            args = probe_inputs(db.index, queries[:Q])
+            kw = dict(k=32, spp=args[5])
             for lut_dtype in ("float32", "bfloat16", "int8"):
-                compare_ivf(codes, ids, visit, luts, coarse, k=32, spp=spp,
-                            lut_dtype=lut_dtype,
+                compare_ivf(*args[:5], lut_dtype=lut_dtype, **kw,
                             label=f"ivf_adc {metric} {lut_dtype} Q={Q}")
+                for mode in GROUPED:
+                    compare_grouped(*args[:5], lut_dtype=lut_dtype, mode=mode,
+                                    qblk=8, **kw,
+                                    label=f"ivf_adc_{mode} {metric} "
+                                          f"{lut_dtype} qblk=8 Q={Q}")
+            if metric == "dot":
+                for qblk in (4, 16):
+                    for mode in GROUPED:
+                        compare_grouped(*args[:5], lut_dtype="float32",
+                                        mode=mode, qblk=qblk, **kw,
+                                        label=f"ivf_adc_{mode} dot float32 "
+                                              f"qblk={qblk} Q={Q}")
+        if metric == "cosine":
+            codes, luts, assign, live = scan_all_inputs(db.index, queries[:32])
+            compare_pq(codes, luts, k=32, lut_dtype="float32", valid=live,
+                       extra=assign,
+                       label=f"pq_adc scan_all float32 W={luts.shape[2]} "
+                             f"(ksub {db.index.codebooks.shape[1]}) Q=32")
         del db
     del corpus, queries
     torch.cuda.empty_cache()
 
 
+def serve_and_count(db, queries, label: str):
+    """Serve the batches with every launch count set to 0 just before;
+    returns (last results per Q, launch counts just after)."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    res = serve_batches(db, queries, label)
+    counts = ops.launch_counts()
+    log(f"  launches on the {label} path: {counts}")
+    return res, counts
+
+
+def recall_at_10(got, truth) -> float:
+    return float(sum(len(set(got[r].tolist()) & set(truth[r].tolist()))
+                     for r in range(got.shape[0])) / (10 * got.shape[0]))
+
+
+def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound,
+                 library_ms, shape) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": library_ms, "shape": shape}
+
+
 def phase_main(n: int, seed: int, device, rank: int,
                min_recall: float) -> list:
     import torch
-    from repro_torch import VectorDB
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.ivf_adc import ivf_adc_cuda, ivf_adc_plain
-    from repro_torch.kernels.topk_distance import (topk_distance_cuda,
-                                                   topk_distance_plain)
     log(f"phase 4: main path, N={n} rows (MS MARCO v1 passages: "
         f"{MARCO_PASSAGES}), d={DIM}, cosine, shared subspace rank {rank}")
     torch.cuda.reset_peak_memory_stats()
@@ -290,17 +416,39 @@ def phase_main(n: int, seed: int, device, rank: int,
     corpus, queries = make_dataset(n, max(BATCHES), seed, device, rank)
     torch.cuda.synchronize()
     log(f"  data made on the card: {time.perf_counter() - t0:.2f} s")
-    kernels = []
+    kernels, launches, recalls = [], {}, {}
+    t0 = time.perf_counter()
+    truth = main_flat(corpus, queries, device, kernels, launches)
+    log(f"  [flat: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    recalls["pq"] = main_pq(corpus, queries, truth, device, kernels, launches)
+    log(f"  [pq: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    recalls["ivf_pq"] = main_ivf(corpus, queries, truth, device, kernels,
+                                 launches)
+    log(f"  [ivf_pq: {time.perf_counter() - t0:.1f} s]")
+    log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+    if recalls["ivf_pq"] < min_recall:
+        raise AssertionError(f"ivf_pq recall@10 {recalls['ivf_pq']:.4f} "
+                             f"below {min_recall}")
+    return kernels
 
-    # --- flat: the exact ground truth
+
+def main_flat(corpus, queries, device, kernels, launches):
+    """flat, the exact ground truth: serve, time topk_distance."""
+    import torch
+    from repro_torch import VectorDB
+    from repro_torch.kernels.topk_distance import (topk_distance_cuda,
+                                                   topk_distance_plain)
     t0 = time.perf_counter()
     flat = VectorDB("flat", metric="cosine", device=device).load(corpus)
     torch.cuda.synchronize()
     log(f"  flat load: {time.perf_counter() - t0:.2f} s")
-    ops.reset_launch_counts()
-    res = serve_batches(flat, queries, "flat")
-    flat_launches = ops.launch_counts()
-    log(f"  launches on the flat path: {flat_launches}")
+    res, counts = serve_and_count(flat, queries, "flat")
+    launches["topk_distance"] = counts["topk_distance"]
     truth = res[max(BATCHES)][1]
 
     fc = flat.index.corpus
@@ -316,82 +464,218 @@ def phase_main(n: int, seed: int, device, rank: int,
     plain_ms = gpu_ms(lambda: topk_distance_plain(fc, q32, bias, k=10,
                                                   l2=False), 2)
     lib_ms = gpu_ms(lambda: torch.topk(q32 @ fc.T, 10), 3)
-    b, by = bound_ms(fc.numel() * 4 + fc.shape[0] * 4 + 32 * DIM * 4
+    bound = bound_ms(fc.numel() * 4 + fc.shape[0] * 4 + 32 * DIM * 4
                      + 32 * 10 * 8, 2.0 * 32 * fc.shape[0] * DIM)
     err = max(compare_topk(fc, queries[:Q], "dot", 10,
                            f"topk_distance full size Q={Q}") for Q in BATCHES)
-    kernels.append({
-        "name": "topk_distance", "route": "cuda",
-        "source": "src/repro_torch/csrc/topk_distance.cu",
-        "replaces": "src/repro/kernels/topk_distance.py:77",
-        "launches": flat_launches["topk_distance"], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-        "library_ms": lib_ms, "shape": f"Q=32 N={fc.shape[0]} d={DIM} k=10"})
+    kernels.append(kernel_entry(
+        "topk_distance", "src/repro_torch/csrc/topk_distance.cu",
+        "src/repro/kernels/topk_distance.py:77", launches["topk_distance"],
+        err, ms, plain_ms, bound, lib_ms,
+        f"Q=32 N={fc.shape[0]} d={DIM} k=10"))
     log(f"  topk_distance Q=32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"torch.matmul+torch.topk {lib_ms:.3f} ms, bound {b:.3f} ms ({by})")
+        f"torch.matmul+torch.topk {lib_ms:.3f} ms, bound {bound[0]:.3f} ms "
+        f"({bound[1]})")
     del flat, fc, bias, res
     torch.cuda.empty_cache()
+    return truth
 
-    # --- ivf_pq: the engine under test
+
+def pq_bound(codes, luts, valid, k: int) -> tuple:
+    """Least time for one pq_adc call on these inputs: the codes, the row
+    bias and the tables read once, the (Q, k) result written once; m
+    float32 adds for each (query, live row) pair."""
+    N, m = codes.shape
+    Q = luts.shape[0]
+    live = int(valid.sum())
+    return bound_ms(N * m + N * 4 + luts.numel() * 4 + Q * k * 8,
+                    float(Q) * live * m)
+
+
+def main_pq(corpus, queries, truth, device, kernels, launches) -> float:
+    """pq, the flat PQ engine: serve, recall, time pq_adc."""
+    import torch
+    from repro_torch import VectorDB
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.pq_adc import pq_adc_cuda, pq_adc_plain
+    t0 = time.perf_counter()
+    db = VectorDB("pq", metric="cosine", m=M_SUBSPACES,
+                  device=device).load(corpus)
+    torch.cuda.synchronize()
+    log(f"  pq load: {time.perf_counter() - t0:.2f} s (codes "
+        f"{db.index.memory_bytes() / 1e9:.3f} GB with the live mask and "
+        f"codebooks)")
+    res, counts = serve_and_count(db, queries, "pq")
+    launches["pq_adc"] = counts["pq_adc"]
+    recall = recall_at_10(res[max(BATCHES)][1], truth)
+    log(f"  recall@10 of pq against flat: {recall:.4f} "
+        f"({truth.shape[0]} queries)")
+    k = db.index.refine
+    for Q in BATCHES:
+        codes, luts, valid = pq_inputs(db.index, queries[:Q])
+        bias = torch.where(valid, 0.0, -1e30).float()
+        ms = gpu_ms(lambda: pq_adc_cuda(codes, luts, bias, k=k), 3)
+        b, by = pq_bound(codes, luts, valid, k)
+        log(f"  pq_adc kernel Q={Q}: {ms:.3f} ms (bound {b:.3f} ms, {by})")
+    codes, luts, valid = pq_inputs(db.index, queries[:32])
+    bias = torch.where(valid, 0.0, -1e30).float()
+    ms = gpu_ms(lambda: pq_adc_cuda(codes, luts, bias, k=k), 3)
+    plain_ms = gpu_ms(lambda: pq_adc_plain(codes, luts, bias, k=k), 1)
+    bound = pq_bound(codes, luts, valid, k)
+    err = 0.0
+    for Q in BATCHES:
+        c, lt, v = pq_inputs(db.index, queries[:Q])
+        err = max(err, compare_pq(c, lt, k=k, lut_dtype="float32", valid=v,
+                                  label=f"pq_adc full size Q={Q}"))
+    kernels.append(kernel_entry(
+        "pq_adc", "src/repro_torch/csrc/pq_adc.cu",
+        "src/repro/kernels/pq_adc.py:122", launches["pq_adc"], err, ms,
+        plain_ms, bound, None,
+        f"Q=32 N={codes.shape[0]} m={codes.shape[1]} k={k}; library_ms "
+        f"null: no single PyTorch call gathers and sums table entries"))
+    log(f"  pq_adc Q=32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound[0]:.3f} ms ({bound[1]}), no single library call")
+    del db, codes, luts, valid, bias, res
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    return recall
+
+
+def main_ivf(corpus, queries, truth, device, kernels, launches) -> float:
+    """ivf_pq, trained once, served under every grid; scan_all at Q = 32;
+    the three ivf_adc kernels timed."""
+    import torch
+    from repro_torch import VectorDB
+    from repro_torch.kernels import ivf_adc as K
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.autotune import LEDGER
     t0 = time.perf_counter()
     db = VectorDB("ivf_pq", metric="cosine", m=M_SUBSPACES,
                   device=device).load(corpus)
     torch.cuda.synchronize()
-    log(f"  ivf_pq load: {time.perf_counter() - t0:.2f} s "
-        f"(clusters {db.index.centroids.shape[0]}, steps_per_probe "
-        f"{db.index.spp}, storage rows {db.index.layout.capacity}, layout "
-        f"{db.index.layout.memory_bytes() / 1e9:.3f} GB)")
-    del corpus
-    torch.cuda.empty_cache()
-    ops.reset_launch_counts()
-    res = serve_batches(db, queries, "ivf_pq")
-    ivf_launches = ops.launch_counts()
-    log(f"  launches on the ivf_pq path: {ivf_launches}")
-    got = res[max(BATCHES)][1]
-    recall = float(sum(len(set(got[r].tolist()) & set(truth[r].tolist()))
-                       for r in range(got.shape[0])) / (10 * got.shape[0]))
-    log(f"  recall@10 of ivf_pq against flat: {recall:.4f} "
-        f"({got.shape[0]} queries)")
-
     idx = db.index
-    blk, m = idx.block_size, idx.codebooks.shape[0]
+    log(f"  ivf_pq load: {time.perf_counter() - t0:.2f} s "
+        f"(clusters {idx.centroids.shape[0]}, steps_per_probe "
+        f"{idx.spp}, storage rows {idx.layout.capacity}, layout "
+        f"{idx.layout.memory_bytes() / 1e9:.3f} GB, adc_mode {idx.adc_mode})")
+    ops.reset_launch_counts()
+    results = {}
+    for mode in ("auto", "per_query") + GROUPED:
+        idx.adc_mode = mode
+        results[mode] = serve_batches(db, queries, f"ivf_pq {mode}")
+    counts = ops.launch_counts()
+    log(f"  launches on the ivf_pq path (all four modes): {counts}")
+    for name in ("ivf_adc",) + tuple(f"ivf_adc_{m}" for m in GROUPED):
+        launches[name] = counts[name]
+    for mode in ("auto",) + GROUPED:
+        for Q in BATCHES:
+            if not same_result(results[mode][Q], results["per_query"][Q]):
+                raise AssertionError(f"ivf_pq {mode} Q={Q} differs from "
+                                     "per_query")
+    log("  ivf_pq auto, blocked and run_resident equal per_query bit for bit "
+        f"at Q = {BATCHES}")
+    log(f"  adc_stats: {db.adc_stats}")
+    log(f"  autotuner decisions: {LEDGER.decisions()}")
+    recall = recall_at_10(results["per_query"][max(BATCHES)][1], truth)
+    log(f"  recall@10 of ivf_pq against flat: {recall:.4f} "
+        f"({truth.shape[0]} queries)")
+    idx.adc_mode = "per_query"
     ivf_breakdown(idx, queries)
+
+    k, blk, m = idx.refine, idx.block_size, idx.codebooks.shape[0]
+    grids = {"ivf_adc": (K.ivf_adc_cuda, K.ivf_adc_plain, None),
+             "ivf_adc_blocked": (K.ivf_adc_blocked_cuda,
+                                 K.ivf_adc_blocked_plain, "blocked"),
+             "ivf_adc_run_resident": (K.ivf_adc_run_resident_cuda,
+                                      K.ivf_adc_run_resident_plain,
+                                      "run_resident")}
+    timed = {}
     for Q in BATCHES:
         codes, ids, visit, luts, coarse, spp = probe_inputs(idx, queries[:Q])
-        ms = gpu_ms(lambda: ivf_adc_cuda(codes, ids, visit, luts, coarse,
-                                         k=32, steps_per_probe=spp), 5)
-        log(f"  ivf_adc kernel Q={Q}: {ms:.3f} ms (bound "
-            f"{ivf_bound(ids, visit, luts, coarse, blk, m)[0]:.3f} ms)")
-    codes, ids, visit, luts, coarse, spp = probe_inputs(idx, q32)
-    ms = gpu_ms(lambda: ivf_adc_cuda(codes, ids, visit, luts, coarse, k=32,
-                                     steps_per_probe=spp), 5)
-    plain_ms = gpu_ms(lambda: ivf_adc_plain(codes, ids, visit, luts, coarse,
-                                            k=32, steps_per_probe=spp), 2)
-    b, by = ivf_bound(ids, visit, luts, coarse, blk, m)
-    err = 0.0
-    for Q in BATCHES[:2]:
+        t_s = time.perf_counter()
+        sched = ops.build_schedule(visit, qblk=8, pad_block=ids.shape[0] - 1)
+        torch.cuda.synchronize()
+        t_s = (time.perf_counter() - t_s) * 1e3
+        t_v = time.perf_counter()
+        share = ops.visit_sharing(visit, pad_block=ids.shape[0] - 1)
+        t_v = (time.perf_counter() - t_v) * 1e3
+        log(f"  Q={Q}: visit_sharing {t_v:.3f} ms (host clock, one "
+            f"torch.unique and a sync; {share}), build_schedule qblk=8 "
+            f"{t_s:.3f} ms (host clock, device sort and one sync; groups "
+            f"{sched['groups']}, runs {sched['n_runs']})")
+        for name, (cuda, plain, mode) in grids.items():
+            if mode is None:
+                def fn():
+                    return cuda(codes, ids, visit, luts, coarse, k=k,
+                                steps_per_probe=spp)
+            else:
+                def fn():
+                    return cuda(codes, ids, visit, sched, luts, coarse, k=k,
+                                steps_per_probe=spp)
+            ms = gpu_ms(fn, 5)
+            b = ivf_bound(ids, visit, luts, coarse, blk, m, k,
+                          sched if mode else None)
+            log(f"  {name} kernel Q={Q}: {ms:.3f} ms (bound {b[0]:.3f} ms, "
+                f"{b[1]})")
+            if Q == 32:
+                args = ((codes, ids, visit, luts, coarse) if mode is None
+                        else (codes, ids, visit, sched, luts, coarse))
+                plain_ms = gpu_ms(lambda: plain(*args, k=k,
+                                                steps_per_probe=spp), 2)
+                timed[name] = (ms, plain_ms, b, f"Q=32 T={visit.shape[1]} "
+                               f"blk={blk} m={m} k={k}"
+                               + (f" qblk=8 groups={sched['groups']}"
+                                  if mode else ""))
+    errs = dict.fromkeys(grids, 0.0)
+    for Q in BATCHES:
         args = probe_inputs(idx, queries[:Q])
-        err = max(err, compare_ivf(*args[:5], k=32, spp=args[5],
-                                   lut_dtype="float32",
-                                   label=f"ivf_adc full size Q={Q}"))
-    kernels.append({
-        "name": "ivf_adc", "route": "cuda",
-        "source": "src/repro_torch/csrc/ivf_adc.cu",
-        "replaces": "src/repro/kernels/ivf_adc.py:150",
-        "launches": ivf_launches["ivf_adc"], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-        "library_ms": None,
-        "shape": f"Q=32 T={visit.shape[1]} blk={blk} m={m} k=32"})
-    log(f"  ivf_adc Q=32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bound {b:.3f} ms ({by}), no single library call")
-    log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    for name, count in (("topk_distance", flat_launches["topk_distance"]),
-                        ("ivf_adc", ivf_launches["ivf_adc"])):
-        if count <= 0:
-            raise AssertionError(f"{name} never launched on the main path")
-    if recall < min_recall:
-        raise AssertionError(f"recall@10 {recall:.4f} below {min_recall}")
-    return kernels
+        kw = dict(k=k, spp=args[5], lut_dtype="float32")
+        if Q < max(BATCHES):
+            errs["ivf_adc"] = max(errs["ivf_adc"], compare_ivf(
+                *args[:5], **kw, label=f"ivf_adc full size Q={Q}"))
+        for mode in GROUPED:
+            errs[f"ivf_adc_{mode}"] = max(errs[f"ivf_adc_{mode}"],
+                                          compare_grouped(
+                *args[:5], mode=mode, qblk=8, **kw,
+                label=f"ivf_adc_{mode} full size Q={Q}"))
+    for name, (ms, plain_ms, b, shape) in timed.items():
+        kernels.append(kernel_entry(
+            name, "src/repro_torch/csrc/ivf_adc.cu",
+            {"ivf_adc": "src/repro/kernels/ivf_adc.py:150",
+             "ivf_adc_blocked": "src/repro/kernels/ivf_adc.py:284",
+             "ivf_adc_run_resident": "src/repro/kernels/ivf_adc.py:469"}[name],
+            launches[name], errs[name], ms, plain_ms, b, None,
+            shape + "; library_ms null: no single PyTorch call gathers and "
+            "sums table entries"))
+        log(f"  {name} Q=32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"bound {b[0]:.3f} ms ({b[1]}), no single library call")
+
+    # scan_all from the same trained state (the corpus tensor is shared)
+    t0 = time.perf_counter()
+    sdb = VectorDB("ivf_pq", metric="cosine", m=M_SUBSPACES, scan_all=True,
+                   device=device).load_state(idx.state_dict())
+    torch.cuda.synchronize()
+    log(f"  ivf_pq scan_all load_state: {time.perf_counter() - t0:.2f} s")
+    q32 = queries[:32]
+    sdb.query(q32, k=10)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS[32]):
+        t0 = time.perf_counter()
+        s, i = sdb.query(q32, k=10)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    s_recall = recall_at_10(i, truth[:32])
+    log(f"  ivf_pq scan_all Q=32: p50 {percentile(times, 50) * 1e3:.3f} ms, "
+        f"p99 {percentile(times, 99) * 1e3:.3f} ms (n={len(times)}), "
+        f"recall@10 against flat {s_recall:.4f}")
+    codes, luts, assign, live = scan_all_inputs(idx, q32)
+    compare_pq(codes, luts, k=k, lut_dtype="float32", valid=live,
+               extra=assign, label=f"pq_adc scan_all full size W="
+                                   f"{luts.shape[2]} Q=32")
+    del sdb, db, idx, codes, luts, assign, live
+    torch.cuda.empty_cache()
+    return recall
 
 
 def ivf_breakdown(idx, queries) -> None:
@@ -407,25 +691,26 @@ def ivf_breakdown(idx, queries) -> None:
         kw = dict(metric="dot", nprobe=idx.nprobe, steps_per_probe=idx.spp,
                   pad_block=idx.bucket_ids.shape[0] - 1)
         probe = gpu_ms(lambda: _ivf_probe_stage(*args, **kw), 5)
-        visit, luts, coarse = _ivf_probe_stage(*args, **kw)
+        visit, luts, coarse, _ = _ivf_probe_stage(*args, **kw)
         scan = gpu_ms(lambda: ops.ivf_adc_topk(
             idx.codes_bm, idx.bucket_ids, visit, luts, k=idx.refine,
-            coarse=coarse, steps_per_probe=idx.spp), 5)
+            coarse=coarse, steps_per_probe=idx.spp, mode="per_query"), 5)
         _, cand = ops.ivf_adc_topk(idx.codes_bm, idx.bucket_ids, visit, luts,
                                    k=idx.refine, coarse=coarse,
-                                   steps_per_probe=idx.spp)
+                                   steps_per_probe=idx.spp, mode="per_query")
         rerank = gpu_ms(lambda: _exact_rerank(idx.corpus, idx.corpus_sq, cand,
                                               q, metric="dot", k=10), 5)
         log(f"  ivf_pq stages Q={Q}: probe stage {probe:.3f} ms, ivf_adc "
             f"{scan:.3f} ms, re-rank {rerank:.3f} ms (device ms, CUDA events)")
 
 
-def ivf_bound(ids, visit, luts, coarse, blk: int, m: int,
-              k: int = 32) -> tuple:
-    """Least time for one ivf_adc call on these inputs: every distinct real
-    block it visits read once (codes and slot ids), the tables, the (Q, T)
-    visit table and (Q, nprobe) coarse terms read once, the (Q, k) result
-    written once; m float32 adds a scored slot."""
+def ivf_bound(ids, visit, luts, coarse, blk: int, m: int, k: int = 32,
+              sched=None) -> tuple:
+    """Least time for one IVF-ADC call on these inputs: every distinct real
+    block it visits read once (codes and slot ids), the tables and the
+    (Q, nprobe) coarse terms read once, the (Q, k) result written once,
+    and the grid's index input read once (the (Q, T) visit table; a grouped
+    grid also reads its schedule); m float32 adds a scored slot."""
     import torch
     pad = ids.shape[0] - 1
     real = int((torch.unique(visit) != pad).sum())
@@ -433,6 +718,9 @@ def ivf_bound(ids, visit, luts, coarse, blk: int, m: int,
     Q, T = visit.shape
     n_bytes = (real * blk * (m + 4) + luts.numel() * 4 + Q * T * 4
                + coarse.numel() * 4 + Q * k * 8)
+    if sched is not None:
+        n_bytes += sum(sched[key].numel() * 4
+                       for key in ("sb", "sq", "st", "rb", "rs", "rl"))
     return bound_ms(n_bytes, float(slots) * m)
 
 
@@ -445,7 +733,8 @@ def main(argv=None) -> int:
                     help="rank of the subspace the centres share; 0 gives "
                          "unit centres plus isotropic noise")
     ap.add_argument("--min-recall", type=float, default=0.5,
-                    help="fail below this recall@10 of ivf_pq against flat")
+                    help="fail below this recall@10 of ivf_pq against flat "
+                         "(pq's is printed, not gated)")
     args = ap.parse_args(argv)
 
     import torch
@@ -464,9 +753,15 @@ def main(argv=None) -> int:
 
     t_start = time.perf_counter()
     smi = phase_header()
+    t0 = time.perf_counter()
     phase_build()
+    log(f"[phase 2: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
     phase_mid(args.seed, device, args.rank)
+    log(f"[phase 3: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
     kernels = phase_main(args.n, args.seed, device, args.rank, args.min_recall)
+    log(f"[phase 4: {time.perf_counter() - t0:.1f} s]")
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

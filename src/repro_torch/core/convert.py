@@ -3,9 +3,11 @@
 K-means in the reference draws from ``jax.random`` and in the port from a
 ``torch.Generator``, so the two train different centroids from one seed.
 What crosses is the trained state itself: the numpy leaves of the
-reference's ``IVFPQIndex.state_dict()`` (or its flat corpus), or the npz
-leaves of a ``save_index`` snapshot, become what the port's
-``load_state`` takes. Nothing here imports the reference package.
+reference's ``PQIndex.state_dict()`` or ``IVFPQIndex.state_dict()`` (or
+its flat corpus), or the npz leaves of a ``save_index`` snapshot, become
+what the port's ``load_state`` takes; an ``IVFPQIndex(scan_all=True)``
+keeps the state's row-major codes beside the layout it rebuilds. Nothing
+here imports the reference package.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """VectorDB: Thistle's load/query trait as the deployment API (port of
 ``repro.core.db``, the single-host load and query path).
 
-    db = VectorDB(engine="flat|ivf_pq", metric="cosine|l2|dot")
+    db = VectorDB(engine="flat|pq|ivf_pq", metric="cosine|l2|dot")
     db.load(vectors)
     scores, ids = db.query(q, k=10)
 
@@ -19,11 +19,13 @@ import torch
 
 from repro_torch.core import distances as D
 from repro_torch.core.flat import FlatIndex
-from repro_torch.core.pq import IVFPQIndex
+from repro_torch.core.ivf import ScheduleCache
+from repro_torch.core.pq import IVFPQIndex, PQIndex
 from repro_torch.device import resolve_device
 
 ENGINES: Dict[str, Type] = {
     "flat": FlatIndex,      # paper: Iterative (exact); the recall oracle
+    "pq": PQIndex,          # product-quantized ADC scan (m bytes a row)
     "ivf_pq": IVFPQIndex,   # IVF buckets of PQ residuals + exact re-rank
 }
 
@@ -34,13 +36,16 @@ PLAN_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
 class _PlanLedger:
     """Plan bookkeeping: canonicalize the batch to the PLAN_BUCKETS ladder,
     count hit/miss per (engine, bucket, k, dtype, generation) plan key, pad
-    the batch up to its bucket."""
+    the batch up to its bucket. It also owns the block schedules the
+    grouped ADC grids build (``core.ivf.ScheduleCache``), which the engine
+    keys by (bucket, generation, nprobe)."""
 
     def _plan_init(self):
         self.plan_buckets = PLAN_BUCKETS
         self.plan_generation = 0
         self._plans = set()
         self.plan_stats = {"hits": 0, "misses": 0}
+        self.sched_cache = ScheduleCache()
 
     def _bucket(self, n: int) -> int:
         for b in self.plan_buckets:
@@ -96,8 +101,10 @@ class VectorDB(_PlanLedger):
         self._plan_init()
 
     def _plan_salt(self) -> tuple:
-        # the ADC grid mode changes the search program on the same shapes
-        return (getattr(self.index, "adc_mode", None),)
+        # the ADC grid mode and adaptive-nprobe masking each change the
+        # search program on the same shapes
+        return (getattr(self.index, "adc_mode", None),
+                getattr(self.index, "adaptive_nprobe", None))
 
     def load(self, vectors) -> "VectorDB":
         vectors = torch.as_tensor(vectors, device=self.device)
@@ -137,7 +144,24 @@ class VectorDB(_PlanLedger):
             return _empty_result(q.shape[0], k, self.device)
         if bucketize:
             q, Q = self._plan_batch(q, kk)
+            if hasattr(self.index, "sched_cache"):
+                # the engine completes the schedule key with its nprobe
+                self.index.sched_cache = self.sched_cache
+                self.index._sched_ctx = (self._bucket(Q),
+                                         self.plan_generation)
         else:
             Q = q.shape[0]
         scores, ids = self.index.query(q, k=kk)
         return scores[:Q], ids[:Q]
+
+    @property
+    def adc_stats(self):
+        """ADC grid-dispatch telemetry of an engine that keeps it (IVF-PQ):
+        batches per grid, autotuner probes and crossover, sharing and
+        effective-nprobe sums, and the schedule cache's hits and misses;
+        None for other engines."""
+        st = getattr(self.index, "adc_stats", None)
+        if st is None:
+            return None
+        return dict(st, sched_cache_hits=self.sched_cache.stats["hits"],
+                    sched_cache_misses=self.sched_cache.stats["misses"])

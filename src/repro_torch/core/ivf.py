@@ -1,5 +1,6 @@
-"""IVF coarse quantizer and the block-aligned inverted lists (port of
-``repro.core.ivf``, the parts the IVF-PQ load and query paths use).
+"""IVF coarse quantizer, the block-aligned inverted lists and the grouped
+grids' block schedule (port of ``repro.core.ivf``, the parts the IVF-PQ
+load and query paths use).
 
 ``kmeans`` and ``assign_clusters`` score rows against centroids in row
 chunks: the reference builds the whole (N, C) score matrix, which at
@@ -12,6 +13,8 @@ atomics in no fixed order, so trained centroids can differ in the last
 bits from run to run. Training is held to recall, not to bits.
 """
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import torch
 
@@ -132,6 +135,141 @@ def build_block_lists(assign, n_clusters: int, blk: int = 32):
     slots[bstart[a_sorted] * blk + rank] = order.to(torch.int32)
     return (slots.reshape(B + 1, blk), bstart.to(torch.int32),
             bcnt.to(torch.int32), spp)
+
+
+def visit_sharing(visit, *, pad_block=None) -> dict:
+    """Cheap sharing probe: ``{pairs, blocks, sharing}`` of a visit table
+    without building the segmented schedule, one ``torch.unique`` over the
+    (Q*T,) block ids on the table's device. ``ops.ivf_adc_topk``'s auto
+    dispatch reads this first and builds the schedule only when a grouped
+    grid will use it. Reading the counts is a host sync."""
+    v = torch.as_tensor(visit).reshape(-1)
+    if pad_block is not None:
+        v = v[v != pad_block]
+    pairs = int(v.numel())
+    blocks = int(torch.unique(v).numel())
+    return {"pairs": pairs, "blocks": blocks,
+            "sharing": float(pairs) / max(1, blocks)}
+
+
+def _quarter_octave(n: int) -> int:
+    """Next multiple of 2^e with 2^e about n / 8 (8 at least): a pad ladder
+    with O(log n) rungs that wastes at most about 25 %."""
+    if n <= 8:
+        return 8
+    e = (n - 1).bit_length() - 3
+    return -(-n >> e) << e
+
+
+def build_block_schedule(visit, *, qblk: int = 8, pad_block=None):
+    """Segmented schedule for the grouped IVF-ADC grids, built on the visit
+    table's device.
+
+    The (query, step) pairs of the (Q, T) visit table are sorted by block
+    id (stably, so a block's pairs stay in visit order) and each block's
+    run is cut into groups of ``qblk`` pairs, so that one program can read
+    the block once for up to qblk queries. Partial groups pad with the
+    sentinel query -1. Pairs that visit ``pad_block`` (the shared all-pad
+    block) are dropped: every slot there is -1. The group count G and the
+    run count R pad up the quarter-octave ladder, with sentinel groups and
+    empty runs pointing at ``pad_block`` (or 0).
+
+    Returns ``(sched_block (G,), sched_q (G, qblk), sched_t (G, qblk),
+    stats)`` int32 tensors, the reference's arrays exactly
+    (``repro/core/ivf.py`` ``build_block_schedule``); ``stats`` holds
+    ``pairs``, ``blocks``, ``sharing``, ``groups`` (before the pad),
+    ``runs`` = (run_block (R,), run_start (R,), run_len (R,)) with
+    run r covering groups [run_start[r], run_start[r] + run_len[r]),
+    ``grun`` (G,) group -> run (sentinel groups -> the first pad run), and
+    ``n_runs``. The pair, group and run counts, which fix G and R, are the
+    one host sync.
+    """
+    if qblk < 1:
+        raise ValueError(f"qblk must be >= 1, got {qblk}")
+    visit = torch.as_tensor(visit)
+    dev = visit.device
+    Q, T = visit.shape
+    fill = 0 if pad_block is None else int(pad_block)
+    key = visit.reshape(-1).long()
+    last = torch.iinfo(torch.int64).max
+    if pad_block is not None:  # pad pairs sort after every real one
+        key = torch.where(key == pad_block, last, key)
+    key, order = torch.sort(key, stable=True)
+    n = key.numel()
+    real = key != last
+    pos = torch.arange(n, device=dev)
+    new_run = real.clone()
+    new_run[1:] &= key[1:] != key[:-1]
+    run_of = (torch.cumsum(new_run, 0) - 1).clamp(min=0)
+    rank = pos - torch.cummax(torch.where(new_run, pos, 0), 0).values
+    run_len = torch.zeros(n, dtype=torch.int64, device=dev).scatter_add_(
+        0, run_of, real.long())
+    groups_per_run = -torch.div(-run_len, qblk, rounding_mode="floor")
+    gbase = torch.cumsum(groups_per_run, 0) - groups_per_run
+    gid = gbase[run_of] + torch.div(rank, qblk, rounding_mode="floor")
+    P, n_groups, n_runs = (int(x) for x in torch.stack(
+        [real.sum(), groups_per_run.sum(), new_run.sum()]).tolist())
+
+    G = _quarter_octave(max(1, n_groups))
+    i32 = dict(dtype=torch.int32, device=dev)
+    sched_block = torch.full((G,), fill, **i32)
+    sched_q = torch.full((G, qblk), -1, **i32)
+    sched_t = torch.zeros((G, qblk), **i32)
+    R = _quarter_octave(n_runs + 1)   # at least one empty pad run
+    run_block = torch.full((R,), fill, **i32)
+    run_start = torch.full((R,), n_groups, **i32)
+    run_lens = torch.zeros((R,), **i32)
+    grun = torch.full((G,), n_runs, **i32)
+    if P:
+        g, s = gid[:P], rank[:P] % qblk
+        b = key[:P].to(torch.int32)
+        sched_block[g] = b
+        sched_q[g, s] = torch.div(order[:P], T, rounding_mode="floor").to(torch.int32)
+        sched_t[g, s] = (order[:P] % T).to(torch.int32)
+        run_block[run_of[:P]] = b
+        run_start[:n_runs] = gbase[:n_runs].to(torch.int32)
+        run_lens[:n_runs] = groups_per_run[:n_runs].to(torch.int32)
+        grun[g] = run_of[:P].to(torch.int32)
+    stats = {"pairs": P, "blocks": n_runs,
+             "sharing": float(P) / max(1, n_runs), "groups": n_groups,
+             "runs": (run_block, run_start, run_lens), "grun": grun,
+             "n_runs": n_runs}
+    return sched_block, sched_q, sched_t, stats
+
+
+class ScheduleCache:
+    """Content-checked LRU of built block schedules (port of the
+    reference's ``ScheduleCache``).
+
+    The plan ledger (``core.db._PlanLedger``) owns one, keyed by
+    ``(plan bucket, plan generation, nprobe)`` plus the dispatcher's
+    ``(qblk, pad_block, Q, T)``. A hit also checks that the visit table
+    equals the cached one (``torch.equal`` on the device, a host sync), so
+    a changed batch or a mutated index misses and rebuilds instead of
+    reading a stale schedule. Entries hold the device tensors.
+    """
+
+    def __init__(self, cap: int = 8):
+        self.cap = int(cap)
+        self._entries = OrderedDict()
+        self.stats = {"hits": 0, "misses": 0}
+
+    def get(self, key, visit):
+        ent = self._entries.get(key)
+        if (ent is not None and ent[0].shape == visit.shape
+                and ent[0].device == visit.device
+                and torch.equal(ent[0], visit)):
+            self._entries.move_to_end(key)
+            self.stats["hits"] += 1
+            return ent[1]
+        self.stats["misses"] += 1
+        return None
+
+    def put(self, key, visit, built) -> None:
+        self._entries[key] = (visit, built)
+        self._entries.move_to_end(key)
+        while len(self._entries) > self.cap:
+            self._entries.popitem(last=False)
 
 
 class BlockListLayout:

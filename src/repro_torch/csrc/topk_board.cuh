@@ -51,6 +51,14 @@ struct WarpBoard {
     wpos = 0;
   }
 
+  // Take over a board another warp filled (after a __syncthreads()).
+  __device__ void attach(float* s_, int* key_, int k_) {
+    s = s_;
+    key = key_;
+    k = k_;
+    find_worst();
+  }
+
   // Worst entry of the board. Ties of (score, key), which only empty slots
   // have, go to the lower slot so that every lane agrees.
   __device__ void find_worst() {
@@ -131,7 +139,8 @@ struct WarpBoard {
 };
 
 // One warp folds `total` raw board entries (from chunk boards in device
-// memory) into its board; empty slots are skipped.
+// memory, or other warps' boards in shared memory) into its board; empty
+// slots are skipped.
 __device__ inline void fold_parts(WarpBoard& board, const float* part_s, const int* part_key,
                                   long total) {
   const int lane = threadIdx.x & 31;

@@ -1,5 +1,5 @@
 """Public wrappers around the port's kernels (port of
-``repro.kernels.ops``, the parts the exact and IVF-PQ engines use).
+``repro.kernels.ops``, the parts the exact, PQ and IVF-PQ engines use).
 
 Each wrapper prepares the kernel's inputs and dispatches on the tensor's
 device (``repro_torch.device.kernel_path``): a CUDA tensor launches the
@@ -7,18 +7,40 @@ hand-written kernel, a CPU tensor runs its plain PyTorch version.
 ``use_kernel=True`` forces the kernel (and raises on a CPU tensor);
 ``use_kernel=False`` forces the plain version, which only the
 kernel-against-plain comparisons use.
+
+``ivf_adc_topk`` also picks one of three grids that give the same ids and
+scores bit for bit: the per-query grid, the blocked grid over the
+segmented block schedule (``core.ivf.build_block_schedule``) and the
+run-resident grid over the same schedule's runs. ``mode="auto"`` (the
+default, as in the reference) asks the measured autotuner
+(``kernels.autotune``).
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
+from repro_torch.core.ivf import build_block_schedule, visit_sharing
+from repro_torch.device import kernel_path
 from repro_torch.kernels import ivf_adc as _ivf
+from repro_torch.kernels import pq_adc as _pq
 from repro_torch.kernels import topk_distance as _tk
+from repro_torch.kernels.autotune import LEDGER
 from repro_torch.kernels.topk_distance import NEG_INF
 
-ADC_LUT_DTYPES = _ivf.LUT_DTYPES
+ADC_LUT_DTYPES = _pq.LUT_DTYPES
 ADC_MODES = ("auto", "blocked", "per_query", "run_resident")
-LAUNCH_COUNTERS = (_tk.LAUNCHES, _ivf.LAUNCHES)
+LAUNCH_COUNTERS = (_tk.LAUNCHES, _pq.LAUNCHES, _ivf.LAUNCHES,
+                   _ivf.LAUNCHES_BLOCKED, _ivf.LAUNCHES_RUN_RESIDENT)
+
+# The untuned dispatch constants of the grouped grids, used only with
+# ``autotune=False``; the board bound caps the grouped plain versions'
+# (Q+1, T, blk) scatter board on every path, as in the reference.
+BLOCKED_MIN_SHARING = 2.0
+BLOCKED_MIN_QUERIES = 32
+BLOCKED_MAX_BOARD_SLOTS = 1 << 25
+DEFAULT_QBLK = 8
 
 
 def launch_counts() -> dict:
@@ -64,9 +86,75 @@ def topk_distance(corpus, q, *, k: int, metric: str = "dot", corpus_sq=None,
     return s, i
 
 
+def pq_adc(codes, luts, *, k: int, valid=None, extra_codes=None,
+           lut_dtype: str = "float32", use_kernel=None):
+    """Fused PQ ADC top-k. codes: (N, m) uint8-valued; luts: (Q, m, ksub),
+    or (Q, m + 1, W) with ``extra_codes`` (N,) int32 indexing the last
+    table row.
+
+    Rows where ``valid`` is False are knocked out through the additive
+    score bias (-1e30), as in the reference's wrapper. Returns the kernel's
+    (scores (Q, k) f32, ids (Q, k) int32): knocked-out rows and unfilled
+    slots sit at or below NEG_INF / 2.
+    """
+    N = codes.shape[0]
+    bias = torch.zeros((N,), dtype=torch.float32, device=codes.device)
+    if valid is not None:
+        bias = torch.where(valid, bias, NEG_INF)
+    return _pq.pq_adc(codes, luts.float(), bias, k=k, extra=extra_codes,
+                      lut_dtype=lut_dtype, use_kernel=use_kernel)
+
+
+def adc_topk(codes, luts, *, k: int, valid=None, extra_codes=None,
+             lut_dtype: str = "float32", use_kernel=None):
+    """PQ ADC top-k, the flat compressed hot path: ``pq_adc`` with
+    knocked-out and unfilled slots normalized to (-inf, -1), the sentinel
+    every engine reads."""
+    if lut_dtype not in ADC_LUT_DTYPES:
+        raise ValueError(f"lut_dtype {lut_dtype!r} not in {ADC_LUT_DTYPES}")
+    s, i = pq_adc(codes, luts, k=k, valid=valid, extra_codes=extra_codes,
+                  lut_dtype=lut_dtype, use_kernel=use_kernel)
+    return normalize_knockouts(s, i)
+
+
+def build_schedule(visit, *, qblk: int, pad_block=None) -> dict:
+    """The grouped grids' inputs for one visit table: the segmented
+    schedule (``sb``, ``sq``, ``st``), its runs (``rb``, ``rs``, ``rl``),
+    the group -> run map ``grun``, and the real group and run counts."""
+    sb, sq, st, s2 = build_block_schedule(visit, qblk=qblk,
+                                          pad_block=pad_block)
+    rb, rs, rl = s2["runs"]
+    return {"sb": sb, "sq": sq, "st": st, "rb": rb, "rs": rs, "rl": rl,
+            "grun": s2["grun"], "groups": s2["groups"],
+            "n_runs": s2["n_runs"]}
+
+
+def _build_schedule_cached(visit, qblk, pad_block, cache, base_key, Q, T):
+    """Build the schedule for one (visit table, qblk), or take it from the
+    plan ledger's ``ScheduleCache``; a hit skips the sort and is checked
+    against the visit table itself, so a stale entry cannot alias."""
+    key = (base_key, qblk,
+           None if pad_block is None else int(pad_block), Q, T)
+    if cache is not None:
+        hit = cache.get(key, visit)
+        if hit is not None:
+            return hit
+    built = build_schedule(visit, qblk=qblk, pad_block=pad_block)
+    if cache is not None:
+        cache.put(key, visit, built)
+    return built
+
+
+def _synchronize(x) -> None:
+    if x.is_cuda:
+        torch.cuda.synchronize(x.device)
+
+
 def ivf_adc_topk(bucket_codes, bucket_ids, visit, luts, *, k: int,
                  coarse=None, steps_per_probe: int = 1, use_kernel=None,
-                 lut_dtype: str = "float32", mode: str = "per_query"):
+                 lut_dtype: str = "float32", mode: str = "auto", qblk=None,
+                 pad_block=None, stats=None, autotune=None,
+                 sched_cache=None, sched_key=()):
     """Bucket-resident IVF-ADC top-k, the IVF-PQ hot path. Work scales
     with the probed candidate count, not N.
 
@@ -78,24 +166,98 @@ def ivf_adc_topk(bucket_codes, bucket_ids, visit, luts, *, k: int,
     ``coarse``: optional (Q, nprobe) f32 additive per-probe term, also a
     probe knockout when an entry is NEG_INF.
 
-    Only the per-query grid is ported; the grouped grids give the same
-    results (invariant 5 of docs/ARCHITECTURE.md) and come with
-    ROADMAP.md Queue 1, item 3. Returns (scores (Q, k) f32, ids (Q, k)
-    int32) with knocked-out and unfilled slots as (-inf, -1).
+    ``mode`` picks the grid: 'per_query', 'blocked' (the visit table's
+    pairs sorted into groups of ``qblk`` that share a block, with
+    ``pad_block``'s pairs dropped), 'run_resident' (each distinct block
+    once for the batch), or 'auto'. 'auto' reads the cheap sharing probe
+    (``visit_sharing``) and asks the measured autotuner (``LEDGER``, or
+    the ``AutoTuner`` passed as ``autotune``) for the grid; while a key is
+    still being measured, each batch times one candidate grid.
+    ``autotune=False`` uses the untuned constants instead. A grouped grid
+    runs only where the (Q+1, T, blk) board fits BLOCKED_MAX_BOARD_SLOTS,
+    as in the reference. ``sched_cache``/``sched_key``: the plan ledger's
+    ``ScheduleCache`` and its (bucket, generation, nprobe) context, so
+    repeated batches skip the sort. ``stats`` (a dict) receives the
+    decision: 'mode', 'sharing', 'pairs', 'blocks', 'groups', 'qblk',
+    'probe', 'crossover'.
+
+    Returns (scores (Q, k) f32, ids (Q, k) int32) with knocked-out and
+    unfilled slots as (-inf, -1), the same from every grid.
     """
     if lut_dtype not in ADC_LUT_DTYPES:
         raise ValueError(f"lut_dtype {lut_dtype!r} not in {ADC_LUT_DTYPES}")
     if mode not in ADC_MODES:
         raise ValueError(f"mode {mode!r} not in {ADC_MODES}")
-    if mode != "per_query":
-        raise NotImplementedError(
-            f"adc_mode={mode!r}: the grouped IVF-ADC grids are not ported "
-            "yet (ROADMAP.md Queue 1, item 3); use mode='per_query'")
     Q, T = visit.shape
     if coarse is None:
         coarse = torch.zeros((Q, T // steps_per_probe), dtype=torch.float32,
                              device=visit.device)
-    s, i = _ivf.ivf_adc(bucket_codes, bucket_ids, visit, luts, coarse, k=k,
-                        steps_per_probe=steps_per_probe, lut_dtype=lut_dtype,
-                        use_kernel=use_kernel)
+    backend = "cuda" if kernel_path(visit, use_kernel) else "plain"
+    blk, m = bucket_codes.shape[1], bucket_codes.shape[2]
+    sstats = {"mode": "per_query", "sharing": 0.0, "pairs": 0, "blocks": 0,
+              "groups": 0, "qblk": 0, "probe": False, "crossover": None}
+    grid = "per_query"
+    eff_qblk = DEFAULT_QBLK if qblk is None else qblk
+    probe_cfg = tuner = tkey = None
+    if mode != "per_query":
+        sstats.update(visit_sharing(visit, pad_block=pad_block))
+        board_ok = (Q + 1) * T * blk <= BLOCKED_MAX_BOARD_SLOTS
+        if mode != "auto":
+            grid = mode
+        elif autotune is False:
+            if (Q >= BLOCKED_MIN_QUERIES and board_ok
+                    and sstats["sharing"] >= BLOCKED_MIN_SHARING):
+                grid = "blocked"
+        else:
+            tuner = LEDGER if autotune is None else autotune
+            tkey = (backend, m, luts.shape[-1], blk, lut_dtype)
+            entry = tuner.lookup(tkey)
+            if entry is not None:
+                sstats["crossover"] = entry["crossover"]
+                if (sstats["pairs"] > 0 and board_ok
+                        and sstats["sharing"] >= entry["crossover"]):
+                    grid = entry["grouped_mode"]
+                    eff_qblk = entry["qblk"] if qblk is None else qblk
+            elif sstats["pairs"] > 0 and board_ok:
+                probe_cfg = tuner.next_probe(tkey)
+                if probe_cfg is not None:
+                    grid = probe_cfg[0]
+                    if probe_cfg[1]:
+                        eff_qblk = probe_cfg[1]
+                    sstats["probe"] = True
+    sched = None
+    if grid != "per_query":
+        sched = _build_schedule_cached(visit, eff_qblk, pad_block,
+                                       sched_cache, sched_key, Q, T)
+        sstats["groups"] = sched["groups"]
+        sstats["qblk"] = eff_qblk
+    sstats["mode"] = grid
+    if stats is not None:
+        stats.update(sstats)
+    kw = dict(k=k, steps_per_probe=steps_per_probe, lut_dtype=lut_dtype,
+              use_kernel=use_kernel)
+
+    def _run(g):
+        if g == "per_query":
+            return _ivf.ivf_adc(bucket_codes, bucket_ids, visit, luts, coarse,
+                                **kw)
+        fn = _ivf.ivf_adc_blocked if g == "blocked" else _ivf.ivf_adc_run_resident
+        return fn(bucket_codes, bucket_ids, visit, sched, luts, coarse, **kw)
+
+    if probe_cfg is not None:
+        # a measured probe: a warm-up call, then one timed call, each ending
+        # in a synchronize (the schedule is built already, so its sort is
+        # the same for every grouped candidate and leaves the comparison)
+        _run(grid)
+        _synchronize(visit)
+        t0 = time.perf_counter()
+        s, i = _run(grid)
+        _synchronize(visit)
+        tuner.record(tkey, probe_cfg, sstats["sharing"],
+                     time.perf_counter() - t0)
+        entry = tuner.lookup(tkey)
+        if entry is not None and stats is not None:
+            stats["crossover"] = entry["crossover"]
+    else:
+        s, i = _run(grid)
     return normalize_knockouts(s, i)

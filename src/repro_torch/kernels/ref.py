@@ -34,6 +34,23 @@ def topk_distance_ref(corpus, q, *, k: int, metric: str = "dot",
     return s, i.to(torch.int32)
 
 
+def pq_adc_ref(codes, luts, *, k: int, bias=None):
+    """codes: (N, m) int; luts: (Q, m, ksub) f32 -> (scores (Q, k), ids
+    (Q, k) int32).
+
+    Fused ADC-score + top-k oracle: score[q, n] = sum_j luts[q, j,
+    codes[n, j]] (+ bias[n]), higher = closer.
+    """
+    idx = codes.long().T                                     # (m, N)
+    scores = 0
+    for j in range(idx.shape[0]):
+        scores = scores + luts[:, j, idx[j]]
+    if bias is not None:
+        scores = scores + bias[None, :]
+    s, i = topk_scores(scores, k)
+    return s, i.to(torch.int32)
+
+
 def ivf_adc_ref(bucket_codes, bucket_ids, visit, luts, coarse=None, *,
                 k: int, steps_per_probe: int = 1):
     """Bucket-probed ADC oracle: the materialize-everything gather path.

@@ -171,14 +171,6 @@ def test_filtered_and_hybrid_are_not_ported_yet(data, kw):
         db.query(q, k=3, **kw)
 
 
-@pytest.mark.parametrize("mode", ["auto", "blocked", "run_resident"])
-def test_grouped_adc_modes_are_not_ported_yet(data, mode):
-    corpus, q = data
-    db = VectorDB("ivf_pq", m=4, ksub=32, adc_mode=mode, device="cpu").load(corpus)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        db.query(q, k=3)
-
-
 def test_chunked_training_and_encoding_match_whole(data, monkeypatch):
     """k-means, assignment, PQ training and encoding walk the rows in
     chunks sized by ``SCORE_BUDGET``; a budget of a few rows gives the same

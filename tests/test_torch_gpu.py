@@ -62,7 +62,7 @@ def test_ivf_adc_kernel_matches_plain(metric, lut_dtype):
     corpus = centres[rng.integers(0, 40, 30_000)] + rng.normal(
         size=(30_000, 64)).astype(np.float32)
     db = VectorDB("ivf_pq", metric=metric, m=16, lut_dtype=lut_dtype,
-                  refine=0, device=dev).load(corpus)
+                  refine=0, adc_mode="per_query", device=dev).load(corpus)
     q = torch.as_tensor(corpus[:37], device=dev)
     ops.reset_launch_counts()
     db.query(q, k=50)
@@ -72,7 +72,7 @@ def test_ivf_adc_kernel_matches_plain(metric, lut_dtype):
     probe_metric = "dot" if metric == "cosine" else metric
     if metric == "cosine":
         q = D.l2_normalize(q)
-    visit, luts, coarse = _ivf_probe_stage(
+    visit, luts, coarse, _ = _ivf_probe_stage(
         idx.codebooks, idx.centroids, q, idx.block_table, metric=probe_metric,
         nprobe=idx.nprobe, steps_per_probe=idx.spp,
         pad_block=idx.bucket_ids.shape[0] - 1)
@@ -84,3 +84,111 @@ def test_ivf_adc_kernel_matches_plain(metric, lut_dtype):
     torch.cuda.synchronize()
     assert torch.equal(ki, pi.to(ki.dtype))
     assert torch.equal(ks, ps)
+
+
+def _same(a, b):
+    (ks, ki), (ps, pi) = a, b
+    torch.cuda.synchronize()
+    assert torch.equal(ki, pi.to(ki.dtype))
+    assert torch.equal(ks, ps)
+
+
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("Q,k", [(1, 10), (7, 200), (40, 32)])
+def test_pq_adc_kernel_matches_plain(lut_dtype, Q, k):
+    """Random codes, a tenth of the rows knocked out, duplicated rows (their
+    scores tie and go to the lower id): the kernel equals its plain
+    version bit for bit, through ops.adc_topk."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(Q * 1000 + k)
+    codes = torch.randint(0, 256, (50_003, 64), generator=g, device=dev,
+                          dtype=torch.uint8)
+    codes[-300:] = codes[:300]
+    luts = torch.randn(Q, 64, 256, generator=g, device=dev)
+    valid = torch.rand(codes.shape[0], generator=g, device=dev) >= 0.1
+    kw = dict(k=k, valid=valid, lut_dtype=lut_dtype)
+    ops.reset_launch_counts()
+    got = ops.adc_topk(codes, luts, **kw)
+    assert ops.launch_counts()["pq_adc"] == 1
+    _same(got, ops.adc_topk(codes, luts, use_kernel=False, **kw))
+    assert bool(valid[got[1][got[1] >= 0].long()].all())
+
+
+@pytest.mark.parametrize("lut_dtype", ["float32", "int8"])
+def test_pq_adc_wide_extra_row_matches_plain(lut_dtype):
+    """scan_all's shape: m = 16 uint8 subspaces padded to W = 3001 > 256,
+    and an int32 extra column whose table row the kernel reads from device
+    memory."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    N, m, W, Q = 20_000, 16, 3001, 9
+    codes = torch.randint(0, 256, (N, m), generator=g, device=dev,
+                          dtype=torch.uint8)
+    extra = torch.randint(0, W, (N,), generator=g, device=dev,
+                          dtype=torch.int32)
+    luts = torch.randn(Q, m + 1, W, generator=g, device=dev)
+    kw = dict(k=50, extra_codes=extra, lut_dtype=lut_dtype)
+    _same(ops.adc_topk(codes, luts, **kw),
+          ops.adc_topk(codes, luts, use_kernel=False, **kw))
+
+
+def _probe_inputs(db, q):
+    idx = db.index
+    metric = "dot" if idx.metric == "cosine" else idx.metric
+    if idx.metric == "cosine":
+        q = D.l2_normalize(q)
+    visit, luts, coarse, _ = _ivf_probe_stage(
+        idx.codebooks, idx.centroids, q, idx.block_table, metric=metric,
+        nprobe=idx.nprobe, steps_per_probe=idx.spp,
+        pad_block=idx.bucket_ids.shape[0] - 1)
+    return (idx.codes_bm, idx.bucket_ids, visit, luts), dict(
+        coarse=coarse, steps_per_probe=idx.spp,
+        pad_block=idx.bucket_ids.shape[0] - 1)
+
+
+@pytest.mark.parametrize("mode,qblk", [("blocked", 8), ("blocked", 4),
+                                       ("run_resident", 8),
+                                       ("run_resident", 16)])
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_grouped_kernels_match_plain_and_per_query(metric, lut_dtype, mode,
+                                                  qblk):
+    """Each grouped kernel equals its plain version and the per-query
+    kernel bit for bit, on the inputs the engine builds (shared tables for
+    dot, per-probe tables for l2, a knocked-out probe)."""
+    dev = _card()
+    rng = np.random.default_rng(2)
+    centres = rng.normal(size=(30, 64)).astype(np.float32)
+    corpus = centres[rng.integers(0, 30, 20_000)] + rng.normal(
+        size=(20_000, 64)).astype(np.float32)
+    db = VectorDB("ivf_pq", metric=metric, m=16, refine=0, nprobe=6,
+                  device=dev).load(corpus)
+    args, kw = _probe_inputs(db, torch.as_tensor(corpus[:45], device=dev))
+    kw["coarse"][3, 1] = -1e30
+    kw.update(k=40, lut_dtype=lut_dtype)
+    ops.reset_launch_counts()
+    got = ops.ivf_adc_topk(*args, mode=mode, qblk=qblk, use_kernel=True, **kw)
+    assert ops.launch_counts()[f"ivf_adc_{mode}"] == 1
+    _same(got, ops.ivf_adc_topk(*args, mode=mode, qblk=qblk,
+                                use_kernel=False, **kw))
+    _same(got, ops.ivf_adc_topk(*args, mode="per_query", use_kernel=True,
+                                **kw))
+
+
+def test_engines_launch_their_kernels_on_the_card():
+    """VectorDB("pq") runs pq_adc; ivf_pq under each forced grid runs that
+    grid's kernel and answers the same."""
+    dev = _card()
+    rng = np.random.default_rng(4)
+    corpus = rng.normal(size=(8_000, 32)).astype(np.float32)
+    q = torch.as_tensor(corpus[:20], device=dev)
+    ops.reset_launch_counts()
+    VectorDB("pq", m=8, device=dev).load(corpus).query(q, k=10)
+    assert ops.launch_counts()["pq_adc"] == 1
+    db = VectorDB("ivf_pq", m=8, adc_mode="per_query", device=dev).load(corpus)
+    want = db.query(q, k=10)
+    for mode in ("blocked", "run_resident"):
+        db.index.adc_mode = mode
+        ops.reset_launch_counts()
+        _same(db.query(q, k=10), want)
+        assert ops.launch_counts()[f"ivf_adc_{mode}"] == 1

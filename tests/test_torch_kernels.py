@@ -25,7 +25,7 @@ from repro.kernels.ops import _round_lut_bf16 as jax_round_bf16  # noqa: E402
 from repro_torch.core.ivf import build_block_lists  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as TR  # noqa: E402
-from repro_torch.kernels.ivf_adc import quantize_lut_int8, round_lut_bf16  # noqa: E402
+from repro_torch.kernels.pq_adc import quantize_lut_int8, round_lut_bf16  # noqa: E402
 from repro_torch.kernels.topk_distance import topk_distance_plain  # noqa: E402
 
 NEG_INF = -1e30

@@ -79,6 +79,23 @@ def test_use_kernel_true_on_cpu_raises():
         ops.ivf_adc_topk(codes, ids, visit, luts, k=2, use_kernel=True)
 
 
+@pytest.mark.parametrize("mode", ["auto", "per_query", "blocked",
+                                  "run_resident"])
+def test_every_adc_entry_refuses_the_kernel_on_cpu(mode):
+    """``use_kernel=True`` on CPU tensors raises in every ADC mode and in
+    the flat ADC scan, before any grid or schedule is chosen."""
+    codes = torch.zeros((2, 8, 4), dtype=torch.uint8)
+    ids = torch.zeros((2, 8), dtype=torch.int32)
+    visit = torch.zeros((1, 1), dtype=torch.int32)
+    luts = torch.zeros((1, 4, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.ivf_adc_topk(codes, ids, visit, luts, k=2, use_kernel=True,
+                         mode=mode)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.adc_topk(torch.zeros((9, 4), dtype=torch.uint8), luts, k=2,
+                     use_kernel=True)
+
+
 class _CudaLike:
     is_cuda = True
     device = "cuda:0"
@@ -112,7 +129,9 @@ def test_flat_query_runs_the_plain_version_on_cpu():
     ops.reset_launch_counts()
     s, i = db.query(corpus[:2], k=3)
     assert s.shape == (2, 3) and i.device.type == "cpu"
-    assert ops.launch_counts() == {"topk_distance": 0, "ivf_adc": 0}
+    assert ops.launch_counts() == {
+        "topk_distance": 0, "pq_adc": 0, "ivf_adc": 0, "ivf_adc_blocked": 0,
+        "ivf_adc_run_resident": 0}
 
 
 def test_kernel_k_limit_is_named():
@@ -128,6 +147,44 @@ def test_kernel_k_limit_is_named():
         ivf_adc_cuda(codes, torch.zeros((2, 8), dtype=torch.int32),
                      torch.zeros((1, 1), dtype=torch.int32),
                      torch.zeros((1, 4, 16)), torch.zeros((1, 1)), k=KMAX + 1)
+
+
+def test_new_kernel_limits_are_named():
+    """pq_adc and the grouped grids refuse k above the boards' size with
+    the limit named, before anything touches the card."""
+    from repro_torch.kernels.ivf_adc import (KMAX, ivf_adc_blocked_cuda,
+                                             ivf_adc_run_resident_cuda)
+    from repro_torch.kernels.pq_adc import pq_adc_cuda
+    with pytest.raises(ValueError, match=str(KMAX)):
+        pq_adc_cuda(torch.zeros((400, 4), dtype=torch.uint8),
+                    torch.zeros((2, 4, 16)), torch.zeros(400), k=KMAX + 1)
+    codes = torch.zeros((2, 8, 4), dtype=torch.uint8)
+    sched = {key: torch.zeros((8, 8), dtype=torch.int32)
+             for key in ("sq", "st")}
+    for fn in (ivf_adc_blocked_cuda, ivf_adc_run_resident_cuda):
+        with pytest.raises(ValueError, match=str(KMAX)):
+            fn(codes, torch.zeros((2, 8), dtype=torch.int32),
+               torch.zeros((1, 1), dtype=torch.int32), sched,
+               torch.zeros((1, 4, 16)), torch.zeros((1, 1)), k=KMAX + 1)
+
+
+def test_pq_adc_table_limit_is_named():
+    """A table too large for a block's shared memory is refused with the
+    sizes named (pq_adc stages the first 256 entries of each subspace)."""
+    from repro_torch.kernels import pq_adc as P
+
+    class _Lib:
+        @staticmethod
+        def pq_adc_query_smem(lut_type, m, has_extra, W, k):
+            return ((4, 2, 1)[lut_type] * m * min(W, 256) + 64 * k
+                    + 4 * (m + has_extra))
+
+    with pytest.raises(ValueError, match="m=256, W=256 float32"):
+        P._query_tile(_Lib, 0, 256, 0, 256, 10, 4, 232_448, "float32")
+    assert P._query_tile(_Lib, 0, 64, 1, 2973, 10, 512, 232_448,
+                         "float32") == 3
+    assert P._query_tile(_Lib, 2, 64, 0, 256, 10, 512, 232_448,
+                         "int8") == P.MAX_QT
 
 
 def _stand_in_nvcc(tmp_path, body):
@@ -150,13 +207,13 @@ echo "ptxas info    : Used 40 registers" && echo lib > "$out"
 ''')
     monkeypatch.setenv("CUDA_HOME", home)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    _build.build_all(["topk_distance", "ivf_adc"])
+    _build.build_all(["topk_distance", "ivf_adc", "pq_adc"])
     lines = calls.read_text().splitlines()
-    assert len(lines) == 2
+    assert len(lines) == 3
     assert all("arch=compute_90a,code=sm_90a" in ln for ln in lines)
     assert "registers" in _build.build_log("ivf_adc")
-    _build.build_all(["topk_distance", "ivf_adc"])  # keyed on the sources
-    assert len(calls.read_text().splitlines()) == 2
+    _build.build_all(["topk_distance", "ivf_adc", "pq_adc"])  # keyed on the sources
+    assert len(calls.read_text().splitlines()) == 3
 
 
 def test_build_failure_names_the_source(tmp_path, monkeypatch):
