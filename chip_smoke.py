@@ -4,10 +4,11 @@
     python3 chip_smoke.py [--n ROWS] [--seed S] [--rank R] [--min-recall X]
 
 Phases, in order; any failure raises and the script exits non-zero:
-  1. header: the card's name and power limit (nvidia-smi), torch and CUDA;
-  2. build: the three CUDA sources (topk_distance, pq_adc, ivf_adc with its
-     three grids), one nvcc each, in parallel; the ptxas lines (registers,
-     shared memory, spills);
+  1. header: the card's name, power limit and top SM clock (nvidia-smi),
+     torch and CUDA;
+  2. build: the four CUDA sources (topk_distance, pq_adc, ivf_adc with its
+     three grids, hamming with its matrix and shortlist entries), one nvcc
+     each, in parallel; the ptxas lines (registers, shared memory, spills);
   3. kernel against plain version at mid size (262,144 rows, d = 768,
      m = 64): ``topk_distance`` for {dot, l2} x k in {10, 200} x Q in
      {1, 32, 512}; ``pq_adc`` for {dot, l2} x {float32, bfloat16, int8} x
@@ -16,14 +17,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``ivf_adc_blocked`` and ``ivf_adc_run_resident`` for {dot, l2,
      cosine} x {float32, bfloat16, int8} x Q in {1, 32, 512} (the grouped
      grids at qblk 8, and 4 and 16 for float32 dot), each grouped result
-     also against the per-query kernel's, bit for bit;
+     also against the per-query kernel's, bit for bit; ``hamming`` and
+     ``hamming_shortlist`` for (T, W) in {(4, 4), (8, 2), (1, 8)} x Q in
+     {1, 32, 512} (the shortlist at L in {10, 64, 256}) on words over the
+     full 2^32 range, a ragged N and codes of five distinct values (ties
+     everywhere), bit for bit;
   4. main path at full size on the MS MARCO v1 passage count (8,841,823
      rows) of d = 768 cosine embeddings, clustered synthetic data made on
      the card from ``--seed``: ``VectorDB("flat")``, ``VectorDB("pq")``,
      then ``VectorDB("ivf_pq")`` served under adc_mode auto (the default),
      per_query, blocked and run_resident from one trained state (every
      grid's ids and scores equal per_query's bit for bit), and scan_all at
-     Q = 32; load seconds, p50/p99 latency and QPS at Q = 1, 32, 512,
+     Q = 32, then ``VectorDB("lsh")`` at the reference defaults (128 bits,
+     4 tables, shortlist 64) with the earlier engines dropped, its kernel
+     path's ids and scores equal to the plain path's at Q = 1 and 32, and
+     its stage times; load seconds, p50/p99 latency and QPS at Q = 1, 32, 512,
      recall@10 against flat, each kernel's time beside its bound, the plain
      version's and a library call's time, launches on each engine's path,
      full-size batches of each kernel against its plain version, peak
@@ -52,6 +60,11 @@ REPS = {1: 30, 32: 12, 512: 4}
 GROUPED = ("blocked", "run_resident")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# 32-bit population counts a clock per SM at compute capability 9.0 (CUDA
+# C++ Programming Guide, arithmetic instruction throughput table); times the
+# SM count and the top SM clock nvidia-smi reports, it bounds hamming
+POPC_PER_CLOCK_PER_SM = 16
+HAMMING_SHAPES = ((4, 4), (8, 2), (1, 8))   # (tables, words): 128, 16, 256 bits
 
 
 def log(*args) -> None:
@@ -113,9 +126,10 @@ def gpu_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+def bound_ms(n_bytes: float, n_ops: float,
+             ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -305,21 +319,33 @@ def scan_all_inputs(index, q):
 
 
 # -------------------------------------------------------------- phases
-def phase_header() -> str:
+def nvidia_smi(query: str) -> str:
+    """First card's line of ``nvidia-smi --query-gpu=<query>``."""
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def phase_header() -> tuple:
+    """Log the card; returns (name and power limit, the popcount rate a
+    second: POPC_PER_CLOCK_PER_SM x SMs x top SM clock)."""
     import torch
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = nvidia_smi("name,power.limit")
     log(smi)
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    popc = POPC_PER_CLOCK_PER_SM * sms * mhz * 1e6
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, "
-        f"count {torch.cuda.device_count()}")
-    return smi
+        f"count {torch.cuda.device_count()}, SMs {sms}, top SM clock "
+        f"{mhz:.0f} MHz, popcount rate {popc:.4e}/s")
+    return smi, popc
 
 
 def phase_build() -> None:
     from repro_torch.kernels import _build
-    secs = _build.build_all(["topk_distance", "pq_adc", "ivf_adc"])
+    secs = _build.build_all(["topk_distance", "pq_adc", "ivf_adc", "hamming"])
     for name, s in secs.items():
         log(f"build {name}: {s:.1f} s")
         for line in _build.build_log(name).splitlines():
@@ -380,6 +406,60 @@ def phase_mid(seed: int, device, rank: int) -> None:
         del db
     del corpus, queries
     torch.cuda.empty_cache()
+    hamming_mid(seed, device)
+
+
+def random_words(gen, shape, device):
+    """int32 bit patterns over the full 2^32 range."""
+    import torch
+    return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                         device=device, dtype=torch.int64).to(torch.int32)
+
+
+def compare_hamming(qc, cc, L: int, label: str, full: bool) -> float:
+    """hamming_shortlist (and with ``full`` the matrix entry) on the kernel
+    against the plain version: integer results, so bit equality. Returns
+    the largest |ddist| (0 when equal)."""
+    import torch
+    from repro_torch.kernels import ops
+    kern = ops.hamming_shortlist(qc, cc, L, use_kernel=True)
+    plain = ops.hamming_shortlist(qc, cc, L, use_kernel=False)
+    err = bit_equal((kern[0].float(), kern[1]), (plain[0].float(), plain[1]),
+                    f"hamming_shortlist {label} L={L}")
+    if full:
+        same = torch.equal(ops.hamming(qc, cc, use_kernel=True),
+                           ops.hamming(qc, cc, use_kernel=False))
+        log(f"  hamming {label}: (Q, N) matrix equal {same} (bound: equal)")
+        if not same:
+            raise AssertionError(f"hamming {label}: kernel and plain differ")
+    return err
+
+
+def hamming_mid(seed: int, device) -> None:
+    """Both hamming entries against their plain versions at MID_ROWS rows:
+    random words at each (T, W) and Q, a ragged N, and heavy ties."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    for T, W in HAMMING_SHAPES:
+        cc = random_words(gen, (T, MID_ROWS, W), device)
+        for Q in BATCHES:
+            qc = random_words(gen, (T, Q, W), device)
+            for L in (10, 64, 256):
+                compare_hamming(qc, cc, L, f"T={T} W={W} Q={Q}",
+                                full=L == 10)
+        del cc
+    cc = random_words(gen, (4, MID_ROWS - 77, 4), device)
+    compare_hamming(random_words(gen, (4, 32, 4), device), cc, 64,
+                    f"T=4 W=4 Q=32 N={MID_ROWS - 77} (ragged)", full=True)
+    distinct = random_words(gen, (4, 5, 4), device)
+    pick = torch.randint(0, 5, (MID_ROWS,), generator=gen, device=device)
+    cc = distinct[:, pick].contiguous()
+    qc = torch.cat([distinct, random_words(gen, (4, 27, 4), device)], dim=1)
+    for L in (64, 256):
+        compare_hamming(qc, cc, L, "T=4 W=4 Q=32, five distinct codes (ties)",
+                        full=L == 64)
+    del cc, qc
+    torch.cuda.empty_cache()
 
 
 def serve_and_count(db, queries, label: str):
@@ -406,8 +486,8 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound,
             "bound_by": bound[1], "library_ms": library_ms, "shape": shape}
 
 
-def phase_main(n: int, seed: int, device, rank: int,
-               min_recall: float) -> list:
+def phase_main(n: int, seed: int, device, rank: int, min_recall: float,
+               popc_per_s: float) -> list:
     import torch
     log(f"phase 4: main path, N={n} rows (MS MARCO v1 passages: "
         f"{MARCO_PASSAGES}), d={DIM}, cosine, shared subspace rank {rank}")
@@ -427,13 +507,24 @@ def phase_main(n: int, seed: int, device, rank: int,
     recalls["ivf_pq"] = main_ivf(corpus, queries, truth, device, kernels,
                                  launches)
     log(f"  [ivf_pq: {time.perf_counter() - t0:.1f} s]")
-    log(f"  peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory through ivf_pq: {peak / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    recalls["lsh"] = main_lsh(corpus, queries, truth, device, kernels,
+                              launches, popc_per_s)
+    log(f"  [lsh: {time.perf_counter() - t0:.1f} s]")
+    lsh_peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory in lsh (earlier engines dropped): "
+        f"{lsh_peak / 1e9:.2f} GB; whole phase "
+        f"{max(peak, lsh_peak) / 1e9:.2f} GB")
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"{name} never launched on the main path")
-    if recalls["ivf_pq"] < min_recall:
-        raise AssertionError(f"ivf_pq recall@10 {recalls['ivf_pq']:.4f} "
-                             f"below {min_recall}")
+    for engine in ("ivf_pq", "lsh"):
+        if recalls[engine] < min_recall:
+            raise AssertionError(f"{engine} recall@10 {recalls[engine]:.4f} "
+                                 f"below {min_recall}")
     return kernels
 
 
@@ -704,6 +795,111 @@ def ivf_breakdown(idx, queries) -> None:
             f"{scan:.3f} ms, re-rank {rerank:.3f} ms (device ms, CUDA events)")
 
 
+def main_lsh(corpus, queries, truth, device, kernels, launches,
+             popc_per_s: float) -> float:
+    """lsh at the reference defaults: serve, recall, kernel path against
+    the plain path, stage times, the hamming kernels timed."""
+    import torch
+    from repro_torch import VectorDB
+    from repro_torch.core import distances as D
+    from repro_torch.core.lsh import lsh_search, sign_codes
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.hamming import (hamming_cuda,
+                                             hamming_shortlist_cuda,
+                                             hamming_shortlist_plain)
+    t0 = time.perf_counter()
+    db = VectorDB("lsh", metric="cosine", device=device).load(corpus)
+    torch.cuda.synchronize()
+    idx = db.index
+    T, N, W = idx.codes.shape
+    L = min(idx.shortlist, N)
+    log(f"  lsh load: {time.perf_counter() - t0:.2f} s (n_bits "
+        f"{idx.n_bits}, tables {idx.n_tables}, shortlist {idx.shortlist}; "
+        f"codes and planes {idx.memory_bytes() / 1e9:.3f} GB)")
+    res, counts = serve_and_count(db, queries, "lsh")
+    launches["hamming"] = counts["hamming"]
+    recall = recall_at_10(res[max(BATCHES)][1], truth)
+    log(f"  recall@10 of lsh against flat: {recall:.4f} "
+        f"({truth.shape[0]} queries)")
+    for Q in (1, 32):
+        q = queries[:Q]
+        plain = lsh_search(idx.corpus, idx.codes, idx.planes, q,
+                           metric="cosine", k=10, shortlist=idx.shortlist,
+                           use_kernel=False)
+        if not same_result(db.query(q, k=10), plain):
+            raise AssertionError(f"lsh Q={Q}: kernel path differs from the "
+                                 "plain path")
+    log("  lsh kernel path equals the plain path (ids and scores, bit for "
+        "bit) at Q = 1 and 32")
+    lsh_breakdown(idx, queries)
+
+    def q_codes(Q):
+        return sign_codes(D.l2_normalize(queries[:Q].float()), idx.planes)
+
+    def bound(Q, out_bytes):
+        return bound_ms(idx.codes.numel() * 4 + T * Q * W * 4 + out_bytes,
+                        float(Q) * N * T * W, popc_per_s)
+
+    timed = {}
+    for Q in BATCHES:
+        qc = q_codes(Q)
+        ms = gpu_ms(lambda: hamming_shortlist_cuda(qc, idx.codes, L), 5)
+        b = bound(Q, Q * L * 8)
+        timed[Q] = (ms, b)
+        log(f"  hamming_shortlist kernel Q={Q} L={L}: {ms:.3f} ms (bound "
+            f"{b[0]:.3f} ms, {b[1]})")
+    for Q in (1, 32):
+        qc = q_codes(Q)
+        ms = gpu_ms(lambda: hamming_cuda(qc, idx.codes), 3)
+        b = bound(Q, Q * N * 4)
+        log(f"  hamming (Q, N) matrix kernel Q={Q}: {ms:.3f} ms (bound "
+            f"{b[0]:.3f} ms, {b[1]})")
+    qc = q_codes(32)
+    by_l = {n: gpu_ms(lambda: hamming_shortlist_cuda(qc, idx.codes, n), 3)
+            for n in (1, 256)}
+    log(f"  hamming_shortlist kernel Q=32 by shortlist length: L=1 "
+        f"{by_l[1]:.3f} ms, L={L} {timed[32][0]:.3f} ms, L=256 "
+        f"{by_l[256]:.3f} ms (the same distances; the boards' work grows "
+        f"with L)")
+    plain_ms = gpu_ms(lambda: hamming_shortlist_plain(qc, idx.codes, L), 1)
+    err = max(compare_hamming(q_codes(Q), idx.codes, L,
+                              f"full size Q={Q}", full=False)
+              for Q in BATCHES)
+    ms, b = timed[32]
+    kernels.append(kernel_entry(
+        "hamming", "src/repro_torch/csrc/hamming.cu",
+        "src/repro/kernels/hamming.py:37", launches["hamming"], err, ms,
+        plain_ms, b, None,
+        f"hamming_shortlist Q=32 T={T} N={N} W={W} L={L}; library_ms null: "
+        f"no single PyTorch call computes XOR popcounts"))
+    log(f"  hamming_shortlist Q=32: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+        f"ms, bound {b[0]:.3f} ms ({b[1]}), no single library call")
+    del db, idx, res
+    ops.reset_launch_counts()
+    torch.cuda.empty_cache()
+    return recall
+
+
+def lsh_breakdown(idx, queries) -> None:
+    """Device ms of each lsh query stage at each batch size (CUDA events,
+    stage by stage): query signatures, the hamming shortlist, the exact
+    re-rank."""
+    from repro_torch.core import distances as D
+    from repro_torch.core.lsh import rerank, sign_codes
+    from repro_torch.kernels import ops
+    L = min(idx.shortlist, idx.codes.shape[1])
+    for Q in BATCHES:
+        q = D.l2_normalize(queries[:Q].float())
+        sig = gpu_ms(lambda: sign_codes(q, idx.planes), 5)
+        qc = sign_codes(q, idx.planes)
+        short = gpu_ms(lambda: ops.hamming_shortlist(qc, idx.codes, L), 5)
+        _, cand = ops.hamming_shortlist(qc, idx.codes, L)
+        rr = gpu_ms(lambda: rerank(idx.corpus, cand, q, metric="dot", k=10),
+                    5)
+        log(f"  lsh stages Q={Q}: signatures {sig:.3f} ms, hamming_shortlist "
+            f"{short:.3f} ms, re-rank {rr:.3f} ms (device ms, CUDA events)")
+
+
 def ivf_bound(ids, visit, luts, coarse, blk: int, m: int, k: int = 32,
               sched=None) -> tuple:
     """Least time for one IVF-ADC call on these inputs: every distinct real
@@ -733,8 +929,8 @@ def main(argv=None) -> int:
                     help="rank of the subspace the centres share; 0 gives "
                          "unit centres plus isotropic noise")
     ap.add_argument("--min-recall", type=float, default=0.5,
-                    help="fail below this recall@10 of ivf_pq against flat "
-                         "(pq's is printed, not gated)")
+                    help="fail below this recall@10 of ivf_pq or lsh against "
+                         "flat (pq's is printed, not gated)")
     args = ap.parse_args(argv)
 
     import torch
@@ -752,7 +948,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    smi = phase_header()
+    smi, popc_per_s = phase_header()
     t0 = time.perf_counter()
     phase_build()
     log(f"[phase 2: {time.perf_counter() - t0:.1f} s]")
@@ -760,7 +956,8 @@ def main(argv=None) -> int:
     phase_mid(args.seed, device, args.rank)
     log(f"[phase 3: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
-    kernels = phase_main(args.n, args.seed, device, args.rank, args.min_recall)
+    kernels = phase_main(args.n, args.seed, device, args.rank, args.min_recall,
+                         popc_per_s)
     log(f"[phase 4: {time.perf_counter() - t0:.1f} s]")
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"

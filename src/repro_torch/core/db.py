@@ -1,7 +1,7 @@
 """VectorDB: Thistle's load/query trait as the deployment API (port of
 ``repro.core.db``, the single-host load and query path).
 
-    db = VectorDB(engine="flat|pq|ivf_pq", metric="cosine|l2|dot")
+    db = VectorDB(engine="flat|pq|ivf_pq|lsh", metric="cosine|l2|dot")
     db.load(vectors)
     scores, ids = db.query(q, k=10)
 
@@ -20,6 +20,7 @@ import torch
 from repro_torch.core import distances as D
 from repro_torch.core.flat import FlatIndex
 from repro_torch.core.ivf import ScheduleCache
+from repro_torch.core.lsh import LSHIndex
 from repro_torch.core.pq import IVFPQIndex, PQIndex
 from repro_torch.device import resolve_device
 
@@ -27,6 +28,7 @@ ENGINES: Dict[str, Type] = {
     "flat": FlatIndex,      # paper: Iterative (exact); the recall oracle
     "pq": PQIndex,          # product-quantized ADC scan (m bytes a row)
     "ivf_pq": IVFPQIndex,   # IVF buckets of PQ residuals + exact re-rank
+    "lsh": LSHIndex,        # paper: LSH; Hamming shortlist + exact re-rank
 }
 
 # plan bucket ladder: batches pad up to the next bucket

@@ -28,6 +28,10 @@ __device__ __forceinline__ bool better(float s1, int k1, float s2, int k2) {
   return s1 > s2 || (s1 == s2 && k1 < k2);
 }
 
+struct SameScore {
+  __device__ float operator()(float s) const { return s; }
+};
+
 struct WarpBoard {
   float* s;
   int* key;
@@ -123,6 +127,12 @@ struct WarpBoard {
   // map(key) turns a key into the id written out.
   template <class Map>
   __device__ void write_sorted(float* out_s, int* out_id, Map map) const {
+    write_sorted(out_s, out_id, map, SameScore());
+  }
+
+  // The same, with score_map(score) written in place of the score.
+  template <class OutS, class Map, class ScoreMap>
+  __device__ void write_sorted(OutS* out_s, int* out_id, Map map, ScoreMap score_map) const {
     for (int e = threadIdx.x & 31; e < k; e += 32) {
       const float se = s[e];
       const int ke = key[e];
@@ -132,7 +142,7 @@ struct WarpBoard {
         const int kf = key[f];
         rank += (better(sf, kf, se, ke) || (sf == se && kf == ke && f < e)) ? 1 : 0;
       }
-      out_s[rank] = se;
+      out_s[rank] = score_map(se);
       out_id[rank] = map(ke);
     }
   }

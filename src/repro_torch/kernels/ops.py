@@ -1,5 +1,6 @@
 """Public wrappers around the port's kernels (port of
-``repro.kernels.ops``, the parts the exact, PQ and IVF-PQ engines use).
+``repro.kernels.ops``, the parts the exact, PQ, IVF-PQ and LSH engines
+use).
 
 Each wrapper prepares the kernel's inputs and dispatches on the tensor's
 device (``repro_torch.device.kernel_path``): a CUDA tensor launches the
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.core.ivf import build_block_schedule, visit_sharing
 from repro_torch.device import kernel_path
+from repro_torch.kernels import hamming as _hm
 from repro_torch.kernels import ivf_adc as _ivf
 from repro_torch.kernels import pq_adc as _pq
 from repro_torch.kernels import topk_distance as _tk
@@ -32,7 +34,8 @@ from repro_torch.kernels.topk_distance import NEG_INF
 ADC_LUT_DTYPES = _pq.LUT_DTYPES
 ADC_MODES = ("auto", "blocked", "per_query", "run_resident")
 LAUNCH_COUNTERS = (_tk.LAUNCHES, _pq.LAUNCHES, _ivf.LAUNCHES,
-                   _ivf.LAUNCHES_BLOCKED, _ivf.LAUNCHES_RUN_RESIDENT)
+                   _ivf.LAUNCHES_BLOCKED, _ivf.LAUNCHES_RUN_RESIDENT,
+                   _hm.LAUNCHES)
 
 # The untuned dispatch constants of the grouped grids, used only with
 # ``autotune=False``; the board bound caps the grouped plain versions'
@@ -261,3 +264,22 @@ def ivf_adc_topk(bucket_codes, bucket_ids, visit, luts, *, k: int,
     else:
         s, i = _run(grid)
     return normalize_knockouts(s, i)
+
+
+def hamming(q_codes, c_codes, *, use_kernel=None):
+    """q_codes: (T, Q, W); c_codes: (T, N, W) packed signatures as int32
+    bit patterns -> (Q, N) int32 min-over-tables Hamming distance. Ragged
+    N needs no padding: the kernel masks its last tile."""
+    if kernel_path(c_codes, use_kernel):
+        return _hm.hamming_cuda(q_codes, c_codes)
+    return _hm.hamming_plain(q_codes, c_codes)
+
+
+def hamming_shortlist(q_codes, c_codes, L: int, *, use_kernel=None):
+    """The LSH engine's ranking pass: the L rows of smallest min-over-tables
+    Hamming distance per query, nearest first and equal distances by the
+    lower row id -> (dist (Q, L) int32, ids (Q, L) int32). 1 <= L <= N;
+    the kernel takes L <= 256."""
+    if kernel_path(c_codes, use_kernel):
+        return _hm.hamming_shortlist_cuda(q_codes, c_codes, L)
+    return _hm.hamming_shortlist_plain(q_codes, c_codes, L)

@@ -89,3 +89,12 @@ def ivf_adc_ref(bucket_codes, bucket_ids, visit, luts, coarse=None, *,
     bad = s <= 0.5 * NEG_INF
     return (torch.where(bad, -torch.inf, s),
             torch.where(bad, -1, i).to(torch.int32))
+
+
+def hamming_ref(q_codes, c_codes):
+    """q: (T, Q, W); c: (T, N, W) int32 bit patterns -> (Q, N) int32
+    min-over-tables Hamming distance, counting the 32 bits one by one."""
+    x = (q_codes[:, :, None, :] ^ c_codes[:, None, :, :]).to(torch.int64)
+    x = x & 0xFFFFFFFF
+    bits = sum((x >> j) & 1 for j in range(32))              # (T, Q, N, W)
+    return bits.sum(dim=-1).amin(dim=0).to(torch.int32)

@@ -192,3 +192,63 @@ def test_engines_launch_their_kernels_on_the_card():
         ops.reset_launch_counts()
         _same(db.query(q, k=10), want)
         assert ops.launch_counts()[f"ivf_adc_{mode}"] == 1
+
+
+def _words(gen, shape, dev):
+    """int32 bit patterns over the full 2^32 range."""
+    return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+
+
+@pytest.mark.parametrize("Q", [1, 32, 512])
+@pytest.mark.parametrize("T,W", [(4, 4), (8, 2), (1, 8)])
+def test_hamming_kernels_match_plain(T, W, Q):
+    """Both hamming entries equal their plain versions bit for bit, at
+    L in {10, 64, 256}, with N not a multiple of the 256-row tile."""
+    from repro_torch.kernels.hamming import (hamming_cuda, hamming_plain,
+                                             hamming_shortlist_cuda,
+                                             hamming_shortlist_plain)
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(T * 1000 + W * 10 + Q)
+    N = 3000 + 77
+    cc, qc = _words(gen, (T, N, W), dev), _words(gen, (T, Q, W), dev)
+    assert torch.equal(hamming_cuda(qc, cc), hamming_plain(qc, cc))
+    for L in (10, 64, 256):
+        d, i = hamming_shortlist_cuda(qc, cc, L)
+        pd, pi = hamming_shortlist_plain(qc, cc, L)
+        assert torch.equal(d, pd) and torch.equal(i, pi), L
+
+
+def test_hamming_shortlist_kernel_heavy_ties():
+    """Codes of four distinct values: hundreds of rows share each distance,
+    and the kernel's boards keep the plain version's lower row ids."""
+    from repro_torch.kernels.hamming import (hamming_shortlist_cuda,
+                                             hamming_shortlist_plain)
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    distinct = _words(gen, (4, 4, 4), dev)
+    pick = torch.randint(0, 4, (5000,), generator=gen, device=dev)
+    cc = distinct[:, pick].contiguous()
+    qc = torch.cat([distinct[:, :2], _words(gen, (4, 40, 4), dev)], dim=1)
+    for L in (10, 64, 256):
+        d, i = hamming_shortlist_cuda(qc, cc, L)
+        pd, pi = hamming_shortlist_plain(qc, cc, L)
+        assert torch.equal(d, pd) and torch.equal(i, pi), L
+
+
+def test_lsh_engine_launches_hamming_on_the_card():
+    """VectorDB("lsh") ranks through the shortlist kernel, and its answer
+    equals the plain path's."""
+    from repro_torch.core.lsh import lsh_search
+    dev = _card()
+    rng = np.random.default_rng(6)
+    corpus = rng.normal(size=(9_000, 48)).astype(np.float32)
+    q = torch.as_tensor(corpus[:33] + 0.01, device=dev)
+    db = VectorDB("lsh", device=dev).load(corpus)
+    ops.reset_launch_counts()
+    got = db.query(q, k=10, bucketize=False)
+    assert ops.launch_counts()["hamming"] == 1
+    idx = db.index
+    _same(got, lsh_search(idx.corpus, idx.codes, idx.planes, q,
+                          metric="cosine", k=10, shortlist=idx.shortlist,
+                          use_kernel=False))

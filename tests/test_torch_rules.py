@@ -64,6 +64,8 @@ def test_default_device_is_the_card(monkeypatch):
         VectorDB()
     with pytest.raises(RuntimeError, match="CUDA"):
         VectorDB("ivf_pq")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VectorDB("lsh")
     assert VectorDB(device="cpu").device.type == "cpu"
 
 
@@ -131,7 +133,7 @@ def test_flat_query_runs_the_plain_version_on_cpu():
     assert s.shape == (2, 3) and i.device.type == "cpu"
     assert ops.launch_counts() == {
         "topk_distance": 0, "pq_adc": 0, "ivf_adc": 0, "ivf_adc_blocked": 0,
-        "ivf_adc_run_resident": 0}
+        "ivf_adc_run_resident": 0, "hamming": 0}
 
 
 def test_kernel_k_limit_is_named():
@@ -187,6 +189,31 @@ def test_pq_adc_table_limit_is_named():
                          "int8") == P.MAX_QT
 
 
+def test_hamming_entries_refuse_the_kernel_on_cpu():
+    codes = torch.zeros((2, 8, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.hamming(codes[:, :1], codes, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.hamming_shortlist(codes[:, :1], codes, 4, use_kernel=True)
+
+
+def test_hamming_shortlist_limit_is_named():
+    """Above the boards' size the shortlist kernel refuses with the limit
+    named, before anything touches the card; so do more words a row than
+    the kernel holds in registers."""
+    from repro_torch.kernels.hamming import (MAX_WORDS, hamming_cuda,
+                                             hamming_shortlist_cuda)
+    from repro_torch.kernels.topk_distance import KMAX
+    codes = torch.zeros((4, 400, 4), dtype=torch.int32)
+    with pytest.raises(ValueError, match=str(KMAX)):
+        hamming_shortlist_cuda(codes[:, :2], codes, KMAX + 1)
+    wide = torch.zeros((3, 400, 11), dtype=torch.int32)
+    for call in (lambda: hamming_cuda(wide[:, :2], wide),
+                 lambda: hamming_shortlist_cuda(wide[:, :2], wide, 10)):
+        with pytest.raises(ValueError, match=str(MAX_WORDS)):
+            call()
+
+
 def _stand_in_nvcc(tmp_path, body):
     """A CUDA_HOME whose bin/nvcc is a shell script: the build's command
     line, caching and failure handling run without the toolkit."""
@@ -207,13 +234,16 @@ echo "ptxas info    : Used 40 registers" && echo lib > "$out"
 ''')
     monkeypatch.setenv("CUDA_HOME", home)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    _build.build_all(["topk_distance", "ivf_adc", "pq_adc"])
+    names = ["topk_distance", "ivf_adc", "pq_adc", "hamming"]
+    _build.build_all(names)
     lines = calls.read_text().splitlines()
-    assert len(lines) == 3
+    assert len(lines) == 4
     assert all("arch=compute_90a,code=sm_90a" in ln for ln in lines)
+    assert sorted(ln.split()[-1].rsplit("/", 1)[-1] for ln in lines) == sorted(
+        f"{n}.cu" for n in names)
     assert "registers" in _build.build_log("ivf_adc")
-    _build.build_all(["topk_distance", "ivf_adc", "pq_adc"])  # keyed on the sources
-    assert len(calls.read_text().splitlines()) == 3
+    _build.build_all(names)  # keyed on the sources
+    assert len(calls.read_text().splitlines()) == 4
 
 
 def test_build_failure_names_the_source(tmp_path, monkeypatch):
