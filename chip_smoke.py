@@ -6,9 +6,10 @@
 Phases, in order; any failure raises and the script exits non-zero:
   1. header: the card's name, power limit and top SM clock (nvidia-smi),
      torch and CUDA;
-  2. build: the four CUDA sources (topk_distance, pq_adc, ivf_adc with its
-     three grids, hamming with its matrix and shortlist entries), one nvcc
-     each, in parallel; the ptxas lines (registers, shared memory, spills);
+  2. build: the five CUDA sources (topk_distance, pq_adc, ivf_adc with its
+     three grids, hamming with its matrix and shortlist entries,
+     flash_attention), one nvcc each, in parallel; the ptxas lines
+     (registers, shared memory, spills);
   3. kernel against plain version at mid size (262,144 rows, d = 768,
      m = 64): ``topk_distance`` for {dot, l2} x k in {10, 200} x Q in
      {1, 32, 512}; ``pq_adc`` for {dot, l2} x {float32, bfloat16, int8} x
@@ -21,7 +22,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``hamming_shortlist`` for (T, W) in {(4, 4), (8, 2), (1, 8)} x Q in
      {1, 32, 512} (the shortlist at L in {10, 64, 256}) on words over the
      full 2^32 range, a ragged N and codes of five distinct values (ties
-     everywhere), bit for bit;
+     everywhere), bit for bit; ``flash_attention`` in bf16 and float32 on
+     the reference's FLASH_CASES, the encoder's shapes (B = 32, H = 12,
+     dh = 64, S in {64, 128, 512}) with ragged key-padding masks and one
+     fully masked row, GQA (H = 8, KV = 2) and dh = 80 at a ragged S = 200,
+     causal and not, within the reference's 2e-5 / 2e-2;
   4. main path at full size on the MS MARCO v1 passage count (8,841,823
      rows) of d = 768 cosine embeddings, clustered synthetic data made on
      the card from ``--seed``: ``VectorDB("flat")``, ``VectorDB("pq")``,
@@ -36,7 +41,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      version's and a library call's time, launches on each engine's path,
      full-size batches of each kernel against its plain version, peak
      device memory and each phase's seconds;
-  5. a JSON line of the kernels, then the result line.
+  5. the text path at full width, after the engines of phase 4 are
+     dropped: thistle-sbert FULL (12 layers, d_model 768, bf16, seeded
+     random weights) encodes 131,072 MarcoLike passages (seq_len 64)
+     through ``VectorDB("flat").load_texts`` and serves ``query_texts`` at
+     Q = 1, 32, 512; load split (tokenize, encode, index), p50/p99 and QPS,
+     stage times, ``flash_attention``'s time beside its bound, its plain
+     version's and ``F.scaled_dot_product_attention``'s, one encoder
+     block's stage times, one encode at max_seq_len 512, and three gates: the encoder through the kernel
+     against the same forward through the plain attention (cosine >=
+     0.999 at (32, 64) and (32, 512)), 512 passages sent back as queries
+     finding themselves in their top 10 (>= 99 %), and the kernel
+     launched on the path;
+  6. a JSON line of the kernels, then the result line.
 
 It needs one CUDA card and the repository's ``src/`` beside it, and it
 imports nothing of the JAX package.
@@ -60,11 +77,36 @@ REPS = {1: 30, 32: 12, 512: 4}
 GROUPED = ("blocked", "run_resident")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 on the tensor cores
 # 32-bit population counts a clock per SM at compute capability 9.0 (CUDA
 # C++ Programming Guide, arithmetic instruction throughput table); times the
 # SM count and the top SM clock nvidia-smi reports, it bounds hamming
 POPC_PER_CLOCK_PER_SM = 16
 HAMMING_SHAPES = ((4, 4), (8, 2), (1, 8))   # (tables, words): 128, 16, 256 bits
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's (tests/test_kernels.py)
+FLASH_MID_CASES = (
+    # (B, Sq, Sk, H, KV, dh, causal, masked)
+    # the reference's FLASH_CASES, (BH, S, dh) as B = BH, H = 1
+    (2, 128, 128, 1, 1, 64, True, False),
+    (1, 256, 256, 1, 1, 128, True, False),
+    (3, 128, 128, 1, 1, 32, False, False),
+    (2, 192, 192, 1, 1, 64, True, False),
+    (1, 64, 64, 1, 1, 80, False, False),
+    # the encoder's shapes, ragged lengths and one empty row
+    (32, 64, 64, 12, 12, 64, False, True),
+    (32, 128, 128, 12, 12, 64, False, True),
+    (32, 512, 512, 12, 12, 64, False, True),
+    # GQA
+    (4, 256, 256, 8, 2, 64, False, True),
+    (4, 256, 256, 8, 2, 64, True, True),
+    # dh = 80 at a ragged S
+    (4, 200, 200, 4, 4, 80, False, True),
+    (4, 200, 200, 4, 4, 80, True, True),
+)
+TEXT_PASSAGES = 131_072      # MarcoLike passages of the text phase
+TEXT_SEQ = 64                # tokens a text
+TEXT_BATCH = 512             # load_texts batch
+TEXT_FLASH_SHAPES = ((512, 64), (32, 64), (1, 64), (32, 512))  # (B, S) encoded
 
 
 def log(*args) -> None:
@@ -345,7 +387,8 @@ def phase_header() -> tuple:
 
 def phase_build() -> None:
     from repro_torch.kernels import _build
-    secs = _build.build_all(["topk_distance", "pq_adc", "ivf_adc", "hamming"])
+    secs = _build.build_all(["topk_distance", "pq_adc", "ivf_adc", "hamming",
+                             "flash_attention"])
     for name, s in secs.items():
         log(f"build {name}: {s:.1f} s")
         for line in _build.build_log(name).splitlines():
@@ -407,6 +450,7 @@ def phase_mid(seed: int, device, rank: int) -> None:
     del corpus, queries
     torch.cuda.empty_cache()
     hamming_mid(seed, device)
+    flash_mid(seed, device)
 
 
 def random_words(gen, shape, device):
@@ -459,6 +503,57 @@ def hamming_mid(seed: int, device) -> None:
         compare_hamming(qc, cc, L, "T=4 W=4 Q=32, five distinct codes (ties)",
                         full=L == 64)
     del cc, qc
+    torch.cuda.empty_cache()
+
+
+def ragged_mask(gen, B: int, S: int, device, empty_row: bool = True):
+    """(B, S) key-padding mask of lengths drawn from 1..S; the first row is
+    full and, with ``empty_row``, the last one fully masked."""
+    import torch
+    lengths = torch.randint(1, S + 1, (B,), generator=gen, device=device)
+    lengths[0] = S
+    if empty_row and B > 1:
+        lengths[-1] = 0
+    return torch.arange(S, device=device)[None, :] < lengths[:, None]
+
+
+def compare_flash(q, k, v, mask, causal: bool, label: str) -> float:
+    """flash_attention's kernel against its plain version: |kernel - plain|
+    <= tol + tol * |plain| elementwise at the reference's tolerance for the
+    dtype. Returns the largest |difference|."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    kw = dict(causal=causal, scale=q.shape[-1] ** -0.5, kv_mask=mask)
+    got = flash_attention_cuda(q, k, v, **kw).float()
+    want = flash_attention_plain(q, k, v, **kw).float()
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[str(q.dtype).split(".")[-1]]
+    err = (got - want).abs()
+    ok = bool((err <= tol + tol * want.abs()).all()) and bool(
+        torch.isfinite(got).all())
+    log(f"  {label}: max |do| {float(err.max()):.3e} (bound {tol} + {tol} "
+        f"|o|)")
+    if not ok:
+        raise AssertionError(f"{label}: kernel and plain version differ")
+    return float(err.max())
+
+
+def flash_mid(seed: int, device) -> None:
+    """flash_attention against its plain version on FLASH_MID_CASES, in
+    bf16 and float32."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    for B, Sq, Sk, H, KV, dh, causal, masked in FLASH_MID_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(B, Sq, H, dh, generator=gen, device=device).to(dtype)
+            k = torch.randn(B, Sk, KV, dh, generator=gen, device=device).to(dtype)
+            v = torch.randn(B, Sk, KV, dh, generator=gen, device=device).to(dtype)
+            mask = ragged_mask(gen, B, Sk, device) if masked else None
+            compare_flash(q, k, v, mask, causal,
+                          f"flash_attention {str(dtype)[6:]} B={B} Sq={Sq} "
+                          f"Sk={Sk} H={H} KV={KV} dh={dh} causal={causal} "
+                          f"mask={'ragged+empty' if masked else 'none'}")
     torch.cuda.empty_cache()
 
 
@@ -920,6 +1015,284 @@ def ivf_bound(ids, visit, luts, coarse, blk: int, m: int, k: int = 32,
     return bound_ms(n_bytes, float(slots) * m)
 
 
+class TextEncoder:
+    """The encoder callable that ``load_texts`` and ``query_texts`` take,
+    built as examples/train_sbert.py builds its ``embed``: the hash
+    tokenizer at a fixed seq_len, mask = tokens != 0, then ``encode`` on the
+    card. Sums host seconds of tokenizing and, with ``sync``, of encoding
+    (each encode then ends in a synchronize)."""
+
+    def __init__(self, model, cfg, seq_len: int, device):
+        self.model, self.cfg, self.seq_len, self.device = model, cfg, seq_len, device
+        self.sync = False
+        self.tokenize_s = self.encode_s = 0.0
+
+    def tokens(self, texts):
+        import numpy as np
+        from repro_torch.data.marco import simple_tokenizer
+        return np.stack([simple_tokenizer(t, self.cfg.vocab_size, self.seq_len)
+                         for t in texts])
+
+    def __call__(self, texts):
+        import torch
+        from repro_torch.models.encoder import encode
+        t0 = time.perf_counter()
+        tok = torch.from_numpy(self.tokens(texts)).to(self.device)
+        t1 = time.perf_counter()
+        self.tokenize_s += t1 - t0
+        out = encode(self.model, self.cfg, tok, tok != 0)
+        if self.sync:
+            torch.cuda.synchronize()
+            self.encode_s += time.perf_counter() - t1
+        return out
+
+
+def encoder_cosine(model, cfg, tokens, mask, label: str) -> float:
+    """Gate: the encoder through the kernel against the same forward
+    through the plain attention, row by row; an empty text is the zero
+    vector on both sides."""
+    import torch
+    from repro_torch.models.encoder import encode
+    got = encode(model, cfg, tokens, mask)
+    want = encode(model, cfg, tokens, mask, use_kernel=False)
+    live = mask.any(dim=1)
+    cos = (got * want).sum(dim=1)
+    worst = float(cos[live].min())
+    zero = bool((got[~live] == 0).all()) and bool((want[~live] == 0).all())
+    log(f"  {label}: encoder through the kernel against the plain attention: "
+        f"min row cosine {worst:.6f} (bound >= 0.999), empty rows zero {zero}")
+    if worst < 0.999 or not zero:
+        raise AssertionError(f"{label}: kernel forward differs from plain")
+    return worst
+
+
+def encoder_breakdown(model, cfg, tok, mask) -> None:
+    """Device ms of one encoder block's stages at a load batch's shape
+    (CUDA events, stage by stage, on the first block's inputs), times the
+    layer count, beside one whole encode."""
+    import torch
+    from repro_torch.models.attention import multihead_attention
+    from repro_torch.models.encoder import encode
+    from repro_torch.models.layers import (apply_embed, apply_mlp,
+                                           apply_norm, apply_rope)
+    dtype = getattr(torch, cfg.dtype)
+    blk, L = model.dense_blocks[0], cfg.n_layers
+    x = apply_embed(model.embed, tok, dtype)
+    B, S, D = x.shape
+    H, dh = cfg.n_heads, cfg.head_dim
+    pos = torch.arange(S, device=x.device)[None]
+    xn = apply_norm(blk.attn_norm, x)
+
+    def qkv():
+        return [(xn @ w.to(dtype).reshape(D, -1)).view(B, S, -1, dh)
+                for w in (blk.attn.wq, blk.attn.wk, blk.attn.wv)]
+
+    q, k, v = qkv()
+    o = multihead_attention(q, k, v, cfg, causal=False, window=None,
+                            kv_mask=mask)
+    stages = {
+        "two norms": lambda: (apply_norm(blk.attn_norm, x),
+                              apply_norm(blk.mlp_norm, x)),
+        "q, k, v projections (with the weight casts)": qkv,
+        "rotary on q and k": lambda: [apply_rope(t, pos, cfg.rope_theta,
+                                                 cfg.rope_pct) for t in (q, k)],
+        "flash_attention": lambda: multihead_attention(
+            q, k, v, cfg, causal=False, window=None, kv_mask=mask),
+        "output projection": lambda: (o.reshape(B, S, H * dh)
+                                      @ blk.attn.wo.to(dtype).reshape(H * dh, D)),
+        "MLP (up, gelu, down)": lambda: apply_mlp(blk.mlp, xn, cfg.act),
+        "two residual adds": lambda: (x + x, x + x),
+    }
+    total = gpu_ms(lambda: encode(model, cfg, tok, mask), 3)
+    log(f"  encode B={B} S={S}: {total:.3f} ms; one block's stages (device ms, "
+        f"CUDA events) x {L} layers:")
+    for name, fn in stages.items():
+        ms = gpu_ms(fn, 5)
+        log(f"    {name}: {ms:.4f} ms, x{L} = {ms * L:.3f} ms "
+            f"({100 * ms * L / total:.1f} % of encode)")
+
+
+def flash_bound(B: int, S: int, H: int, dh: int) -> tuple:
+    """Least time for one non-causal bf16 call: q, k, v read and o written
+    once (2 bytes an element) and the (B, S) mask read once, against
+    4 B H S^2 dh operations on the tensor cores."""
+    return bound_ms(4 * B * S * H * dh * 2 + B * S,
+                    4.0 * B * H * S * S * dh, BF16_OPS_PER_S)
+
+
+def time_flash(gen, B: int, S: int, mask, device) -> dict:
+    """The kernel, its plain version and F.scaled_dot_product_attention on
+    the same bf16 inputs of the encoder's attention shape (H = 12, dh = 64),
+    and the kernel against the plain version."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    H, dh = 12, 64
+    q, k, v = (torch.randn(B, S, H, dh, generator=gen, device=device)
+               .to(torch.bfloat16) for _ in range(3))
+    kw = dict(causal=False, scale=dh ** -0.5, kv_mask=mask)
+    reps = 20 if B * S <= 4096 else 5
+    ms = gpu_ms(lambda: flash_attention_cuda(q, k, v, **kw), reps)
+    plain_ms = gpu_ms(lambda: flash_attention_plain(q, k, v, **kw), 3)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    am = mask[:, None, None, :]
+    lib_ms = gpu_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=am), reps)
+    err = compare_flash(q, k, v, mask, False,
+                        f"flash_attention at the text path's B={B} S={S}")
+    b = flash_bound(B, S, H, dh)
+    log(f"  flash_attention kernel B={B} S={S} H={H} dh={dh} bf16: {ms:.4f} ms "
+        f"(bound {b[0]:.4f} ms, {b[1]}), plain {plain_ms:.4f} ms, "
+        f"F.scaled_dot_product_attention {lib_ms:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "lib_ms": lib_ms, "bound": b,
+            "err": err}
+
+
+def phase_text(seed: int, device) -> dict:
+    """Phase 5: the text path at full width; returns the flash_attention
+    kernel entry."""
+    import numpy as np
+    import torch
+    from repro_torch import VectorDB
+    from repro_torch.configs import thistle_sbert
+    from repro_torch.data.marco import MarcoLike
+    from repro_torch.kernels import ops
+    from repro_torch.models import encoder
+
+    cfg = thistle_sbert.FULL
+    log(f"phase 5: text path, {cfg.name} (layers {cfg.n_layers}, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}x{cfg.head_dim}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {cfg.dtype} activations, {cfg.param_dtype} "
+        f"parameters, seeded random weights), {TEXT_PASSAGES} MarcoLike "
+        f"passages at seq_len {TEXT_SEQ}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    data = MarcoLike(n_passages=TEXT_PASSAGES, vocab_size=cfg.vocab_size,
+                     seed=seed)
+    passages = data.passage_texts()
+    queries = data.query_texts(n=max(BATCHES))
+    log(f"  MarcoLike passages and {len(queries)} queries: "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    t0 = time.perf_counter()
+    model = encoder.init(cfg, torch.Generator().manual_seed(seed),
+                         device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  encoder init: {time.perf_counter() - t0:.2f} s, {n_params} "
+        f"parameters")
+    enc = TextEncoder(model, cfg, TEXT_SEQ, device)
+
+    ops.reset_launch_counts()
+    enc.sync = True
+    t0 = time.perf_counter()
+    db = VectorDB("flat", metric="cosine", device=device).load_texts(
+        passages, enc, batch_size=TEXT_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"  load_texts: {wall:.2f} s = tokenize {enc.tokenize_s:.2f} s (host) "
+        f"+ encode {enc.encode_s:.2f} s ({TEXT_PASSAGES // TEXT_BATCH} batches "
+        f"of {TEXT_BATCH}, each ending in a synchronize) + index and the rest "
+        f"{wall - enc.tokenize_s - enc.encode_s:.2f} s; "
+        f"{TEXT_PASSAGES / wall:.1f} passages/s")
+    enc.sync = False
+    results = {}
+    for Q in BATCHES:
+        texts = queries[:Q]
+        db.query_texts(texts, enc, k=10)  # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(REPS[Q]):
+            t1 = time.perf_counter()
+            s, i, hits = db.query_texts(texts, enc, k=10)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+        results[Q] = (s, i)
+        log(f"  query_texts Q={Q}: p50 {percentile(times, 50) * 1e3:.3f} ms, "
+            f"p99 {percentile(times, 99) * 1e3:.3f} ms (n={len(times)}), QPS "
+            f"{Q * len(times) / sum(times):.1f}")
+        if not (s.shape == (Q, 10) and torch.isfinite(s).all()
+                and len(hits) == Q and len(hits[0]) == 10):
+            raise AssertionError(f"query_texts Q={Q}: bad result")
+    counts = ops.launch_counts()
+    log(f"  launches on the text path (load_texts and every query_texts "
+        f"batch): {counts}")
+    top1 = float((results[max(BATCHES)][1][:, 0].cpu()
+                  == torch.arange(max(BATCHES))).float().mean())
+    log(f"  MarcoLike query -> its passage, top-1 over {max(BATCHES)} queries: "
+        f"{top1:.4f} (random weights; printed, not gated)")
+
+    # stage split at each Q (CUDA events, stage by stage)
+    for Q in BATCHES:
+        t1 = time.perf_counter()
+        tok = enc.tokens(queries[:Q])
+        tok_ms = (time.perf_counter() - t1) * 1e3
+        tok = torch.from_numpy(tok).to(device)
+        emb = encoder.encode(model, cfg, tok, tok != 0)
+        enc_ms = gpu_ms(lambda: encoder.encode(model, cfg, tok, tok != 0), 5)
+        search_ms = gpu_ms(lambda: db.query(emb, k=10), 5)
+        log(f"  text stages Q={Q}: tokenize {tok_ms:.3f} ms (host), encode "
+            f"{enc_ms:.3f} ms, search {search_ms:.3f} ms (device ms, CUDA "
+            f"events)")
+
+    tok = torch.from_numpy(enc.tokens(passages[:TEXT_BATCH])).to(device)
+    encoder_breakdown(model, cfg, tok, tok != 0)
+
+    # gate 2: passages sent back as queries find themselves
+    n_self = max(BATCHES)
+    _, ids, _ = db.query_texts(passages[:n_self], enc, k=10)
+    found = float((ids.cpu() == torch.arange(n_self)[:, None]).any(dim=1)
+                  .float().mean())
+    log(f"  {n_self} passages sent back through query_texts: in their own "
+        f"top 10 {found:.4f} (bound >= 0.99)")
+    if found < 0.99:
+        raise AssertionError(f"self-retrieval {found:.4f} below 0.99")
+
+    # gate 1: the encoder through the kernel against the plain attention,
+    # at the load's seq_len and at max_seq_len with lengths 1..512
+    tok = torch.from_numpy(enc.tokens(passages[:32])).to(device)
+    encoder_cosine(model, cfg, tok, tok != 0, "B=32 S=64")
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    S = cfg.max_seq_len
+    long_mask = ragged_mask(gen, 32, S, device, empty_row=False)
+    long_mask[1] = torch.arange(S, device=device) < 1
+    long_tok = torch.randint(2, cfg.vocab_size, (32, S), generator=gen,
+                             device=device)
+    long_tok = torch.where(long_mask, long_tok, 0)
+    long_ms = gpu_ms(lambda: encoder.encode(model, cfg, long_tok, long_mask), 3)
+    log(f"  encode B=32 S={S} (lengths 1..{S}): {long_ms:.3f} ms (device ms, "
+        f"CUDA events)")
+    encoder_cosine(model, cfg, long_tok, long_mask, f"B=32 S={S}")
+
+    # the kernel at each shape the path gives it
+    timed = {}
+    for B, S in TEXT_FLASH_SHAPES:
+        if S == TEXT_SEQ:
+            t = torch.from_numpy(enc.tokens(passages[:B])).to(device)
+            mask = t != 0
+        else:
+            mask = long_mask[:B]
+        timed[(B, S)] = time_flash(gen, B, S, mask, device)
+
+    # gate 3
+    if counts["flash_attention"] <= 0:
+        raise AssertionError("flash_attention never launched on the text path")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory in the text phase: {peak / 1e9:.2f} GB")
+    main = timed[(TEXT_BATCH, TEXT_SEQ)]
+    del db, model, enc
+    torch.cuda.empty_cache()
+    return kernel_entry(
+        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:70", counts["flash_attention"],
+        max(t["err"] for t in timed.values()), main["ms"], main["plain_ms"],
+        main["bound"], main["lib_ms"],
+        f"B={TEXT_BATCH} S={TEXT_SEQ} H=12 dh=64 bf16 non-causal with the "
+        f"passages' key-padding mask (a load_texts batch); library_ms: "
+        f"F.scaled_dot_product_attention with the same boolean mask")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=MARCO_PASSAGES,
@@ -946,6 +1319,8 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 products reduce in float32, as XLA's do (serving needs this off)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     t_start = time.perf_counter()
     smi, popc_per_s = phase_header()
@@ -959,6 +1334,9 @@ def main(argv=None) -> int:
     kernels = phase_main(args.n, args.seed, device, args.rank, args.min_recall,
                          popc_per_s)
     log(f"[phase 4: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    kernels.append(phase_text(args.seed, device))
+    log(f"[phase 5: {time.perf_counter() - t0:.1f} s]")
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

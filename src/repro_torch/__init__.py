@@ -2,8 +2,10 @@
 
 The package mirrors the JAX package's tree: ``core`` holds the engines and
 the ``VectorDB`` front, ``kernels`` the hand-written CUDA kernels (sources
-in ``csrc``) with their plain PyTorch versions. It imports ``torch`` and
-``numpy`` only; entry points run on the GPU unless given ``device="cpu"``.
+in ``csrc``) with their plain PyTorch versions, ``models``, ``configs``
+and ``data`` the text encoder the text path serves. It imports ``torch``
+and ``numpy`` only; entry points run on the GPU unless given
+``device="cpu"``.
 """
 from repro_torch.core.db import ENGINES, PLAN_BUCKETS, VectorDB
 from repro_torch.device import resolve_device

@@ -4,6 +4,8 @@
     db = VectorDB(engine="flat|pq|ivf_pq|lsh", metric="cosine|l2|dot")
     db.load(vectors)
     scores, ids = db.query(q, k=10)
+    db.load_texts(texts, encoder)      # encoder(list[str]) -> (B, d)
+    scores, ids, hits = db.query_texts(texts, encoder, k=10)
 
 The front canonicalizes each batch to the ``PLAN_BUCKETS`` ladder and
 counts plan hits and misses as the reference does, so that the serving
@@ -13,7 +15,7 @@ sliced off again. Entry points run on the GPU unless given
 """
 from __future__ import annotations
 
-from typing import Dict, Type
+from typing import Callable, Dict, Type
 
 import torch
 
@@ -100,6 +102,7 @@ class VectorDB(_PlanLedger):
                                      **engine_kwargs)
         self.n = 0
         self._loaded = False
+        self._texts = None
         self._plan_init()
 
     def _plan_salt(self) -> tuple:
@@ -116,6 +119,15 @@ class VectorDB(_PlanLedger):
         self.n = vectors.shape[0]
         self._loaded = True
         return self
+
+    def load_texts(self, texts, encoder: Callable, batch_size: int = 128) -> "VectorDB":
+        """Embed texts with ``encoder(list[str]) -> (B, d)`` then index
+        them. The batches' embeddings are concatenated on the device."""
+        embs = [torch.as_tensor(encoder(texts[i:i + batch_size]),
+                                device=self.device)
+                for i in range(0, len(texts), batch_size)]
+        self._texts = list(texts)
+        return self.load(torch.cat(embs, dim=0))
 
     def load_state(self, state) -> "VectorDB":
         """Serve a saved engine state: the engine's own ``state_dict`` or a
@@ -155,6 +167,17 @@ class VectorDB(_PlanLedger):
             Q = q.shape[0]
         scores, ids = self.index.query(q, k=kk)
         return scores[:Q], ids[:Q]
+
+    def query_texts(self, texts, encoder: Callable, k: int = 10):
+        """Embed the query texts and search -> (scores, ids, hits): hits
+        are the loaded texts of each row's ids (None unless the corpus came
+        through ``load_texts``)."""
+        q = torch.as_tensor(encoder(list(texts)), device=self.device)
+        scores, ids = self.query(q, k)
+        if self._texts is not None:
+            hits = [[self._texts[j] for j in row] for row in ids.tolist()]
+            return scores, ids, hits
+        return scores, ids, None
 
     @property
     def adc_stats(self):

@@ -1,6 +1,6 @@
 """Public wrappers around the port's kernels (port of
 ``repro.kernels.ops``, the parts the exact, PQ, IVF-PQ and LSH engines
-use).
+and the text encoder use).
 
 Each wrapper prepares the kernel's inputs and dispatches on the tensor's
 device (``repro_torch.device.kernel_path``): a CUDA tensor launches the
@@ -18,12 +18,14 @@ default, as in the reference) asks the measured autotuner
 """
 from __future__ import annotations
 
+import math
 import time
 
 import torch
 
 from repro_torch.core.ivf import build_block_schedule, visit_sharing
 from repro_torch.device import kernel_path
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import hamming as _hm
 from repro_torch.kernels import ivf_adc as _ivf
 from repro_torch.kernels import pq_adc as _pq
@@ -35,7 +37,7 @@ ADC_LUT_DTYPES = _pq.LUT_DTYPES
 ADC_MODES = ("auto", "blocked", "per_query", "run_resident")
 LAUNCH_COUNTERS = (_tk.LAUNCHES, _pq.LAUNCHES, _ivf.LAUNCHES,
                    _ivf.LAUNCHES_BLOCKED, _ivf.LAUNCHES_RUN_RESIDENT,
-                   _hm.LAUNCHES)
+                   _hm.LAUNCHES, _fa.LAUNCHES)
 
 # The untuned dispatch constants of the grouped grids, used only with
 # ``autotune=False``; the board bound caps the grouped plain versions'
@@ -283,3 +285,19 @@ def hamming_shortlist(q_codes, c_codes, L: int, *, use_kernel=None):
     if kernel_path(c_codes, use_kernel):
         return _hm.hamming_shortlist_cuda(q_codes, c_codes, L)
     return _hm.hamming_shortlist_plain(q_codes, c_codes, L)
+
+
+def flash_attention(q, k, v, *, causal: bool, scale=None, kv_mask=None,
+                    window=None, use_kernel=None):
+    """q: (B, Sq, H, dh); k/v: (B, Sk, KV, dh); kv_mask: (B, Sk) bool ->
+    (B, Sq, H, dh) in q's dtype. GQA reads KV head h // (H // KV); masked
+    scores are -1e30, so a fully masked row averages v. The kernel takes
+    dh a multiple of 16 up to 256 and no ``window``, and raises otherwise;
+    the plain version takes both."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if kernel_path(q, use_kernel):
+        return _fa.flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                        kv_mask=kv_mask, window=window)
+    return _fa.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     kv_mask=kv_mask, window=window)

@@ -6,12 +6,29 @@ reference.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.core.distances import topk_scores
 from repro_torch.device import strict_fp32
 
 NEG_INF = -1e30
+
+
+@strict_fp32()
+def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None):
+    """q/k/v: (BH, S, dh) -> (BH, Sq, dh). Materialized-softmax oracle, f32."""
+    BH, Sq, dh = q.shape
+    Sk = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(dh)
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Sk, device=q.device)[None, :])
+        s = torch.where(mask[None], s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
 
 
 @strict_fp32()

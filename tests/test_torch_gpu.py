@@ -252,3 +252,84 @@ def test_lsh_engine_launches_hamming_on_the_card():
     _same(got, lsh_search(idx.corpus, idx.codes, idx.planes, q,
                           metric="cosine", k=10, shortlist=idx.shortlist,
                           use_kernel=False))
+
+
+FLASH_GPU_CASES = [
+    # (B, Sq, Sk, H, KV, dh, causal, masked)
+    (2, 128, 128, 1, 1, 64, True, False),
+    (3, 128, 128, 1, 1, 32, False, False),
+    (2, 192, 192, 1, 1, 64, True, False),
+    (1, 64, 64, 1, 1, 80, False, False),
+    (6, 64, 64, 12, 12, 64, False, True),
+    (3, 512, 512, 12, 12, 64, False, True),
+    (3, 128, 128, 8, 2, 64, True, True),
+    (2, 200, 200, 4, 4, 80, True, True),
+    (2, 200, 200, 4, 4, 80, False, True),
+    (2, 70, 130, 2, 1, 256, False, True),
+    (2, 33, 17, 2, 2, 16, True, False),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,dh,causal,masked", FLASH_GPU_CASES)
+def test_flash_attention_kernel_matches_plain(B, Sq, Sk, H, KV, dh, causal,
+                                              masked, dtype):
+    """The kernel against its plain version at the reference's tolerances
+    (2e-5 float32, 2e-2 bfloat16): ragged lengths, a fully masked row
+    (the mean of v), GQA, partial tiles and dh from 16 to 256."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    dev = _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(B * Sq + dh + H)
+    q = torch.randn(B, Sq, H, dh, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, Sk, KV, dh, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, Sk, KV, dh, generator=gen, device=dev).to(dt)
+    mask = None
+    if masked:
+        lengths = torch.randint(1, Sk + 1, (B,), generator=gen, device=dev)
+        lengths[-1] = 0
+        mask = torch.arange(Sk, device=dev)[None, :] < lengths[:, None]
+    kw = dict(causal=causal, scale=dh ** -0.5, kv_mask=mask)
+    ops.reset_launch_counts()
+    got = flash_attention_cuda(q, k, v, **kw)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, **kw)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_limits_on_the_card():
+    """dh outside the kernel's range and a sliding window raise on CUDA
+    tensors; nothing falls back to the plain version."""
+    dev = _card()
+    x = torch.zeros((1, 8, 2, 72), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="256"):
+        ops.flash_attention(x, x, x, causal=False)
+    y = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(y, y, y, causal=True, window=4)
+
+
+def test_encoder_launches_flash_attention_on_the_card():
+    """encode on the card runs the kernel once a layer and agrees row by
+    row with the same forward through the plain attention."""
+    import dataclasses
+
+    from repro_torch.configs import thistle_sbert
+    from repro_torch.models import encoder
+    dev = _card()
+    cfg = dataclasses.replace(thistle_sbert.SMOKE, n_layers=3)
+    model = encoder.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(2, cfg.vocab_size, (9, 48), generator=gen, device=dev)
+    lengths = torch.tensor([48, 1, 2, 30, 47, 5, 16, 33, 0], device=dev)
+    mask = torch.arange(48, device=dev)[None, :] < lengths[:, None]
+    tokens = torch.where(mask, tokens, 0)
+    ops.reset_launch_counts()
+    got = encoder.encode(model, cfg, tokens, mask)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    want = encoder.encode(model, cfg, tokens, mask, use_kernel=False)
+    cos = (got * want).sum(-1)
+    assert bool((cos[:-1] >= 0.999).all()), cos
+    assert bool((got[-1] == 0).all()) and bool((want[-1] == 0).all())

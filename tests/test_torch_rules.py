@@ -7,8 +7,9 @@
    when there is none.
 4. Kernel dispatch follows the tensor: ``use_kernel=True`` on a CPU tensor
    raises, a CUDA tensor takes the kernel unless ``use_kernel=False``.
-5. The port selects its top-k by sorting, never with ``torch.topk``, and
-   compiles nothing with ``torch.compile``.
+5. The port selects its top-k by sorting, never with ``torch.topk``,
+   compiles nothing with ``torch.compile`` and never calls PyTorch's
+   fused ``scaled_dot_product_attention``.
 """
 import ast
 import json
@@ -119,9 +120,18 @@ def test_no_torch_topk_or_compile_in_the_port(path):
         if isinstance(node, ast.Attribute) and node.attr in ("topk", "compile"):
             if isinstance(node.value, ast.Name) and node.value.id == "torch":
                 calls.append(f"torch.{node.attr}")
+        # PyTorch's fused attention, however it is reached
+        if (isinstance(node, ast.Attribute)
+                and node.attr == "scaled_dot_product_attention"):
+            calls.append("scaled_dot_product_attention")
+        if isinstance(node, ast.ImportFrom) and any(
+                a.name == "scaled_dot_product_attention" for a in node.names):
+            calls.append("scaled_dot_product_attention")
     if path.name == "chip_smoke.py":
-        # chip_smoke times torch.topk once as the library yardstick
-        calls = [c for c in calls if c != "torch.topk"]
+        # chip_smoke times torch.topk and scaled_dot_product_attention once
+        # each as the library yardsticks
+        calls = [c for c in calls
+                 if c not in ("torch.topk", "scaled_dot_product_attention")]
     assert not calls, f"{path} calls {calls}"
 
 
@@ -133,7 +143,45 @@ def test_flat_query_runs_the_plain_version_on_cpu():
     assert s.shape == (2, 3) and i.device.type == "cpu"
     assert ops.launch_counts() == {
         "topk_distance": 0, "pq_adc": 0, "ivf_adc": 0, "ivf_adc_blocked": 0,
-        "ivf_adc_run_resident": 0, "hamming": 0}
+        "ivf_adc_run_resident": 0, "hamming": 0, "flash_attention": 0}
+
+
+NEW_PORT_MODULES = ["configs/base.py", "configs/thistle_sbert.py",
+                    "data/marco.py", "models/layers.py", "models/attention.py",
+                    "models/transformer.py", "models/encoder.py",
+                    "kernels/flash_attention.py"]
+
+
+@pytest.mark.parametrize("module", NEW_PORT_MODULES)
+def test_text_path_modules_are_checked_for_imports(module):
+    """The text path's modules are among the files the import rule walks."""
+    assert REPO / "src" / "repro_torch" / module in PORT_FILES
+
+
+def test_flash_attention_refuses_the_kernel_on_cpu():
+    x = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(x, x, x, causal=False, use_kernel=True)
+    from repro_torch.configs import thistle_sbert
+    from repro_torch.models.attention import multihead_attention
+    with pytest.raises(ValueError, match="CUDA"):
+        multihead_attention(x, x, x, thistle_sbert.SMOKE, causal=False,
+                            window=None, use_kernel=True)
+    ops.reset_launch_counts()
+    ops.flash_attention(x, x, x, causal=False)
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
+def test_sdpa_in_a_port_file_is_caught(tmp_path):
+    """The rule sees PyTorch's fused attention through an alias and
+    through a from-import."""
+    for src in ("import torch.nn.functional as F\n"
+                "F.scaled_dot_product_attention(q, k, v)\n",
+                "from torch.nn.functional import scaled_dot_product_attention\n"):
+        path = tmp_path / "mod.py"
+        path.write_text(src)
+        with pytest.raises(AssertionError, match="scaled_dot_product"):
+            test_no_torch_topk_or_compile_in_the_port(path)
 
 
 def test_kernel_k_limit_is_named():
@@ -234,16 +282,17 @@ echo "ptxas info    : Used 40 registers" && echo lib > "$out"
 ''')
     monkeypatch.setenv("CUDA_HOME", home)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    names = ["topk_distance", "ivf_adc", "pq_adc", "hamming"]
+    names = ["topk_distance", "ivf_adc", "pq_adc", "hamming",
+             "flash_attention"]
     _build.build_all(names)
     lines = calls.read_text().splitlines()
-    assert len(lines) == 4
+    assert len(lines) == 5
     assert all("arch=compute_90a,code=sm_90a" in ln for ln in lines)
     assert sorted(ln.split()[-1].rsplit("/", 1)[-1] for ln in lines) == sorted(
         f"{n}.cu" for n in names)
     assert "registers" in _build.build_log("ivf_adc")
     _build.build_all(names)  # keyed on the sources
-    assert len(calls.read_text().splitlines()) == 4
+    assert len(calls.read_text().splitlines()) == 5
 
 
 def test_build_failure_names_the_source(tmp_path, monkeypatch):
