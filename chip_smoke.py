@@ -11,8 +11,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      flash_attention), one nvcc each, in parallel; the ptxas lines
      (registers, shared memory, spills);
   3. kernel against plain version at mid size (262,144 rows, d = 768,
-     m = 64): ``topk_distance`` for {dot, l2} x k in {10, 200} x Q in
-     {1, 32, 512}; ``pq_adc`` for {dot, l2} x {float32, bfloat16, int8} x
+     m = 64): ``topk_distance`` with float32 and bf16 corpora for {dot, l2}
+     x k in {1, 10, 256} x Q in {1, 5, 16, 32, 33, 128, 512} (every
+     query-tile template and a ragged Q) on a ragged N with duplicated rows
+     (ties) and a tenth of the rows knocked out; ``pq_adc`` for {dot, l2} x {float32, bfloat16, int8} x
      Q in {1, 32, 512} x k in {10, 200} and a scan_all-shaped case (an
      extra subspace as wide as the cluster count); ``ivf_adc``,
      ``ivf_adc_blocked`` and ``ivf_adc_run_resident`` for {dot, l2,
@@ -29,7 +31,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      causal and not, within the reference's 2e-5 / 2e-2;
   4. main path at full size on the MS MARCO v1 passage count (8,841,823
      rows) of d = 768 cosine embeddings, clustered synthetic data made on
-     the card from ``--seed``: ``VectorDB("flat")``, ``VectorDB("pq")``,
+     the card from ``--seed``: ``VectorDB("flat")``, then
+     ``VectorDB("flat", dtype=torch.bfloat16)`` (the float32 one dropped;
+     its recall@10 against the float32 truth), ``VectorDB("pq")``,
      then ``VectorDB("ivf_pq")`` served under adc_mode auto (the default),
      per_query, blocked and run_resident from one trained state (every
      grid's ids and scores equal per_query's bit for bit), and scan_all at
@@ -77,7 +81,10 @@ REPS = {1: 30, 32: 12, 512: 4}
 GROUPED = ("blocked", "run_resident")
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12      # H100 SXM dense TF32 on the tensor cores
 BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 on the tensor cores
+TOPK_QS = (1, 5, 16, 32, 33, 128, 512)  # every query-tile template, a ragged Q
+TOPK_KS = (1, 10, 256)
 # 32-bit population counts a clock per SM at compute capability 9.0 (CUDA
 # C++ Programming Guide, arithmetic instruction throughput table); times the
 # SM count and the top SM clock nvidia-smi reports, it bounds hamming
@@ -208,32 +215,39 @@ def serve_batches(db, queries, label: str) -> dict:
 def topk_tolerance(corpus, q, l2: bool):
     """Bound on |kernel - plain| for one score: both sum d products in
     float32 in different orders, each within d * 2^-24 * |q| * |c| of the
-    exact dot (x2 for l2), plus a few roundings of the score itself."""
+    exact dot (x2 for l2), plus a few roundings of the score itself. A bf16
+    corpus adds the float32 rounding of its products (2^-24 |q| |c|, x2 for
+    l2): the norms are those of the stored bf16 values."""
     import torch
-    c_max = float(torch.linalg.vector_norm(corpus, dim=1).max())
-    q_norm = torch.linalg.vector_norm(q, dim=1)
+    c_max = float(torch.linalg.vector_norm(corpus.float(), dim=1).max())
+    q_norm = torch.linalg.vector_norm(q.float(), dim=1)
     d = corpus.shape[1]
-    return (2.0 if l2 else 1.0) * 2 * d * 2.0 ** -24 * q_norm * c_max
+    terms = 2 * d + (1 if corpus.dtype == torch.bfloat16 else 0)
+    return (2.0 if l2 else 1.0) * terms * 2.0 ** -24 * q_norm * c_max
 
 
-def compare_topk(corpus, q, metric: str, k: int, label: str) -> float:
-    """ops.topk_distance on the kernel and on the plain version. Scores
-    agree rank by rank within the tolerance; an id may differ only where
-    the kernel's row scores, exactly in float64, within twice the tolerance
-    of the plain version's score at that rank (a near-tie)."""
+def compare_topk(corpus, q, metric: str, k: int, label: str,
+                 valid=None) -> float:
+    """ops.topk_distance on the kernel and on the plain version (the same
+    corpus dtype, float32 or bf16). Scores agree rank by rank within the
+    tolerance; an id may differ only where the kernel's row scores,
+    exactly in float64, within twice the tolerance of the plain version's
+    score at that rank (a near-tie); every id is a live row."""
     import torch
     from repro_torch.kernels import ops
-    sq = torch.sum(corpus * corpus, dim=1) if metric == "l2" else None
-    ks, ki = ops.topk_distance(corpus, q, k=k, metric=metric, corpus_sq=sq,
-                               use_kernel=True)
-    ps, pi = ops.topk_distance(corpus, q, k=k, metric=metric, corpus_sq=sq,
-                               use_kernel=False)
+    sq = (torch.sum(corpus.float() * corpus.float(), dim=1)
+          if metric == "l2" else None)
+    kw = dict(k=k, metric=metric, corpus_sq=sq, valid=valid)
+    ks, ki = ops.topk_distance(corpus, q, use_kernel=True, **kw)
+    ps, pi = ops.topk_distance(corpus, q, use_kernel=False, **kw)
     torch.cuda.synchronize()
     tol = topk_tolerance(corpus, q, metric == "l2")[:, None]
     err = (ks - ps).abs()
     if not bool((err <= tol).all()):
         raise AssertionError(f"{label}: score error {float(err.max())} above "
                              f"bound {float(tol.max())}")
+    if valid is not None and not bool(valid[ki.long()].all()):
+        raise AssertionError(f"{label}: a knocked-out row in the top k")
     same = ki == pi.to(ki.dtype)
     if not bool(same.all()):
         rows, cols = torch.nonzero(~same, as_tuple=True)
@@ -249,6 +263,21 @@ def compare_topk(corpus, q, metric: str, k: int, label: str) -> float:
         f"near-ties), max |dscore| {float(err.max()):.3e} (bound "
         f"{float(tol.max()):.3e})")
     return float(err.max())
+
+
+def topk_bound(N: int, d: int, Q: int, k: int, bf16: bool) -> tuple:
+    """Least time for one topk_distance call: the corpus, the row bias and
+    q read once, the (Q, k) result written once, against 2 Q N d products:
+    bf16 on the tensor cores (989 TFLOP/s); float32 at the lesser of
+    3xTF32 on the tensor cores (3 x 2 Q N d at 495 TFLOP/s, the cheapest
+    float32-accurate route, the kernel's) and float32 FMAs (67 TFLOP/s)."""
+    esize = 2 if bf16 else 4
+    n_bytes = N * d * esize + N * 4 + Q * d * esize + Q * k * 8
+    ops = 2.0 * Q * N * d
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (ops / BF16_OPS_PER_S if bf16 else
+             min(3 * ops / TF32_OPS_PER_S, ops / FP32_OPS_PER_S)) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def same_result(a, b) -> bool:
@@ -403,11 +432,7 @@ def phase_mid(seed: int, device, rank: int) -> None:
     log(f"phase 3: kernel against plain version, N={MID_ROWS}, d={DIM}, "
         f"m={M_SUBSPACES}")
     corpus, queries = make_dataset(MID_ROWS, 512, seed + 1, device, rank)
-    for metric in ("dot", "l2"):
-        for k in (10, 200):
-            for Q in BATCHES:
-                compare_topk(corpus, queries[:Q], metric, k,
-                             f"topk_distance {metric} k={k} Q={Q}")
+    topk_mid(corpus, queries, seed)
     for metric in ("dot", "l2"):
         db = VectorDB("pq", metric=metric, m=M_SUBSPACES,
                       device=device).load(corpus)
@@ -451,6 +476,33 @@ def phase_mid(seed: int, device, rank: int) -> None:
     torch.cuda.empty_cache()
     hamming_mid(seed, device)
     flash_mid(seed, device)
+
+
+def topk_mid(corpus, queries, seed: int) -> None:
+    """topk_distance against its plain version on a ragged corpus (MID_ROWS
+    - 77 rows plus 64 duplicated rows, whose scores tie and go to the lower
+    id) with a tenth of the rows knocked out, in float32 and bf16, at every
+    Q of TOPK_QS (each query-tile template and a ragged Q) and k of
+    TOPK_KS, for the dot and l2 metrics; each plan is printed once."""
+    import torch
+    from repro_torch.kernels.topk_distance import plan
+    gen = torch.Generator(device=corpus.device).manual_seed(seed + 5)
+    c32 = torch.cat([corpus[:MID_ROWS - 77], corpus[:64]])
+    valid = torch.rand(c32.shape[0], generator=gen,
+                       device=corpus.device) >= 0.1
+    for dtype in (torch.float32, torch.bfloat16):
+        c, qs = c32.to(dtype), queries.to(dtype)
+        name = str(dtype).split(".")[-1]
+        for Q in TOPK_QS:
+            for k in TOPK_KS:
+                p = plan(c.shape[0], Q, DIM, k, dtype)
+                log(f"  topk_distance {name} plan Q={Q} k={k}: {p}")
+                for metric in ("dot", "l2"):
+                    compare_topk(c, qs[:Q], metric, k,
+                                 f"topk_distance {name} {metric} k={k} Q={Q} "
+                                 f"N={c.shape[0]}", valid=valid)
+        del c, qs
+    torch.cuda.empty_cache()
 
 
 def random_words(gen, shape, device):
@@ -623,12 +675,67 @@ def phase_main(n: int, seed: int, device, rank: int, min_recall: float,
     return kernels
 
 
+def library_topk(corpus, q, k: int, chunk: int = 128):
+    """torch.matmul + torch.topk over the corpus (the yardstick, used
+    nowhere in the port), queries in chunks of ``chunk`` rows so that the
+    (Q, N) score matrix stays within memory (Q = 512 at N = 8,841,823 is
+    18 GB in float32)."""
+    import torch
+    for a in range(0, q.shape[0], chunk):
+        torch.topk(q[a:a + chunk] @ corpus.T, k)
+
+
+def time_topk(corpus, queries, label: str) -> dict:
+    """The kernel, its plain version and torch.matmul + torch.topk at each
+    Q of BATCHES on the engine's corpus (k = 10, dot), beside the bound;
+    at Q <= 32 also the kernel with the query tile's other placement
+    (resident in shared memory or riding in the ring), which the launch
+    plan did not pick. Returns {Q: (ms, plain_ms, library_ms, bound)}."""
+    import torch
+    from repro_torch.kernels.topk_distance import (plan, topk_distance_cuda,
+                                                   topk_distance_plain)
+    N = corpus.shape[0]
+    bf16 = corpus.dtype == torch.bfloat16
+    bias = torch.zeros(N, dtype=torch.float32, device=corpus.device)
+    out = {}
+    for Q in BATCHES:
+        q = queries[:Q].to(corpus.dtype)
+        ms = gpu_ms(lambda: topk_distance_cuda(corpus, q, bias, k=10,
+                                               l2=False), 5)
+        plain_ms = gpu_ms(lambda: topk_distance_plain(corpus, q, bias, k=10,
+                                                      l2=False), 1)
+        lib_ms = gpu_ms(lambda: library_topk(corpus, q, 10), 2)
+        b = topk_bound(N, DIM, Q, 10, bf16)
+        out[Q] = (ms, plain_ms, lib_ms, b)
+        p = plan(N, Q, DIM, 10, corpus.dtype)
+        log(f"  topk_distance {label} Q={Q}: kernel {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, torch.matmul+torch.topk {lib_ms:.3f} ms"
+            f"{' (4 chunks of 128 queries)' if Q > 128 else ''}, bound "
+            f"{b[0]:.3f} ms ({b[1]}); plan {p}")
+        if Q <= 32:
+            other = 1 - p["resident"]
+            o_ms = gpu_ms(lambda: topk_distance_cuda(corpus, q, bias, k=10,
+                                                     l2=False,
+                                                     resident=other), 5)
+            log(f"    the other placement (resident={other}, plan "
+                f"{plan(N, Q, DIM, 10, corpus.dtype, other)}): {o_ms:.3f} ms")
+    return out
+
+
+def by_q(times) -> dict:
+    """time_topk's numbers keyed by batch size, for the kernels line."""
+    return {str(Q): {"ms": t[0], "plain_ms": t[1], "library_ms": t[2],
+                     "bound_ms": t[3][0], "bound_by": t[3][1]}
+            for Q, t in times.items()}
+
+
 def main_flat(corpus, queries, device, kernels, launches):
-    """flat, the exact ground truth: serve, time topk_distance."""
+    """flat, the exact ground truth: serve, time topk_distance; then the
+    same engine with a bf16 corpus (the f32 one dropped first): serve,
+    recall against the f32 truth, time. Returns the f32 truth."""
     import torch
     from repro_torch import VectorDB
-    from repro_torch.kernels.topk_distance import (topk_distance_cuda,
-                                                   topk_distance_plain)
+    from repro_torch.kernels import ops
     t0 = time.perf_counter()
     flat = VectorDB("flat", metric="cosine", device=device).load(corpus)
     torch.cuda.synchronize()
@@ -636,33 +743,56 @@ def main_flat(corpus, queries, device, kernels, launches):
     res, counts = serve_and_count(flat, queries, "flat")
     launches["topk_distance"] = counts["topk_distance"]
     truth = res[max(BATCHES)][1]
-
     fc = flat.index.corpus
-    q32 = queries[:32]
-    bias = torch.zeros(fc.shape[0], dtype=torch.float32, device=device)
-    for Q in BATCHES:
-        ms = gpu_ms(lambda: topk_distance_cuda(fc, queries[:Q], bias, k=10,
-                                               l2=False), 5)
-        b, _ = bound_ms(fc.numel() * 4 + fc.shape[0] * 4 + Q * DIM * 4
-                        + Q * 10 * 8, 2.0 * Q * fc.shape[0] * DIM)
-        log(f"  topk_distance kernel Q={Q}: {ms:.3f} ms (bound {b:.3f} ms)")
-    ms = gpu_ms(lambda: topk_distance_cuda(fc, q32, bias, k=10, l2=False), 5)
-    plain_ms = gpu_ms(lambda: topk_distance_plain(fc, q32, bias, k=10,
-                                                  l2=False), 2)
-    lib_ms = gpu_ms(lambda: torch.topk(q32 @ fc.T, 10), 3)
-    bound = bound_ms(fc.numel() * 4 + fc.shape[0] * 4 + 32 * DIM * 4
-                     + 32 * 10 * 8, 2.0 * 32 * fc.shape[0] * DIM)
+    times = time_topk(fc, queries, "float32")
+    ms, lib_ms = times[32][0], times[32][2]
+    log(f"  topk_distance float32 Q=32: kernel {ms:.3f} ms against "
+        f"torch.matmul+torch.topk {lib_ms:.3f} ms: "
+        f"{'below' if ms < lib_ms else 'NOT below'} the library call")
     err = max(compare_topk(fc, queries[:Q], "dot", 10,
-                           f"topk_distance full size Q={Q}") for Q in BATCHES)
-    kernels.append(kernel_entry(
+                           f"topk_distance float32 full size Q={Q}")
+              for Q in BATCHES)
+    entry = kernel_entry(
         "topk_distance", "src/repro_torch/csrc/topk_distance.cu",
         "src/repro/kernels/topk_distance.py:77", launches["topk_distance"],
-        err, ms, plain_ms, bound, lib_ms,
-        f"Q=32 N={fc.shape[0]} d={DIM} k=10"))
-    log(f"  topk_distance Q=32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"torch.matmul+torch.topk {lib_ms:.3f} ms, bound {bound[0]:.3f} ms "
-        f"({bound[1]})")
-    del flat, fc, bias, res
+        err, *times[32][:2], times[32][3], lib_ms,
+        f"Q=32 N={fc.shape[0]} d={DIM} k=10 float32 corpus (3xTF32); by_q: "
+        f"Q = 1, 32, 512; bf16: the same kernel on the bf16 flat corpus; "
+        f"library_ms: torch.matmul + torch.topk (Q = 512 in 4 chunks of "
+        f"128 queries)")
+    entry["by_q"] = by_q(times)
+    del flat, fc, res
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    flat = VectorDB("flat", metric="cosine", dtype=torch.bfloat16,
+                    device=device).load(corpus)
+    torch.cuda.synchronize()
+    fc = flat.index.corpus
+    log(f"  flat bf16 load: {time.perf_counter() - t0:.2f} s (corpus "
+        f"{fc.dtype}, {fc.numel() * fc.element_size() / 1e9:.2f} GB on the "
+        f"card)")
+    res, counts = serve_and_count(flat, queries, "flat bf16")
+    if counts["topk_distance"] <= 0:
+        raise AssertionError("topk_distance never launched on the bf16 flat "
+                             "path")
+    recall = recall_at_10(res[max(BATCHES)][1], truth)
+    log(f"  recall@10 of flat bf16 against flat float32: {recall:.4f} "
+        f"({truth.shape[0]} queries; printed, not gated)")
+    times = time_topk(fc, queries, "bfloat16")
+    err16 = max(compare_topk(fc, queries[:Q].to(torch.bfloat16), "dot", 10,
+                             f"topk_distance bfloat16 full size Q={Q}")
+                for Q in BATCHES)
+    ms, plain_ms, lib_ms, b = times[32]
+    entry["bf16"] = {"launches": counts["topk_distance"], "max_abs_err": err16,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0],
+                     "bound_by": b[1], "library_ms": lib_ms,
+                     "by_q": by_q(times), "recall_at_10_vs_float32": recall}
+    kernels.append(entry)
+    log(f"  peak device memory through flat: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del flat, fc, res
+    ops.reset_launch_counts()
     torch.cuda.empty_cache()
     return truth
 
@@ -1319,8 +1449,6 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # bf16 products reduce in float32, as XLA's do (serving needs this off)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     t_start = time.perf_counter()
     smi, popc_per_s = phase_header()

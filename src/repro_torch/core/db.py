@@ -151,8 +151,12 @@ class VectorDB(_PlanLedger):
                 "item 7")
         if not self._loaded:
             raise RuntimeError("query before load")
-        q = torch.atleast_2d(torch.as_tensor(q, dtype=torch.float32,
-                                             device=self.device))
+        # the plan is keyed on the caller's dtype, as the reference keys it;
+        # float64 becomes float32 as jnp.asarray makes it (x64 off), and
+        # each engine casts to the type it scores in
+        q = torch.atleast_2d(torch.as_tensor(q, device=self.device))
+        if q.dtype == torch.float64:
+            q = q.float()
         kk = min(k, self.n)
         if kk <= 0:
             return _empty_result(q.shape[0], k, self.device)

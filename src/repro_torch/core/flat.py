@@ -6,6 +6,12 @@ The reference's ``flat_search`` is a jnp scan that mirrors the Pallas
 ``kernels.ops.topk_distance`` itself: the CUDA kernel for a corpus on the
 card, its plain version on the CPU. This engine is the exact ground truth
 that every recall number of the other engines is measured against.
+
+``dtype=torch.bfloat16`` keeps the corpus on the device in bf16, as the
+reference's ``FlatIndex(dtype=jnp.bfloat16)`` does: rows are normalized
+(cosine) and |c|^2 taken (l2) in float32 before the cast, queries are cast
+to bf16 before they are normalized, and bf16 products are summed in
+float32.
 """
 from __future__ import annotations
 
@@ -15,6 +21,19 @@ from repro_torch.core import distances as D
 from repro_torch.core.mutable import GrowableRows, MutationMixin
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+LOAD_CHUNK = 1 << 18  # rows a chunk when a bf16 corpus is built at load
+
+
+def corpus_dtype(dtype) -> torch.dtype:
+    """torch.float32 or torch.bfloat16, given as a torch dtype or its name;
+    anything else raises."""
+    name = str(dtype).replace("torch.", "")
+    if name not in DTYPES:
+        raise ValueError(f"flat corpus dtype must be one of {sorted(DTYPES)},"
+                         f" got {dtype}")
+    return DTYPES[name]
 
 
 def flat_search(corpus, q, *, metric: str = "cosine", k: int = 10,
@@ -31,13 +50,16 @@ def flat_search(corpus, q, *, metric: str = "cosine", k: int = 10,
 
 
 class FlatIndex(MutationMixin):
-    """Exact-kNN engine (Thistle's Iterative, every metric). The corpus,
-    |c|^2 for l2, and a live mask live on ``device``."""
+    """Exact-kNN engine (Thistle's Iterative, every metric). The corpus in
+    ``dtype`` (float32 or bfloat16), |c|^2 for l2 in float32, and a live
+    mask live on ``device``."""
 
-    def __init__(self, metric: str = "cosine", device=None):
+    def __init__(self, metric: str = "cosine", dtype=torch.float32,
+                 device=None):
         if metric not in D.METRICS:
             raise ValueError(f"metric {metric!r} not in {D.METRICS}")
         self.metric = metric
+        self.dtype = corpus_dtype(dtype)
         self.device = resolve_device(device)
         self.corpus = self.corpus_sq = self.valid = None
         self._corpus = self._sq = self._valid = None
@@ -56,7 +78,19 @@ class FlatIndex(MutationMixin):
 
     def load(self, vectors):
         x = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
-        corpus, sq = D.preprocess_corpus(x, self.metric)
+        if self.dtype == torch.float32:
+            corpus, sq = D.preprocess_corpus(x, self.metric)
+        else:  # float32 rows a chunk at a time, cast into the bf16 corpus
+            corpus = torch.empty(x.shape, dtype=self.dtype, device=self.device)
+            sq = (torch.empty(x.shape[0], dtype=torch.float32,
+                              device=self.device)
+                  if self.metric == "l2" else None)
+            for a in range(0, x.shape[0], LOAD_CHUNK):
+                rows, part = D.preprocess_corpus(x[a:a + LOAD_CHUNK],
+                                                 self.metric)
+                corpus[a:a + LOAD_CHUNK] = rows
+                if sq is not None:
+                    sq[a:a + LOAD_CHUNK] = part
         self._init_storage(corpus, sq, torch.ones(x.shape[0], dtype=torch.bool,
                                                   device=self.device))
         return self
@@ -74,13 +108,15 @@ class FlatIndex(MutationMixin):
         self._sync()
         q = torch.atleast_2d(torch.as_tensor(q, dtype=torch.float32,
                                              device=self.device))
-        return flat_search(self.corpus, q, metric=self.metric, k=k,
+        return flat_search(self.corpus, q.to(self.dtype), metric=self.metric,
+                           k=k,
                            corpus_sq=self.corpus_sq, valid=self.valid)
 
     # ------------------------------------------------------- persistence
     def state_dict(self) -> dict:
         n = self.next_id
         state = {"engine": "flat", "metric": self.metric,
+                 "dtype": str(self.dtype).replace("torch.", ""),
                  "corpus": self._corpus.data[:n],
                  "live": self._valid.data[:n],
                  "generation": self.generation}
@@ -90,12 +126,18 @@ class FlatIndex(MutationMixin):
 
     def load_state(self, state) -> "FlatIndex":
         """Load a state (``state_dict`` or ``core.convert.from_reference_state``):
-        corpus rows as stored (already normalized for cosine)."""
+        corpus rows as stored (already normalized for cosine), cast to the
+        engine's dtype as the reference casts its float32 mirror. A state
+        that names another dtype is refused."""
         _check_snapshot(state, "flat", self.metric)
+        got = corpus_dtype(state.get("dtype", self.dtype))
+        if got != self.dtype:
+            raise ValueError(f"state holds a {got} corpus, cannot load into "
+                             f"a {self.dtype} flat engine")
         dev = self.device
         sq = state.get("corpus_sq")
         self._init_storage(
-            torch.as_tensor(state["corpus"], dtype=torch.float32, device=dev),
+            torch.as_tensor(state["corpus"], device=dev).to(self.dtype),
             None if sq is None else torch.as_tensor(sq, dtype=torch.float32,
                                                     device=dev),
             torch.as_tensor(state["live"], dtype=torch.bool, device=dev))

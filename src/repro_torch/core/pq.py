@@ -677,6 +677,23 @@ class IVFPQIndex(MutationMixin):
             st["batches"] += 1
         return out
 
+    def memory_bytes(self, include_raw: bool = False) -> int:
+        """Index-resident bytes, as the reference counts them: the block
+        layout (codes, slot ids, block table), codebooks and centroids, the
+        row-major codes and assignments under scan_all, |c|^2 for l2 (and
+        the re-rank corpus with ``include_raw``)."""
+        total = (self.layout.memory_bytes() + self.codebooks.numel() * 4
+                 + self.centroids.numel() * 4)
+        if self.codes is not None:
+            total += self.codes.numel()
+        if self.assign is not None:
+            total += self.assign.numel() * 4
+        if self._sq is not None:
+            total += self._sq.data.numel() * 4
+        if include_raw and self._corpus is not None:
+            total += self._corpus.data.numel() * 4
+        return int(total)
+
     # ------------------------------------------------------- persistence
     def state_dict(self) -> dict:
         """The reference's snapshot leaves: row-major codes and a bucket

@@ -48,3 +48,19 @@ def strict_fp32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@contextlib.contextmanager
+def float32_bf16_sums():
+    """bf16 products on the card summed in float32 inside the block, as
+    XLA sums them for the reference: cuBLAS's reduced-precision bf16
+    reductions (PyTorch's default) are off, and the caller's setting is
+    restored after, also when the block raises. Also usable as a
+    decorator."""
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = prev

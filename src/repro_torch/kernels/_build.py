@@ -135,6 +135,13 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
+def aligned(t):
+    """``t`` contiguous and 16-byte aligned (the kernels move 16-byte
+    words): a copy only when a view starts off the boundary."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 class LaunchCounter:
     """Launches of one kernel wrapper: the wrapper adds one where it
     launches its kernel and nowhere else, so a run can show that its main

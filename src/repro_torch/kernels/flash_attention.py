@@ -92,19 +92,13 @@ def _check(q, k, v, kv_mask, window) -> None:
         raise ValueError(f"kv_mask must be bool ({B}, {Sk}) on {q.device}")
 
 
-def _aligned(t):
-    """Contiguous and 16-byte aligned (the kernel stages 16-byte words)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def flash_attention_cuda(q, k, v, *, causal: bool, scale: float,
                          kv_mask=None, window=None):
     """Launch the kernel: (B, Sq, H, dh) in q's dtype."""
     _check(q, k, v, kv_mask, window)
     B, Sq, H, dh = q.shape
     Sk, KV = k.shape[1], k.shape[2]
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = _build.aligned(q), _build.aligned(k), _build.aligned(v)
     mask = None if kv_mask is None else kv_mask.contiguous()
     lib = _build.load("flash_attention", _SIGNATURES)
     out = torch.empty_like(q)

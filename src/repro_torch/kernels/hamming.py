@@ -117,17 +117,10 @@ def _check(q_codes, c_codes):
     return T, Q, N, W
 
 
-def _aligned(t):
-    """Contiguous and 16-byte aligned (the kernel reads rows as 16-byte
-    words when W is a multiple of 4)."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def hamming_cuda(q_codes, c_codes):
     """Launch the matrix kernel: (Q, N) int32 distances."""
     T, Q, N, W = _check(q_codes, c_codes)
-    q_codes, c_codes = _aligned(q_codes), _aligned(c_codes)
+    q_codes, c_codes = _build.aligned(q_codes), _build.aligned(c_codes)
     lib = _build.load("hamming", _SIGNATURES)
     out = torch.empty((Q, N), dtype=torch.int32, device=c_codes.device)
     stream = torch.cuda.current_stream(c_codes.device).cuda_stream
@@ -146,7 +139,7 @@ def hamming_shortlist_cuda(q_codes, c_codes, L: int):
         raise ValueError(f"hamming_shortlist kernel takes L <= {KMAX}, got L={L}")
     T, Q, N, W = _check(q_codes, c_codes)
     _check_l(L, N)
-    q_codes, c_codes = _aligned(q_codes), _aligned(c_codes)
+    q_codes, c_codes = _build.aligned(q_codes), _build.aligned(c_codes)
     lib = _build.load("hamming", _SIGNATURES)
     dev = c_codes.device
     qt = 8 if Q <= 8 else 32

@@ -67,7 +67,8 @@ def normalize_knockouts(s, i):
 
 def topk_distance(corpus, q, *, k: int, metric: str = "dot", corpus_sq=None,
                   valid=None, use_kernel=None):
-    """Fused exact top-k. corpus: (N, d); q: (Q, d); metric in {dot, l2}.
+    """Fused exact top-k. corpus: (N, d) float32 or bf16; q: (Q, d), cast
+    to the corpus's dtype; metric in {dot, l2}.
 
     Rows where ``valid`` is False are knocked out through the additive
     score bias (-1e30), as in the reference. Returns (scores (Q, k) f32,
@@ -84,7 +85,8 @@ def topk_distance(corpus, q, *, k: int, metric: str = "dot", corpus_sq=None,
         bias = torch.zeros((N,), dtype=torch.float32, device=corpus.device)
     if valid is not None:
         bias = torch.where(valid, bias, NEG_INF)
-    s, i = _tk.topk_distance(corpus, q.float(), bias, k=k, l2=l2,
+    q = q.to(corpus.dtype)
+    s, i = _tk.topk_distance(corpus, q, bias, k=k, l2=l2,
                              use_kernel=use_kernel)
     if l2:
         s = s - torch.sum(torch.square(q.float()), dim=-1, keepdim=True)

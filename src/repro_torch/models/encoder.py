@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import EncoderConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import float32_bf16_sums, resolve_device
 from repro_torch.models import transformer
 from repro_torch.models.layers import dense_init
 
@@ -49,11 +49,14 @@ def init(cfg: EncoderConfig, generator: torch.Generator, device=None) -> Encoder
 
 
 @torch.no_grad()
+@float32_bf16_sums()
 def encode(params: Encoder, cfg: EncoderConfig, tokens, mask=None, *,
            use_kernel=None):
     """tokens (B, S) -> embeddings (B, E) float32 (L2-normalized if
     cfg.normalize), on the parameters' device. ``use_kernel=False`` runs
-    the attention's plain versions on the card as well."""
+    the attention's plain versions on the card as well. bf16 products are
+    summed in float32 whatever the caller's cuBLAS setting
+    (``device.float32_bf16_sums``)."""
     dev = params.embed.table.device
     tokens = torch.as_tensor(tokens, device=dev)
     if mask is not None:

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import LMConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import float32_bf16_sums, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import MLP, Embed, Norm, apply_embed, apply_mlp, apply_norm
 
@@ -81,9 +81,11 @@ def _block_fwd(cfg: LMConfig, p: Block, x, positions, kv_mask, *,
 
 
 @torch.no_grad()
+@float32_bf16_sums()
 def forward(params: Transformer, cfg: LMConfig, tokens, *, kv_mask=None,
             use_kernel=None):
-    """tokens: (B, S) int -> hidden (B, S, D) in cfg.dtype."""
+    """tokens: (B, S) int -> hidden (B, S, D) in cfg.dtype; bf16 products
+    summed in float32, as XLA sums them (``device.float32_bf16_sums``)."""
     dtype = getattr(torch, cfg.dtype)
     S = tokens.shape[1]
     x = apply_embed(params.embed, tokens, dtype)

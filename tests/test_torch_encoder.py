@@ -281,3 +281,44 @@ def test_load_and_query_texts_match_reference():
     # a passage sent back as a query finds itself first
     s, i, _ = db.query_texts(passages[:20], p_enc, k=1)
     np.testing.assert_array_equal(i.numpy()[:, 0], np.arange(20))
+
+
+@pytest.mark.parametrize("entry", ["encode", "forward"])
+@pytest.mark.parametrize("caller_flag", [True, False])
+def test_bf16_reduction_flag_is_set_inside_and_restored(monkeypatch, entry,
+                                                        caller_flag):
+    """encode and the transformer forward sum bf16 products in float32
+    whatever the caller set: the cuBLAS flag is off inside the call, and
+    the caller's value is back after it, also when the call raises."""
+    from repro_torch.models import transformer as ptr
+    mm = torch.backends.cuda.matmul
+    cfg = dataclasses.replace(pcfg.SMOKE, n_layers=1)
+    model = penc.init(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(2, cfg.vocab_size, (2, 8),
+                           generator=torch.Generator().manual_seed(1))
+    seen = []
+    real_block = ptr._block_fwd
+
+    def spy(*args, **kw):
+        seen.append(mm.allow_bf16_reduced_precision_reduction)
+        if len(seen) == 2:
+            raise RuntimeError("raised inside the call")
+        return real_block(*args, **kw)
+
+    def call():
+        if entry == "encode":
+            return penc.encode(model, cfg, tokens, tokens != 0)
+        return ptr.forward(model, cfg, tokens, kv_mask=tokens != 0)
+
+    prev = mm.allow_bf16_reduced_precision_reduction
+    monkeypatch.setattr(ptr, "_block_fwd", spy)
+    try:
+        mm.allow_bf16_reduced_precision_reduction = caller_flag
+        call()
+        assert mm.allow_bf16_reduced_precision_reduction is caller_flag
+        with pytest.raises(RuntimeError, match="inside the call"):
+            call()
+        assert mm.allow_bf16_reduced_precision_reduction is caller_flag
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = prev
+    assert seen == [False, False]

@@ -52,16 +52,18 @@ def _flat_state(jdb):
     return state
 
 
-def _assert_same(port, ref):
-    """Scores rank by rank within TOL; ids equal, except that two rows
-    whose scores agree within TOL may trade places (the tables and query
+def _assert_same(port, ref, tol=TOL):
+    """Scores rank by rank within ``tol``; ids equal, except that two rows
+    whose scores agree within it may trade places (the tables and query
     norms are built by different float32 code, so a near-tie can fall
     either way)."""
     (ps, pi), (rs, ri) = port, ref
-    ps, pi, rs, ri = ps.numpy(), pi.numpy(), np.asarray(rs), np.asarray(ri)
-    np.testing.assert_allclose(ps, rs, **TOL)
+    ps, pi = ps.float().numpy(), pi.numpy()
+    rs, ri = np.asarray(rs, np.float32), np.asarray(ri)
+    np.testing.assert_allclose(ps, rs, **tol)
+    bound = tol
     for r, j in zip(*np.nonzero(pi != ri)):
-        tol = TOL["atol"] + TOL["rtol"] * abs(ps[r, j])
+        tol = bound["atol"] + bound["rtol"] * abs(ps[r, j])
         where = np.flatnonzero(ri[r] == pi[r, j])
         other = rs[r, where[0]] if where.size else rs[r, -1]
         assert abs(other - ps[r, j]) <= tol, (r, j, pi[r], ri[r])
@@ -215,3 +217,113 @@ def test_contiguous_range_block_lists_match_layout(data):
                            None, q, steps_per_probe=spp, **kw)
     np.testing.assert_array_equal(i0.numpy(), i1.numpy())
     np.testing.assert_array_equal(s0.numpy(), s1.numpy())
+
+
+def _bf16_bound(q, corpus, metric):
+    """|bf16 flat - float32 flat| per query: q and c each move by at most
+    2^-9 of themselves when rounded to bf16 (2^-8 for a cosine q, which is
+    normalized in bf16 after the cast), so q.c moves by at most
+    2^-7 |q| max|c|; l2 adds the same on 2 q.c and on |q|^2."""
+    qn = np.linalg.norm(q, axis=1)[:, None]
+    cn = np.linalg.norm(corpus, axis=1).max()
+    if metric == "cosine":
+        qn, cn = np.ones_like(qn), 1.0
+    b = 2.0 ** -7 * qn * cn
+    if metric == "l2":
+        b = 2 * b + 2.0 ** -7 * qn ** 2
+    return b + 1e-5
+
+
+# a cosine q is normalized in bf16 on both sides, but XLA and PyTorch
+# round the bf16 norm in different places (1 bf16 ulp), so cosine scores
+# are held to the bf16 bound instead of TOL
+BF16_TOL = {"dot": TOL, "l2": TOL, "cosine": dict(atol=2.0 ** -7, rtol=0.0)}
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_flat_bf16_matches_reference(data, metric, k):
+    """VectorDB("flat", dtype=bfloat16) against the reference's flat engine
+    at dtype=bfloat16, loaded from the vectors and through
+    ``from_reference_state``: ids equal but for near-ties, scores within
+    BF16_TOL; and against the port's float32 flat within the bf16 bound."""
+    import jax.numpy as jnp
+    corpus, q = data
+    jdb = JaxVectorDB("flat", metric=metric, dtype=jnp.bfloat16).load(corpus)
+    loaded = VectorDB("flat", metric=metric, dtype=torch.bfloat16,
+                      device="cpu").load(corpus)
+    from_state = VectorDB("flat", metric=metric, dtype="bfloat16",
+                          device="cpu").load_state(
+        from_reference_state(_flat_state(jdb)))
+    assert loaded.index.corpus.dtype == torch.bfloat16
+    ref = jdb.query(q, k=k)
+    tol = BF16_TOL[metric]
+    for db in (loaded, from_state):
+        got = db.query(q, k=k)
+        _assert_same(got, ref, tol)
+    s32, _ = VectorDB("flat", metric=metric, device="cpu").load(
+        corpus).query(q, k=k)
+    s16 = loaded.query(q, k=k)[0].numpy()
+    assert np.all(np.abs(s16 - s32.numpy()) <= _bf16_bound(q, corpus, metric))
+
+
+def test_flat_bf16_state_round_trip_and_dtype_checks(data):
+    """state_dict keeps the dtype and the bf16 corpus; a state of another
+    dtype, and a corpus dtype the kernel does not take, are refused."""
+    corpus, q = data
+    db = VectorDB("flat", metric="l2", dtype=torch.bfloat16,
+                  device="cpu").load(corpus)
+    state = db.index.state_dict()
+    assert state["dtype"] == "bfloat16"
+    assert state["corpus"].dtype == torch.bfloat16
+    assert state["corpus_sq"].dtype == torch.float32
+    # |c|^2 of the float32 rows, before the cast (as the reference's)
+    np.testing.assert_allclose(state["corpus_sq"].numpy(),
+                               np.sum(np.square(corpus), axis=1), rtol=1e-6)
+    again = VectorDB("flat", metric="l2", dtype=torch.bfloat16,
+                     device="cpu").load_state(state)
+    for a, b in zip(again.query(q, k=10), db.query(q, k=10)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="dtype|bfloat16"):
+        VectorDB("flat", metric="l2", device="cpu").load_state(state)
+    for bad in (torch.float16, "int8"):
+        with pytest.raises(ValueError, match="corpus dtype"):
+            VectorDB("flat", dtype=bad, device="cpu")
+
+
+def test_plan_key_is_the_callers_dtype(data):
+    """A bf16 batch after a float32 batch of the same shape is a new plan
+    (a miss) in both packages; the same dtype again is a hit."""
+    import jax.numpy as jnp
+    corpus, q = data
+    jdb = JaxVectorDB("flat", metric="dot").load(corpus)
+    db = VectorDB("flat", metric="dot", device="cpu").load(corpus)
+    jdb.query(jnp.asarray(q, jnp.float32), k=5)
+    jdb.query(jnp.asarray(q, jnp.bfloat16), k=5)
+    db.query(torch.as_tensor(q), k=5)
+    db.query(torch.as_tensor(q).to(torch.bfloat16), k=5)
+    assert jdb.plan_stats == db.plan_stats == {"hits": 0, "misses": 2}
+    jdb.query(jnp.asarray(q, jnp.bfloat16), k=5)
+    db.query(torch.as_tensor(q).to(torch.bfloat16), k=5)
+    db.query(q.astype(np.float64), k=5)  # float64 plans as float32, as in JAX
+    jdb.query(q.astype(np.float64), k=5)
+    assert jdb.plan_stats == db.plan_stats == {"hits": 2, "misses": 2}
+
+
+@pytest.mark.parametrize("metric,scan_all", [("l2", False), ("cosine", False),
+                                             ("dot", True)])
+def test_ivf_pq_memory_bytes_matches_reference(metric, scan_all):
+    """memory_bytes counts what the reference's counts (layout, codebooks,
+    centroids, scan_all's row-major codes and assignments, |c|^2, and the
+    raw corpus on request) on one state carried across; 1024 rows, so the
+    reference's power-of-two capacity equals the port's row count."""
+    rng = np.random.default_rng(11)
+    corpus = _clustered(rng, 1024, 16, 8)
+    kw = dict(metric=metric, m=4, ksub=32, kmeans_iters=3, scan_all=scan_all)
+    jdb = JaxVectorDB("ivf_pq", **kw).load(corpus)
+    state = {key: np.asarray(v) for key, v in jdb.index.state_dict().items()}
+    db = VectorDB("ivf_pq", device="cpu", **kw).load_state(
+        from_reference_state(state))
+    for raw in (False, True):
+        assert db.index.memory_bytes(include_raw=raw) == \
+            jdb.index.memory_bytes(include_raw=raw)

@@ -25,32 +25,78 @@ def _card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("metric", ["dot", "l2"])
-@pytest.mark.parametrize("Q,k", [(1, 10), (33, 200), (70, 256)])
-def test_topk_distance_kernel_matches_plain(metric, Q, k):
-    dev = _card()
-    g = torch.Generator(device=dev).manual_seed(Q + k)
-    corpus = torch.randn(20_011, 96, generator=g, device=dev)
-    corpus = torch.cat([corpus, corpus[:50]])  # duplicates tie to the lower id
-    q = torch.randn(Q, 96, generator=g, device=dev)
-    valid = torch.rand(corpus.shape[0], generator=g, device=dev) < 0.9
-    ks, ki = ops.topk_distance(corpus, q, k=k, metric=metric, valid=valid)
-    ps, pi = ops.topk_distance(corpus, q, k=k, metric=metric, valid=valid,
-                               use_kernel=False)
-    torch.cuda.synchronize()
-    scale = (torch.linalg.vector_norm(q, dim=1)[:, None]
-             * torch.linalg.vector_norm(corpus, dim=1).max())
-    tol = (2 if metric == "l2" else 1) * 2 * 96 * 2.0 ** -24 * scale
-    assert bool(((ks - ps).abs() <= tol + 1e-6 * ps.abs()).all())
-    assert bool(valid[ki.long()].all())
-    # ids equal but for near-ties: where they differ, the kernel's row
-    # scores, exactly, within the tolerance of the plain score at that rank
+def _topk_near_ties(corpus, q, ks, ki, ps, pi, metric, tol):
+    """Scores rank by rank within tol; an id may differ from the plain
+    version's only where the kernel's row scores, exactly (float64 of the
+    stored values), within twice tol of the plain score at that rank."""
+    assert bool(((ks - ps).abs() <= tol).all()), float((ks - ps).abs().max())
     rows, cols = torch.nonzero(ki != pi, as_tuple=True)
     c64, q64 = corpus[ki[rows, cols].long()].double(), q[rows].double()
     exact = ((c64 * q64).sum(1) if metric == "dot"
              else -((q64 - c64) ** 2).sum(1))
     gap = (exact - ps[rows, cols].double()).abs()
     assert bool((gap <= 2 * tol[rows, 0].double() + 1e-6).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+@pytest.mark.parametrize("Q,k,d,bq", [(1, 10, 128, 16), (5, 1, 128, 16),
+                                      (16, 64, 128, 16), (32, 10, 128, 32),
+                                      (48, 10, 128, 64), (33, 256, 128, 64),
+                                      (128, 10, 128, 128),
+                                      (512, 10, 128, 128), (1, 10, 96, 16),
+                                      (33, 200, 96, 64), (70, 256, 96, 64)])
+def test_topk_distance_kernel_matches_plain(Q, k, d, bq, metric, dtype):
+    """Every query-tile template (16, 32, 64 and 128 rows), a ragged Q, a
+    ragged N, a ragged last k-slab (d = 96), duplicated rows,
+    a knocked-out tenth, in both corpus dtypes, against the plain version:
+    scores within the float32 bound of two summation orders (2 d 2^-24
+    |q| max|c|, doubled for l2, plus the float32 rounding of the products
+    for bf16), ids equal but for near-ties."""
+    from repro_torch.kernels.topk_distance import plan
+    dev = _card()
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(Q * 7 + k)
+    corpus = torch.randn(30_011, d, generator=g, device=dev).to(dt)
+    corpus = torch.cat([corpus, corpus[:64]])
+    q = torch.randn(Q, d, generator=g, device=dev).to(dt)
+    valid = torch.rand(corpus.shape[0], generator=g, device=dev) >= 0.1
+    assert plan(corpus.shape[0], Q, d, k, dt)["bq"] == bq
+    ops.reset_launch_counts()
+    ks, ki = ops.topk_distance(corpus, q, k=k, metric=metric, valid=valid)
+    assert ops.launch_counts()["topk_distance"] == 1
+    ps, pi = ops.topk_distance(corpus, q, k=k, metric=metric, valid=valid,
+                               use_kernel=False)
+    torch.cuda.synchronize()
+    assert bool(valid[ki.long()].all())
+    cf, qf = corpus.float(), q.float()
+    scale = (torch.linalg.vector_norm(qf, dim=1)[:, None]
+             * torch.linalg.vector_norm(cf, dim=1).max())
+    f = 2 if metric == "l2" else 1
+    tol = f * (2 * d + (dtype == "bfloat16")) * 2.0 ** -24 * scale
+    tol = tol + 1e-6 * ps.abs()
+    _topk_near_ties(cf, qf, ks, ki, ps, pi, metric, tol)
+
+
+def test_flat_bf16_engine_on_the_card():
+    """VectorDB("flat", dtype=bfloat16) keeps a bf16 corpus on the card,
+    ranks through the kernel, and answers as its plain path does."""
+    dev = _card()
+    rng = np.random.default_rng(8)
+    corpus = rng.normal(size=(20_000, 64)).astype(np.float32)
+    q = torch.as_tensor(corpus[:40] + 0.05, device=dev)
+    db = VectorDB("flat", metric="cosine", dtype=torch.bfloat16,
+                  device=dev).load(corpus)
+    assert db.index.corpus.dtype == torch.bfloat16
+    ops.reset_launch_counts()
+    s, i = db.query(q, k=10)
+    assert ops.launch_counts()["topk_distance"] == 1
+    qn = D.l2_normalize(q.to(torch.bfloat16))
+    ps, pi = ops.topk_distance(db.index.corpus, qn, k=10, use_kernel=False)
+    torch.cuda.synchronize()
+    tol = (2 * 64 + 1) * 2.0 ** -24 * torch.ones_like(ps[:, :1]) + 1e-6
+    _topk_near_ties(db.index.corpus.float(), qn.float(), s[:40], i[:40], ps,
+                    pi, "dot", tol)
 
 
 @pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16", "int8"])
@@ -309,6 +355,33 @@ def test_flash_attention_limits_on_the_card():
     y = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(y, y, y, causal=True, window=4)
+
+
+def test_encode_ignores_the_callers_bf16_reduction_flag():
+    """encode turns cuBLAS's reduced-precision bf16 reductions off itself:
+    under PyTorch's default (on) it equals encode with the flag off, and
+    the caller's setting is back afterwards."""
+    import dataclasses
+
+    from repro_torch.configs import thistle_sbert
+    from repro_torch.models import encoder
+    dev = _card()
+    cfg = dataclasses.replace(thistle_sbert.SMOKE, n_layers=2)
+    model = encoder.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    tokens = torch.randint(2, cfg.vocab_size, (16, 64), generator=gen,
+                           device=dev)
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_bf16_reduced_precision_reduction
+    try:
+        mm.allow_bf16_reduced_precision_reduction = False
+        want = encoder.encode(model, cfg, tokens, tokens != 0)
+        mm.allow_bf16_reduced_precision_reduction = True
+        got = encoder.encode(model, cfg, tokens, tokens != 0)
+        assert mm.allow_bf16_reduced_precision_reduction is True
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = prev
+    assert torch.equal(got, want)
 
 
 def test_encoder_launches_flash_attention_on_the_card():

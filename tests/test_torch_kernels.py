@@ -260,3 +260,54 @@ def test_ivf_adc_probe_chunks_fold_the_same(rng, probe_chunk):
     s1, i1 = ivf_adc_plain(*args, k=25, steps_per_probe=spp,
                            probe_chunk=probe_chunk)
     assert torch.equal(i0, i1) and torch.equal(s0, s1)
+
+
+# bf16 corpus: both sides multiply the same bf16 values (exact in float32)
+# and sum in float32 in different orders, so the float32 tolerance holds
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+@pytest.mark.parametrize("k", [1, 10, 64])
+def test_topk_distance_plain_bf16_matches_reference(rng, metric, k):
+    """A bf16 corpus and bf16 queries through the port's plain version,
+    against the reference's jnp twin (``core.flat.flat_search``, which
+    mirrors the Pallas kernel, over several corpus tiles) and its oracle on
+    the same bf16 values: ids equal, scores within 1e-5."""
+    from repro.core.flat import flat_search as jax_flat_search
+    corpus = rng.normal(size=(777, 24)).astype(np.float32) / 4
+    q = rng.normal(size=(6, 24)).astype(np.float32) / 4
+    jc = jnp.asarray(corpus).astype(jnp.bfloat16)
+    jq = jnp.asarray(q).astype(jnp.bfloat16)
+    tc, tq = _t(corpus).to(torch.bfloat16), _t(q).to(torch.bfloat16)
+    np.testing.assert_array_equal(tc.float().numpy(),
+                                  np.asarray(jc.astype(jnp.float32)))
+    sq = np.sum(np.square(corpus), axis=-1) if metric == "l2" else None
+    s, i = ops.topk_distance(tc, tq, k=k, metric=metric,
+                             corpus_sq=None if sq is None else _t(sq))
+    js, ji = jax_flat_search(jc, jq, metric=metric, k=k, tile=256,
+                             corpus_sq=None if sq is None else jnp.asarray(sq))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), **TOL)
+    rs, ri = R.topk_distance_ref(jc, jq, k=k, metric=metric,
+                                 corpus_sq=None if sq is None else jnp.asarray(sq))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(s.numpy(), np.asarray(rs), **TOL)
+
+
+@pytest.mark.parametrize("case,match", [
+    (dict(corpus=torch.float16), "float32 or bfloat16"),
+    (dict(q=torch.float32), "same type"),
+    (dict(bias=torch.bfloat16), "bias must be float32"),
+    (dict(k=257), "k <= 256"),
+    (dict(k=0), "1 <= k"),
+    (dict(d=12), "multiple of 8"),
+])
+def test_topk_distance_kernel_refuses_what_it_does_not_take(case, match):
+    """The kernel's wrapper names the limit it refuses, before anything
+    touches a card: corpus types other than float32 and bf16, a q or bias
+    of another type, k outside 1..256, d not a multiple of 8."""
+    from repro_torch.kernels.topk_distance import topk_distance_cuda
+    d = case.get("d", 16)
+    corpus = torch.zeros((40, d), dtype=case.get("corpus", torch.bfloat16))
+    q = torch.zeros((3, d), dtype=case.get("q", corpus.dtype))
+    bias = torch.zeros(40, dtype=case.get("bias", torch.float32))
+    with pytest.raises(ValueError, match=match):
+        topk_distance_cuda(corpus, q, bias, k=case.get("k", 5), l2=False)
