@@ -16,7 +16,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      query-tile template and a ragged Q) on a ragged N with duplicated rows
      (ties) and a tenth of the rows knocked out; ``pq_adc`` for {dot, l2} x {float32, bfloat16, int8} x
      Q in {1, 32, 512} x k in {10, 200} and a scan_all-shaped case (an
-     extra subspace as wide as the cluster count); ``ivf_adc``,
+     extra subspace as wide as the cluster count), then at every query
+     tile that fits (and the plan's) for each table type x m in {8, 64, 7}
+     x Q in {1, 2, 3, 9, 33, 512} x k in {1, 32, 256} on a ragged N with
+     duplicated rows and a tenth knocked out, and with the wide extra
+     column at every tile; ``ivf_adc``,
      ``ivf_adc_blocked`` and ``ivf_adc_run_resident`` for {dot, l2,
      cosine} x {float32, bfloat16, int8} x Q in {1, 32, 512} (the grouped
      grids at qblk 8, and 4 and 16 for float32 dot), each grouped result
@@ -24,8 +28,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``hamming_shortlist`` for (T, W) in {(4, 4), (8, 2), (1, 8)} x Q in
      {1, 32, 512} (the shortlist at L in {10, 64, 256}) on words over the
      full 2^32 range, a ragged N and codes of five distinct values (ties
-     everywhere), bit for bit; ``flash_attention`` in bf16 and float32 on
-     the reference's FLASH_CASES, the encoder's shapes (B = 32, H = 12,
+     everywhere), and the shortlist on six distinct codes over 150,011
+     rows (ties straddling every threshold) at L in {1, 64, 256} x Q in
+     {1, 8, 9, 32, 33, 512}, bit for bit; ``flash_attention`` in bf16 and
+     float32 on the reference's FLASH_CASES, the encoder's shapes (B = 32, H = 12,
      dh = 64, S in {64, 128, 512}) with ragged key-padding masks and one
      fully masked row, GQA (H = 8, KV = 2) and dh = 80 at a ragged S = 200,
      causal and not, within the reference's 2e-5 / 2e-2;
@@ -42,9 +48,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      path's ids and scores equal to the plain path's at Q = 1 and 32, and
      its stage times; load seconds, p50/p99 latency and QPS at Q = 1, 32, 512,
      recall@10 against flat, each kernel's time beside its bound, the plain
-     version's and a library call's time, launches on each engine's path,
-     full-size batches of each kernel against its plain version, peak
-     device memory and each phase's seconds;
+     version's and a library call's time (``pq_adc`` and
+     ``hamming_shortlist`` at Q = 1, 32, 512 with their launch plans and
+     their times before this design, at every query tile, by k and by L),
+     launches on each engine's path, full-size batches of each kernel
+     against its plain version, peak device memory and each phase's
+     seconds;
   5. the text path at full width, after the engines of phase 4 are
      dropped: thistle-sbert FULL (12 layers, d_model 768, bf16, seeded
      random weights) encodes 131,072 MarcoLike passages (seq_len 64)
@@ -87,8 +96,23 @@ TOPK_QS = (1, 5, 16, 32, 33, 128, 512)  # every query-tile template, a ragged Q
 TOPK_KS = (1, 10, 256)
 # 32-bit population counts a clock per SM at compute capability 9.0 (CUDA
 # C++ Programming Guide, arithmetic instruction throughput table); times the
-# SM count and the top SM clock nvidia-smi reports, it bounds hamming
+# SM count and the top SM clock nvidia-smi reports, it bounds hamming (three
+# popcounts for each four-word table of a (query, row) pair, main_lsh)
 POPC_PER_CLOCK_PER_SM = 16
+# 32-bit shared-memory words served a clock per SM (32 banks): an ADC table
+# term is one lookup; times the SM count and the top SM clock, it bounds
+# pq_adc and the ivf_adc grids together with their adds, which run at half
+# FP32_OPS_PER_S (an add is one operation, an FMA two)
+LOOKUPS_PER_CLOCK_PER_SM = 32
+# The redesigned kernels' times before this design (PERF.md section 6:
+# chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W; pq_adc float32 table,
+# k = 32; hamming_shortlist L = 64), printed beside this run's
+EARLIER_MS = {"pq_adc": {1: 1.675, 32: 42.960, 512: 757.685},
+              "hamming_shortlist": {1: 0.715, 32: 8.822, 512: 46.098}}
+PQ_TILE_MS = (8, 64, 7)        # phase 3's pq_adc sweep: m = 7 is byte-staged
+PQ_TILE_QS = (1, 2, 3, 9, 33, 512)
+PQ_TILE_KS = (1, 32, 256)
+TIE_ROWS = 150_011             # phase 3's hamming tie case
 HAMMING_SHAPES = ((4, 4), (8, 2), (1, 8))   # (tables, words): 128, 16, 256 bits
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's (tests/test_kernels.py)
 FLASH_MID_CASES = (
@@ -179,6 +203,15 @@ def bound_ms(n_bytes: float, n_ops: float,
              ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def adc_bound(n_bytes: float, terms: float, lookups_per_s: float) -> tuple:
+    """Least time of an ADC scan: its bytes over the memory rate against
+    its table terms, each one shared-memory lookup (``lookups_per_s``) and
+    one float32 add (half of FP32_OPS_PER_S); the largest binds."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(terms / lookups_per_s, terms / (FP32_OPS_PER_S / 2)) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -399,19 +432,22 @@ def nvidia_smi(query: str) -> str:
 
 
 def phase_header() -> tuple:
-    """Log the card; returns (name and power limit, the popcount rate a
-    second: POPC_PER_CLOCK_PER_SM x SMs x top SM clock)."""
+    """Log the card; returns (name and power limit, rates a second: the
+    popcounts', POPC_PER_CLOCK_PER_SM x SMs x top SM clock, and the
+    shared-memory lookups', LOOKUPS_PER_CLOCK_PER_SM x SMs x top clock)."""
     import torch
     smi = nvidia_smi("name,power.limit")
     log(smi)
     mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    popc = POPC_PER_CLOCK_PER_SM * sms * mhz * 1e6
+    rates = {"popc": POPC_PER_CLOCK_PER_SM * sms * mhz * 1e6,
+             "lookups": LOOKUPS_PER_CLOCK_PER_SM * sms * mhz * 1e6}
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}, SMs {sms}, top SM clock "
-        f"{mhz:.0f} MHz, popcount rate {popc:.4e}/s")
-    return smi, popc
+        f"{mhz:.0f} MHz, popcount rate {rates['popc']:.4e}/s, shared-memory "
+        f"lookup rate {rates['lookups']:.4e}/s")
+    return smi, rates
 
 
 def phase_build() -> None:
@@ -474,6 +510,7 @@ def phase_mid(seed: int, device, rank: int) -> None:
         del db
     del corpus, queries
     torch.cuda.empty_cache()
+    pq_tiles_mid(seed, device)
     hamming_mid(seed, device)
     flash_mid(seed, device)
 
@@ -502,6 +539,60 @@ def topk_mid(corpus, queries, seed: int) -> None:
                                  f"topk_distance {name} {metric} k={k} Q={Q} "
                                  f"N={c.shape[0]}", valid=valid)
         del c, qs
+    torch.cuda.empty_cache()
+
+
+def pq_tiles_mid(seed: int, device) -> None:
+    """pq_adc against its plain version, bit for bit, at every query tile
+    up to Q that fits and at the plan's, for each table type, m in PQ_TILE_MS, Q in
+    PQ_TILE_QS and k in PQ_TILE_KS, on a ragged N with duplicated rows and
+    a tenth knocked out; then scan_all's wide extra column (W = 2973) at
+    every query tile that fits, Q = 33."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pq_adc import (QTS, fit_qt, plan, pq_adc_cuda,
+                                            pq_adc_plain)
+    gen = torch.Generator(device=device).manual_seed(seed + 6)
+    card = _build.card(device)
+    N = MID_ROWS - 77
+    bias = torch.where(torch.rand(N, generator=gen, device=device) >= 0.1,
+                       0.0, -1e30).float()
+    for m in PQ_TILE_MS:
+        codes = torch.randint(0, 256, (N, m), generator=gen, device=device,
+                              dtype=torch.uint8)
+        codes[-300:] = codes[:300]
+        for Q in PQ_TILE_QS:
+            luts = torch.randn(Q, m, 256, generator=gen, device=device)
+            for lut_dtype in ("float32", "bfloat16", "int8"):
+                for k in PQ_TILE_KS:
+                    want = pq_adc_plain(codes, luts, bias, k=k,
+                                        lut_dtype=lut_dtype)
+                    top = fit_qt(m, 256, k, lut_dtype, 0, card)
+                    p = plan(N, Q, m, 256, k, lut_dtype, 0, card)
+                    tiles = {t for t in QTS if t <= min(top, Q)}
+                    for qt in sorted(tiles | {p["qt"]}):
+                        mark = " (plan)" if qt == p["qt"] else ""
+                        bit_equal(pq_adc_cuda(codes, luts, bias, k=k,
+                                              lut_dtype=lut_dtype, qt=qt),
+                                  want, f"pq_adc {lut_dtype} m={m} Q={Q} "
+                                        f"k={k} N={N} query tile {qt}{mark}")
+        del codes
+    m, W, Q = M_SUBSPACES, 2973, 33
+    codes = torch.randint(0, 256, (N, m), generator=gen, device=device,
+                          dtype=torch.uint8)
+    extra = torch.randint(0, W, (N,), generator=gen, device=device,
+                          dtype=torch.int32)
+    luts = torch.randn(Q, m + 1, W, generator=gen, device=device)
+    for lut_dtype in ("float32", "bfloat16", "int8"):
+        want = pq_adc_plain(codes, luts, bias, k=32, extra=extra,
+                            lut_dtype=lut_dtype)
+        top = fit_qt(m, W, 32, lut_dtype, 1, card)
+        for qt in [t for t in QTS if t <= top]:
+            bit_equal(pq_adc_cuda(codes, luts, bias, k=32, extra=extra,
+                                  lut_dtype=lut_dtype, qt=qt), want,
+                      f"pq_adc {lut_dtype} extra W={W} Q={Q} k=32 query "
+                      f"tile {qt}")
+    del codes, extra, luts
     torch.cuda.empty_cache()
 
 
@@ -554,6 +645,17 @@ def hamming_mid(seed: int, device) -> None:
     for L in (64, 256):
         compare_hamming(qc, cc, L, "T=4 W=4 Q=32, five distinct codes (ties)",
                         full=L == 64)
+    # six distinct codes over TIE_ROWS rows: ties straddle every query's
+    # threshold across tiles and chunks
+    distinct = random_words(gen, (4, 6, 4), device)
+    pick = torch.randint(0, 6, (TIE_ROWS,), generator=gen, device=device)
+    cc = distinct[:, pick].contiguous()
+    for Q in (1, 8, 9, 32, 33, 512):
+        qc = torch.cat([distinct, random_words(gen, (4, Q, 4), device)],
+                       dim=1)[:, :Q].contiguous()
+        for L in (1, 64, 256):
+            compare_hamming(qc, cc, L, f"T=4 W=4 Q={Q} N={TIE_ROWS}, six "
+                                       f"distinct codes (ties)", full=False)
     del cc, qc
     torch.cuda.empty_cache()
 
@@ -634,7 +736,7 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound,
 
 
 def phase_main(n: int, seed: int, device, rank: int, min_recall: float,
-               popc_per_s: float) -> list:
+               rates: dict) -> list:
     import torch
     log(f"phase 4: main path, N={n} rows (MS MARCO v1 passages: "
         f"{MARCO_PASSAGES}), d={DIM}, cosine, shared subspace rank {rank}")
@@ -648,18 +750,19 @@ def phase_main(n: int, seed: int, device, rank: int, min_recall: float,
     truth = main_flat(corpus, queries, device, kernels, launches)
     log(f"  [flat: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
-    recalls["pq"] = main_pq(corpus, queries, truth, device, kernels, launches)
+    recalls["pq"] = main_pq(corpus, queries, truth, device, kernels, launches,
+                            rates["lookups"])
     log(f"  [pq: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
     recalls["ivf_pq"] = main_ivf(corpus, queries, truth, device, kernels,
-                                 launches)
+                                 launches, rates["lookups"])
     log(f"  [ivf_pq: {time.perf_counter() - t0:.1f} s]")
     peak = torch.cuda.max_memory_allocated()
     log(f"  peak device memory through ivf_pq: {peak / 1e9:.2f} GB")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     recalls["lsh"] = main_lsh(corpus, queries, truth, device, kernels,
-                              launches, popc_per_s)
+                              launches, rates["popc"])
     log(f"  [lsh: {time.perf_counter() - t0:.1f} s]")
     lsh_peak = torch.cuda.max_memory_allocated()
     log(f"  peak device memory in lsh (earlier engines dropped): "
@@ -797,23 +900,27 @@ def main_flat(corpus, queries, device, kernels, launches):
     return truth
 
 
-def pq_bound(codes, luts, valid, k: int) -> tuple:
+def pq_bound(codes, luts, valid, k: int, lookups_per_s: float) -> tuple:
     """Least time for one pq_adc call on these inputs: the codes, the row
-    bias and the tables read once, the (Q, k) result written once; m
-    float32 adds for each (query, live row) pair."""
+    bias and the tables read once, the (Q, k) result written once, against
+    m table terms for each (query, live row) pair, each a shared-memory
+    lookup and a float32 add (``adc_bound``)."""
     N, m = codes.shape
     Q = luts.shape[0]
     live = int(valid.sum())
-    return bound_ms(N * m + N * 4 + luts.numel() * 4 + Q * k * 8,
-                    float(Q) * live * m)
+    return adc_bound(N * m + N * 4 + luts.numel() * 4 + Q * k * 8,
+                     float(Q) * live * m, lookups_per_s)
 
 
-def main_pq(corpus, queries, truth, device, kernels, launches) -> float:
+def main_pq(corpus, queries, truth, device, kernels, launches,
+            lookups_per_s: float) -> float:
     """pq, the flat PQ engine: serve, recall, time pq_adc."""
     import torch
     from repro_torch import VectorDB
     from repro_torch.kernels import ops
-    from repro_torch.kernels.pq_adc import pq_adc_cuda, pq_adc_plain
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pq_adc import (QTS, fit_qt, plan, pq_adc_cuda,
+                                            pq_adc_plain)
     t0 = time.perf_counter()
     db = VectorDB("pq", metric="cosine", m=M_SUBSPACES,
                   device=device).load(corpus)
@@ -827,28 +934,47 @@ def main_pq(corpus, queries, truth, device, kernels, launches) -> float:
     log(f"  recall@10 of pq against flat: {recall:.4f} "
         f"({truth.shape[0]} queries)")
     k = db.index.refine
+    by_q = {}
     for Q in BATCHES:
         codes, luts, valid = pq_inputs(db.index, queries[:Q])
         bias = torch.where(valid, 0.0, -1e30).float()
         ms = gpu_ms(lambda: pq_adc_cuda(codes, luts, bias, k=k), 3)
-        b, by = pq_bound(codes, luts, valid, k)
-        log(f"  pq_adc kernel Q={Q}: {ms:.3f} ms (bound {b:.3f} ms, {by})")
+        b = pq_bound(codes, luts, valid, k, lookups_per_s)
+        by_q[str(Q)] = {"ms": ms, "bound_ms": b[0], "bound_by": b[1]}
+        p = plan(codes.shape[0], Q, codes.shape[1], luts.shape[2], k,
+                 "float32", 0, _build.card(codes.device))
+        log(f"  pq_adc kernel Q={Q}: {ms:.3f} ms (bound {b[0]:.3f} ms, "
+            f"{b[1]}; before this design {EARLIER_MS['pq_adc'][Q]:.3f} ms); "
+            f"plan {p}")
+    codes, luts, valid = pq_inputs(db.index, queries[:1])
+    bias = torch.where(valid, 0.0, -1e30).float()
+    by_k = {kk: gpu_ms(lambda: pq_adc_cuda(codes, luts, bias, k=kk), 5)
+            for kk in (1, k)}
+    log(f"  pq_adc Q=1 by k: k=1 {by_k[1]:.3f} ms, k={k} {by_k[k]:.3f} ms "
+        f"(the same lookups; the boards' work grows with k)")
     codes, luts, valid = pq_inputs(db.index, queries[:32])
     bias = torch.where(valid, 0.0, -1e30).float()
-    ms = gpu_ms(lambda: pq_adc_cuda(codes, luts, bias, k=k), 3)
+    ms = by_q["32"]["ms"]
     plain_ms = gpu_ms(lambda: pq_adc_plain(codes, luts, bias, k=k), 1)
-    bound = pq_bound(codes, luts, valid, k)
+    bound = pq_bound(codes, luts, valid, k, lookups_per_s)
+    for qt in QTS:
+        if qt <= fit_qt(codes.shape[1], luts.shape[2], k, "float32", 0,
+                        _build.card(codes.device)):
+            t = gpu_ms(lambda: pq_adc_cuda(codes, luts, bias, k=k, qt=qt), 3)
+            log(f"    pq_adc Q=32 at query tile {qt}: {t:.3f} ms")
     err = 0.0
     for Q in BATCHES:
         c, lt, v = pq_inputs(db.index, queries[:Q])
         err = max(err, compare_pq(c, lt, k=k, lut_dtype="float32", valid=v,
                                   label=f"pq_adc full size Q={Q}"))
-    kernels.append(kernel_entry(
+    entry = kernel_entry(
         "pq_adc", "src/repro_torch/csrc/pq_adc.cu",
         "src/repro/kernels/pq_adc.py:122", launches["pq_adc"], err, ms,
         plain_ms, bound, None,
         f"Q=32 N={codes.shape[0]} m={codes.shape[1]} k={k}; library_ms "
-        f"null: no single PyTorch call gathers and sums table entries"))
+        f"null: no single PyTorch call gathers and sums table entries")
+    entry["by_q"] = by_q
+    kernels.append(entry)
     log(f"  pq_adc Q=32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bound[0]:.3f} ms ({bound[1]}), no single library call")
     del db, codes, luts, valid, bias, res
@@ -857,7 +983,8 @@ def main_pq(corpus, queries, truth, device, kernels, launches) -> float:
     return recall
 
 
-def main_ivf(corpus, queries, truth, device, kernels, launches) -> float:
+def main_ivf(corpus, queries, truth, device, kernels, launches,
+             lookups_per_s: float) -> float:
     """ivf_pq, trained once, served under every grid; scan_all at Q = 32;
     the three ivf_adc kernels timed."""
     import torch
@@ -929,7 +1056,7 @@ def main_ivf(corpus, queries, truth, device, kernels, launches) -> float:
                     return cuda(codes, ids, visit, sched, luts, coarse, k=k,
                                 steps_per_probe=spp)
             ms = gpu_ms(fn, 5)
-            b = ivf_bound(ids, visit, luts, coarse, blk, m, k,
+            b = ivf_bound(ids, visit, luts, coarse, blk, m, lookups_per_s, k,
                           sched if mode else None)
             log(f"  {name} kernel Q={Q}: {ms:.3f} ms (bound {b[0]:.3f} ms, "
                 f"{b[1]})")
@@ -1029,9 +1156,11 @@ def main_lsh(corpus, queries, truth, device, kernels, launches,
     from repro_torch.core import distances as D
     from repro_torch.core.lsh import lsh_search, sign_codes
     from repro_torch.kernels import ops
+    from repro_torch.kernels import _build
     from repro_torch.kernels.hamming import (hamming_cuda,
                                              hamming_shortlist_cuda,
-                                             hamming_shortlist_plain)
+                                             hamming_shortlist_plain,
+                                             shortlist_plan)
     t0 = time.perf_counter()
     db = VectorDB("lsh", metric="cosine", device=device).load(corpus)
     torch.cuda.synchronize()
@@ -1061,9 +1190,14 @@ def main_lsh(corpus, queries, truth, device, kernels, launches,
     def q_codes(Q):
         return sign_codes(D.l2_normalize(queries[:Q].float()), idx.planes)
 
+    # popcounts a (query, row) pair needs at fewest: a four-word table
+    # takes three (one carry-save step counts three of its words with two),
+    # any other width one a word
+    popc_per_pair = T * (3 if W == 4 else W)
+
     def bound(Q, out_bytes):
         return bound_ms(idx.codes.numel() * 4 + T * Q * W * 4 + out_bytes,
-                        float(Q) * N * T * W, popc_per_s)
+                        float(Q) * N * popc_per_pair, popc_per_s)
 
     timed = {}
     for Q in BATCHES:
@@ -1071,32 +1205,46 @@ def main_lsh(corpus, queries, truth, device, kernels, launches,
         ms = gpu_ms(lambda: hamming_shortlist_cuda(qc, idx.codes, L), 5)
         b = bound(Q, Q * L * 8)
         timed[Q] = (ms, b)
+        p = shortlist_plan(N, Q, T, W, L, _build.card(qc.device))
         log(f"  hamming_shortlist kernel Q={Q} L={L}: {ms:.3f} ms (bound "
-            f"{b[0]:.3f} ms, {b[1]})")
+            f"{b[0]:.3f} ms, {b[1]}; before this design "
+            f"{EARLIER_MS['hamming_shortlist'][Q]:.3f} ms); plan {p}")
     for Q in (1, 32):
         qc = q_codes(Q)
         ms = gpu_ms(lambda: hamming_cuda(qc, idx.codes), 3)
         b = bound(Q, Q * N * 4)
         log(f"  hamming (Q, N) matrix kernel Q={Q}: {ms:.3f} ms (bound "
             f"{b[0]:.3f} ms, {b[1]})")
+    for Q in (32, 512):
+        qc = q_codes(Q)
+        caps = {cap: gpu_ms(lambda: hamming_shortlist_cuda(qc, idx.codes, L,
+                                                           cap), 3)
+                for cap in (8, 16, 32)}
+        log(f"  hamming_shortlist Q={Q} L={L} by query tile cap: " + ", ".join(
+            f"{cap}: {ms:.3f} ms" for cap, ms in caps.items()))
+    for Q in (1, 32):
+        qc = q_codes(Q)
+        by_l = {n: gpu_ms(lambda: hamming_shortlist_cuda(qc, idx.codes, n), 3)
+                for n in (1, 256)}
+        log(f"  hamming_shortlist kernel Q={Q} by shortlist length: L=1 "
+            f"{by_l[1]:.3f} ms, L={L} {timed[Q][0]:.3f} ms, L=256 "
+            f"{by_l[256]:.3f} ms (the same distances; the boards' work "
+            f"grows with L)")
     qc = q_codes(32)
-    by_l = {n: gpu_ms(lambda: hamming_shortlist_cuda(qc, idx.codes, n), 3)
-            for n in (1, 256)}
-    log(f"  hamming_shortlist kernel Q=32 by shortlist length: L=1 "
-        f"{by_l[1]:.3f} ms, L={L} {timed[32][0]:.3f} ms, L=256 "
-        f"{by_l[256]:.3f} ms (the same distances; the boards' work grows "
-        f"with L)")
     plain_ms = gpu_ms(lambda: hamming_shortlist_plain(qc, idx.codes, L), 1)
     err = max(compare_hamming(q_codes(Q), idx.codes, L,
                               f"full size Q={Q}", full=False)
               for Q in BATCHES)
     ms, b = timed[32]
-    kernels.append(kernel_entry(
+    entry = kernel_entry(
         "hamming", "src/repro_torch/csrc/hamming.cu",
         "src/repro/kernels/hamming.py:37", launches["hamming"], err, ms,
         plain_ms, b, None,
         f"hamming_shortlist Q=32 T={T} N={N} W={W} L={L}; library_ms null: "
-        f"no single PyTorch call computes XOR popcounts"))
+        f"no single PyTorch call computes XOR popcounts")
+    entry["by_q"] = {str(Q): {"ms": t[0], "bound_ms": t[1][0],
+                              "bound_by": t[1][1]} for Q, t in timed.items()}
+    kernels.append(entry)
     log(f"  hamming_shortlist Q=32: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
         f"ms, bound {b[0]:.3f} ms ({b[1]}), no single library call")
     del db, idx, res
@@ -1125,13 +1273,14 @@ def lsh_breakdown(idx, queries) -> None:
             f"{short:.3f} ms, re-rank {rr:.3f} ms (device ms, CUDA events)")
 
 
-def ivf_bound(ids, visit, luts, coarse, blk: int, m: int, k: int = 32,
-              sched=None) -> tuple:
+def ivf_bound(ids, visit, luts, coarse, blk: int, m: int,
+              lookups_per_s: float, k: int = 32, sched=None) -> tuple:
     """Least time for one IVF-ADC call on these inputs: every distinct real
     block it visits read once (codes and slot ids), the tables and the
     (Q, nprobe) coarse terms read once, the (Q, k) result written once,
     and the grid's index input read once (the (Q, T) visit table; a grouped
-    grid also reads its schedule); m float32 adds a scored slot."""
+    grid also reads its schedule), against m table terms a scored slot,
+    each a shared-memory lookup and a float32 add (``adc_bound``)."""
     import torch
     pad = ids.shape[0] - 1
     real = int((torch.unique(visit) != pad).sum())
@@ -1142,7 +1291,7 @@ def ivf_bound(ids, visit, luts, coarse, blk: int, m: int, k: int = 32,
     if sched is not None:
         n_bytes += sum(sched[key].numel() * 4
                        for key in ("sb", "sq", "st", "rb", "rs", "rl"))
-    return bound_ms(n_bytes, float(slots) * m)
+    return adc_bound(n_bytes, float(slots) * m, lookups_per_s)
 
 
 class TextEncoder:
@@ -1451,7 +1600,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    smi, popc_per_s = phase_header()
+    smi, rates = phase_header()
     t0 = time.perf_counter()
     phase_build()
     log(f"[phase 2: {time.perf_counter() - t0:.1f} s]")
@@ -1460,7 +1609,7 @@ def main(argv=None) -> int:
     log(f"[phase 3: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
     kernels = phase_main(args.n, args.seed, device, args.rank, args.min_recall,
-                         popc_per_s)
+                         rates)
     log(f"[phase 4: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
     kernels.append(phase_text(args.seed, device))

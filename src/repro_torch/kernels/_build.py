@@ -142,6 +142,70 @@ def aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+# The properties a launch plan reads, for an H100 SXM (132 SMs, 227 KB of
+# shared memory a block out of 228 KB an SM, 64K registers an SM): what
+# ``card`` returns there, and what the CPU tests of the plans pass in.
+H100 = {"sms": 132, "smem_block": 232_448, "smem_sm": 233_472,
+        "regs_sm": 65_536}
+
+
+def card(device) -> dict:
+    """The launch plans' view of a CUDA card (keys as ``H100``)."""
+    import torch
+    p = torch.cuda.get_device_properties(device)
+    smem_block = p.shared_memory_per_block_optin
+    return {"sms": p.multi_processor_count, "smem_block": smem_block,
+            "smem_sm": getattr(p, "shared_memory_per_multiprocessor",
+                               smem_block + 1024),
+            "regs_sm": getattr(p, "regs_per_multiprocessor", 65_536)}
+
+
+_plans: dict = {}  # (plan function, arguments, device) -> plan
+
+
+def cached_plan(fn, device, *args) -> dict:
+    """``fn(*args[:-1], card(device), args[-1])``, a launch plan, computed
+    once per shape and card: a wrapper asks for it at every launch, and a
+    plan's search over row chunks costs host time a small launch notices."""
+    key = (fn, args, device)
+    got = _plans.get(key)
+    if got is None:
+        got = _plans[key] = fn(*args[:-1], card(device), args[-1])
+    return got
+
+
+def board_entries(k: int) -> int:
+    """Entries of a sorted board holding k (csrc/topk_board.cuh
+    sorted_slots): the least of 32, 64, 128, 256 that is at least k."""
+    return next(p for p in (32, 64, 128, 256) if p >= k)
+
+
+def row_chunks(N: int, q_tiles: int, slots: int, tile_rows: int) -> tuple:
+    """(n_chunks, rows_per_chunk) of a (query tile, row chunk) grid: chunks
+    of whole tiles of ``tile_rows`` that cover N once, at least enough for
+    one block on each of the card's ``slots`` (SMs x blocks an SM) and, up
+    to four times that, the count whose last wave is fullest (fewest on a
+    tie)."""
+    row_tiles = -(-N // tile_rows)
+    lo = max(1, -(-slots // q_tiles))
+    best, best_eff = lo, -1.0
+    for nc in range(lo, 4 * lo + 1):
+        blocks = q_tiles * nc
+        eff = blocks / (-(-blocks // slots) * slots)
+        if eff > best_eff + 1e-9:
+            best, best_eff = nc, eff
+    n_chunks = max(1, min(best, row_tiles, 65535))
+    rows_per_chunk = tile_rows * -(-row_tiles // n_chunks)
+    return -(-N // rows_per_chunk), rows_per_chunk
+
+
+def merge_groups(n_chunks: int, Q: int, sms: int) -> int:
+    """Blocks a query in the first level of a chunk-board merge: enough
+    that Q x groups blocks cover about two per SM, each folding at least
+    8 chunk boards; 1 (one level) where Q alone covers the card."""
+    return max(1, min(-(-n_chunks // 8), 2 * sms // Q))
+
+
 class LaunchCounter:
     """Launches of one kernel wrapper: the wrapper adds one where it
     launches its kernel and nowhere else, so a run can show that its main

@@ -30,13 +30,25 @@ from repro_torch.kernels.topk_distance import KMAX
 
 MAX_WORDS = 32  # T * W words a row may hold (csrc/hamming.cu kMaxWords)
 ROW_TILE = 256  # rows a block's tile (csrc/hamming.cu kThreads)
+MAX_QT = 32     # queries a shortlist block takes (csrc/hamming.cu kMaxShortQT)
+GATE_CAP = 32   # candidate slots a query (csrc/topk_board.cuh kGateCap)
+# Queries a shortlist block takes in the plan: 16 up to 64 queries, 32
+# above. Fewer queries a block means more blocks a query tile, so fewer
+# rows a chunk and more boards to fill and merge, but more tiles reading
+# the codes. chip_smoke.py times 8, 16 and 32 on the lsh engine's codes
+# (PERF.md section 6 has the numbers).
+TILE_QT = ((64, 16), (None, 32))
+SHORTLIST_PLAN_KEYS = ("qt", "n_chunks", "rows_per_chunk", "merge_groups",
+                       "smem", "blocks_per_sm", "regs")
 ELEMS = 1 << 24  # (T, Q, rows, W) words a plain tile expands at most
 LAUNCHES = _build.LaunchCounter("hamming")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "hamming_launch": ([_P, _P, _I, _I, _I, _I, _P, _P], _I),
-    "hamming_shortlist_launch": ([_P, _P] + [_I] * 8 + [_P] * 5, _I),
+    "hamming_shortlist_launch": ([_P, _P] + [_I] * 8 + [_P] * 2 + [_I]
+                                 + [_P] * 5, _I),
+    "hamming_shortlist_smem": ([_I] * 3, ctypes.c_size_t),
 }
 
 
@@ -131,34 +143,78 @@ def hamming_cuda(q_codes, c_codes):
     return out
 
 
-def hamming_shortlist_cuda(q_codes, c_codes, L: int):
+def shortlist_min_blocks(tw: int) -> int:
+    """Blocks an SM the shortlist kernel's register bound allows for rows
+    of tw words (csrc/hamming.cu shortlist_min_blocks): four up to 16
+    words, else two."""
+    return 4 if tw <= 16 else 2
+
+
+def shortlist_smem(qt: int, L: int, tw: int) -> int:
+    """Shared memory of one shortlist block (csrc/hamming.cu
+    shortlist_smem): the query tile's words and its sorted boards with
+    their candidate lists and thresholds."""
+    return 4 * qt * tw + qt * (_build.board_entries(L) * 8 + GATE_CAP * 8
+                               + 12)
+
+
+def shortlist_plan(N: int, Q: int, T: int, W: int, L: int,
+                   card: dict, qt=None) -> dict:
+    """The shortlist kernel's launch plan (``SHORTLIST_PLAN_KEYS``), a pure
+    function of the shapes and the card (``_build.card``): query tiles of
+    at most ``TILE_QT``'s size for Q, as even as Q allows; blocks an SM
+    from shared memory and the register bound (``regs`` a thread); then
+    row chunks of 256-row tiles that fill the card (``_build.row_chunks``)
+    and the first level of their boards' merge (``_build.merge_groups``).
+    ``qt`` caps the query tile instead (for a comparison on the card)."""
+    if qt is None:
+        qt = next(size for top, size in TILE_QT if top is None or Q <= top)
+    elif not 1 <= qt <= MAX_QT:
+        raise ValueError(f"hamming_shortlist: query tile {qt} not in "
+                         f"1..{MAX_QT}")
+    q_tiles = -(-Q // qt)
+    qt = -(-Q // q_tiles)
+    smem = shortlist_smem(qt, L, T * W)
+    if smem > card["smem_block"]:
+        raise ValueError(f"hamming_shortlist: {smem} bytes of shared memory "
+                         f"a block; the card allows {card['smem_block']}")
+    mb = shortlist_min_blocks(T * W)
+    bps = max(1, min(mb, card["smem_sm"] // (smem + 1024)))
+    n_chunks, rows_per_chunk = _build.row_chunks(N, q_tiles,
+                                                 card["sms"] * bps, ROW_TILE)
+    return dict(qt=qt, n_chunks=n_chunks, rows_per_chunk=rows_per_chunk,
+                merge_groups=_build.merge_groups(n_chunks, Q, card["sms"]),
+                smem=smem, blocks_per_sm=bps,
+                regs=min(255, card["regs_sm"] // (ROW_TILE * mb)))
+
+
+def hamming_shortlist_cuda(q_codes, c_codes, L: int, qt=None):
     """Launch the shortlist kernel: a partial pass over (query tile, row
-    chunk) blocks, then the merge of the chunk boards. Returns (dist
-    (Q, L) int32, ids (Q, L) int32)."""
+    chunk) blocks, then the merge of the chunk boards, one block a query.
+    Returns (dist (Q, L) int32, ids (Q, L) int32); ``qt`` caps the plan's
+    query tile."""
     if L > KMAX:
         raise ValueError(f"hamming_shortlist kernel takes L <= {KMAX}, got L={L}")
     T, Q, N, W = _check(q_codes, c_codes)
     _check_l(L, N)
     q_codes, c_codes = _build.aligned(q_codes), _build.aligned(c_codes)
-    lib = _build.load("hamming", _SIGNATURES)
     dev = c_codes.device
-    qt = 8 if Q <= 8 else 32
-    q_tiles = -(-Q // qt)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_tiles = -(-N // ROW_TILE)
-    n_chunks = max(1, min(n_tiles, -(-4 * sms // q_tiles), 65535))
-    rows_per_chunk = ROW_TILE * -(-n_tiles // n_chunks)
-    n_chunks = -(-N // rows_per_chunk)
+    p = _build.cached_plan(shortlist_plan, dev, N, Q, T, W, L, qt)
+    lib = _build.load("hamming", _SIGNATURES)
+    n_chunks = p["n_chunks"]
     part_s = torch.empty((Q, n_chunks, L), dtype=torch.float32, device=dev)
     part_k = torch.empty((Q, n_chunks, L), dtype=torch.int32, device=dev)
+    groups = p["merge_groups"]
+    slice_s = torch.empty((Q, groups, L), dtype=torch.float32, device=dev)
+    slice_k = torch.empty((Q, groups, L), dtype=torch.int32, device=dev)
     out_d = torch.empty((Q, L), dtype=torch.int32, device=dev)
     out_i = torch.empty((Q, L), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.hamming_shortlist_launch(
-        c_codes.data_ptr(), q_codes.data_ptr(), N, Q, T, W, L, qt, n_chunks,
-        rows_per_chunk, part_s.data_ptr(), part_k.data_ptr(), out_d.data_ptr(),
+        c_codes.data_ptr(), q_codes.data_ptr(), N, Q, T, W, L, p["qt"],
+        n_chunks, p["rows_per_chunk"], part_s.data_ptr(), part_k.data_ptr(),
+        groups, slice_s.data_ptr(), slice_k.data_ptr(), out_d.data_ptr(),
         out_i.data_ptr(), stream)
     _build.check(lib, code, "hamming_shortlist")
     LAUNCHES.n += 1
     return out_d, out_i
-

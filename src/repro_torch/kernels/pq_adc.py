@@ -32,14 +32,23 @@ from repro_torch.device import kernel_path
 from repro_torch.kernels import _build
 from repro_torch.kernels.topk_distance import KMAX, NEG_INF
 
-MAX_QT = 8   # queries a block takes at most (csrc/pq_adc.cu kMaxQT)
+QTS = (1, 2, 3, 4, 6, 8, 12)  # query-tile templates (csrc/pq_adc.cu)
+MAX_QT = max(QTS)
+THREADS = 512        # threads of a partial block, one row each (kThreads)
+TILE_ROWS = THREADS  # rows a tile
+SLAB = 32            # code bytes of a row in one ring stage (kSlab)
+GATE_CAP = 32        # candidate slots a query (topk_board.cuh kGateCap)
 LUT_DTYPES = ("float32", "bfloat16", "int8")
+LUT_BYTES = {"float32": 4, "bfloat16": 2, "int8": 1}
+PLAN_KEYS = ("qt", "stages", "n_chunks", "rows_per_chunk", "merge_groups",
+             "smem", "blocks_per_sm", "regs")
 LAUNCHES = _build.LaunchCounter("pq_adc")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "pq_adc_launch": ([_P] * 5 + [_L] + [_I] * 7 + [_I, _L] + [_P] * 5, _I),
-    "pq_adc_query_smem": ([_I] * 5, ctypes.c_size_t),
+    "pq_adc_launch": ([_P] * 5 + [_L] + [_I] * 9 + [_L] + [_P] * 2 + [_I]
+                      + [_P] * 5, _I),
+    "pq_adc_smem": ([_I] * 7, ctypes.c_size_t),
 }
 
 
@@ -138,56 +147,107 @@ def _check(codes, luts, bias, extra, k: int):
         raise ValueError("pq_adc kernel ids are int32: N < 2^31")
 
 
-def _query_tile(lib, lut_type: int, m: int, has_extra: int, W: int, k: int,
-                Q: int, limit: int, lut_dtype: str) -> int:
-    """Queries a block takes: as many tables (and boards) as fit its shared
-    memory, at most MAX_QT and Q."""
-    per_query = lib.pq_adc_query_smem(lut_type, m, has_extra, W, k)
-    if per_query > limit:
-        raise ValueError(
-            f"pq_adc: one query's m={m}, W={W} {lut_dtype} table with k={k} "
-            f"needs {per_query} bytes of shared memory a block; the card "
-            f"allows {limit}")
-    return max(1, min(MAX_QT, Q, limit // per_query))
+def min_blocks(qt: int) -> int:
+    """Blocks an SM the kernel's register bound allows at query tile qt
+    (csrc/pq_adc.cu min_blocks): two at 1 or 2 queries, else one."""
+    return 2 if qt <= 2 else 1
+
+
+def smem_bytes(lut_dtype: str, qt: int, m: int, has_extra: int, W: int,
+               k: int, stages: int) -> int:
+    """Shared memory of one partial block (csrc/pq_adc.cu partial_smem):
+    the code ring, qt tables of m x min(W, 256) entries (16-byte aligned
+    as a whole), int8 scales, and qt sorted boards with their candidate
+    lists and thresholds."""
+    tables = LUT_BYTES[lut_dtype] * qt * m * min(W, 256)
+    scales = 4 * qt * (m + has_extra) if lut_dtype == "int8" else 0
+    return (stages * TILE_ROWS * SLAB + -(-tables // 16) * 16 + scales
+            + qt * (_build.board_entries(k) * 8 + GATE_CAP * 8 + 12))
+
+
+def fit_qt(m: int, W: int, k: int, lut_dtype: str, has_extra: int,
+           card: dict) -> int:
+    """The largest query tile whose block fits the card's shared memory
+    with a two-stage ring; raises, naming the sizes, if one query does not."""
+    for qt in sorted(QTS, reverse=True):
+        if smem_bytes(lut_dtype, qt, m, has_extra, W, k, 2) \
+                <= card["smem_block"]:
+            return qt
+    raise ValueError(
+        f"pq_adc: one query's m={m}, W={W} {lut_dtype} table with k={k} "
+        f"needs {smem_bytes(lut_dtype, 1, m, has_extra, W, k, 2)} bytes of "
+        f"shared memory a block; the card allows {card['smem_block']}")
+
+
+def plan(N: int, Q: int, m: int, W: int, k: int, lut_dtype: str,
+         has_extra: int, card: dict, qt=None) -> dict:
+    """The kernel's launch plan (``PLAN_KEYS``), a pure function of the
+    shapes and the card (``_build.card``): as few query tiles as the
+    largest tile that fits allows (``fit_qt``; a block's tables serve all
+    its queries for one read of the codes), each the smallest template
+    that still covers Q in that many (a ragged last tile repeats a query);
+    a three-stage ring where it fits; blocks an SM from shared memory and
+    the register bound (``regs`` a thread); then the row chunks, and the
+    first level of their boards' merge (``_build.merge_groups``). ``qt``
+    forces the query tile (for a comparison on the card)."""
+    if lut_dtype not in LUT_DTYPES:
+        raise ValueError(f"lut_dtype must be one of {LUT_DTYPES}")
+    top = fit_qt(m, W, k, lut_dtype, has_extra, card)
+    if qt is None:
+        q_tiles = -(-Q // top)
+        qt = min(t for t in QTS if t * q_tiles >= Q)
+    elif qt not in QTS or qt > top:
+        raise ValueError(f"pq_adc: query tile {qt} is not one of {QTS} up to "
+                         f"{top}")
+    fits3 = smem_bytes(lut_dtype, qt, m, has_extra, W, k, 3) \
+        <= card["smem_block"]
+    stages = 3 if fits3 else 2
+    smem = smem_bytes(lut_dtype, qt, m, has_extra, W, k, stages)
+    bps = max(1, min(min_blocks(qt), card["smem_sm"] // (smem + 1024)))
+    n_chunks, rows_per_chunk = _build.row_chunks(
+        N, -(-Q // qt), card["sms"] * bps, TILE_ROWS)
+    regs = card["regs_sm"] // (THREADS * min_blocks(qt))
+    return dict(qt=qt, stages=stages, n_chunks=n_chunks,
+                rows_per_chunk=rows_per_chunk,
+                merge_groups=_build.merge_groups(n_chunks, Q, card["sms"]),
+                smem=smem, blocks_per_sm=bps, regs=min(regs, 255))
 
 
 def pq_adc_cuda(codes, luts, bias, *, k: int, extra=None,
-                lut_dtype: str = "float32"):
+                lut_dtype: str = "float32", qt=None):
     """Launch the kernel: the (query tile, row chunk) pass, then the merge
-    of the chunk boards. Arguments and result as ``pq_adc_plain``."""
+    of the chunk boards, one block a query. Arguments and result as
+    ``pq_adc_plain``; ``qt`` forces the plan's query tile."""
     _check(codes, luts, bias, extra, k)
     dev = codes.device
     N, m = codes.shape
     Q, _, W = luts.shape
     lut_type = LUT_DTYPES.index(lut_dtype)
     table, scales = kernel_table(luts, lut_dtype)
-    codes = codes.to(torch.uint8).contiguous()
+    codes = _build.aligned(codes.to(torch.uint8))
     bias = bias.float().contiguous()
     if extra is not None:
         extra = extra.to(torch.int32).contiguous()
+    has_extra = int(extra is not None)
+    p = _build.cached_plan(plan, dev, N, Q, m, W, k, lut_dtype, has_extra,
+                           qt)
     lib = _build.load("pq_adc", _SIGNATURES)
-    props = torch.cuda.get_device_properties(dev)
-    qt = _query_tile(lib, lut_type, m, int(extra is not None), W, k, Q,
-                     props.shared_memory_per_block_optin, lut_dtype)
-    q_tiles = -(-Q // qt)
-    row_tiles = max(1, -(-N // 256))
-    # enough blocks to fill the SMs twice, with at most 32k board entries
-    # per query for the merge to fold
-    n_chunks = max(1, min(row_tiles, -(-2 * props.multi_processor_count // q_tiles),
-                          32768 // k, 65535))
-    rows_per_chunk = 256 * -(-row_tiles // n_chunks)
-    n_chunks = max(1, -(-N // rows_per_chunk))
+    n_chunks = p["n_chunks"]
     part_s = torch.empty((Q, n_chunks, k), dtype=torch.float32, device=dev)
     part_k = torch.empty((Q, n_chunks, k), dtype=torch.int32, device=dev)
+    groups = p["merge_groups"]
+    slice_s = torch.empty((Q, groups, k), dtype=torch.float32, device=dev)
+    slice_k = torch.empty((Q, groups, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.pq_adc_launch(
         codes.data_ptr(), None if extra is None else extra.data_ptr(),
         table.data_ptr(), None if scales is None else scales.data_ptr(),
-        bias.data_ptr(), N, Q, m, W, int(extra is not None), lut_type, k, qt,
-        n_chunks, rows_per_chunk, part_s.data_ptr(), part_k.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), stream)
+        bias.data_ptr(), N, Q, m, W, has_extra, lut_type, k, p["qt"],
+        p["stages"], n_chunks, p["rows_per_chunk"],
+        part_s.data_ptr(), part_k.data_ptr(), groups, slice_s.data_ptr(),
+        slice_k.data_ptr(), out_s.data_ptr(), out_i.data_ptr(), stream)
     _build.check(lib, code, "pq_adc")
     LAUNCHES.n += 1
     return out_s, out_i

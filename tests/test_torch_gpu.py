@@ -178,6 +178,92 @@ def test_pq_adc_wide_extra_row_matches_plain(lut_dtype):
           ops.adc_topk(codes, luts, use_kernel=False, **kw))
 
 
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("m", [8, 64, 7])
+def test_pq_adc_every_query_tile_matches_plain(lut_dtype, m):
+    """At Q in {1, 2, 3, 9, 33, 512} and k in {1, 32, 256}, on a ragged N
+    with duplicated rows and a tenth knocked out, the kernel at the plan's
+    query tile and at every other tile that fits equals its plain version
+    bit for bit (m = 7 stages its codes byte by byte, m = 8 one partial
+    slab, m = 64 two full ones)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pq_adc import (QTS, fit_qt, plan, pq_adc_cuda,
+                                            pq_adc_plain)
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(m * 31 + len(lut_dtype))
+    N = 20_011
+    codes = torch.randint(0, 256, (N, m), generator=g, device=dev,
+                          dtype=torch.uint8)
+    codes[-200:] = codes[:200]
+    bias = torch.where(torch.rand(N, generator=g, device=dev) >= 0.1, 0.0,
+                       -1e30).float()
+    card = _build.card(dev)
+    for Q in (1, 2, 3, 9, 33, 512):
+        luts = torch.randn(Q, m, 256, generator=g, device=dev)
+        for k in (1, 32, 256):
+            want = pq_adc_plain(codes, luts, bias, k=k, lut_dtype=lut_dtype)
+            top = fit_qt(m, 256, k, lut_dtype, 0, card)
+            chosen = plan(N, Q, m, 256, k, lut_dtype, 0, card)["qt"]
+            for qt in [t for t in QTS if t <= top and t <= Q] + [None]:
+                ops.reset_launch_counts()
+                got = pq_adc_cuda(codes, luts, bias, k=k, lut_dtype=lut_dtype,
+                                  qt=qt)
+                assert ops.launch_counts()["pq_adc"] == 1
+                torch.cuda.synchronize()
+                assert torch.equal(got[1], want[1]), (Q, k, qt, chosen)
+                assert torch.equal(got[0], want[0]), (Q, k, qt, chosen)
+
+
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16", "int8"])
+def test_pq_adc_wide_extra_every_query_tile(lut_dtype):
+    """scan_all's shape at m = 64 (W = 2973 > 256, an int32 extra column
+    read from device memory) at every query tile that fits, Q = 33."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pq_adc import (QTS, fit_qt, pq_adc_cuda,
+                                            pq_adc_plain)
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(11)
+    N, m, W, Q = 30_001, 64, 2973, 33
+    codes = torch.randint(0, 256, (N, m), generator=g, device=dev,
+                          dtype=torch.uint8)
+    extra = torch.randint(0, W, (N,), generator=g, device=dev,
+                          dtype=torch.int32)
+    luts = torch.randn(Q, m + 1, W, generator=g, device=dev)
+    valid = torch.rand(N, generator=g, device=dev) >= 0.1
+    bias = torch.where(valid, 0.0, -1e30).float()
+    want = pq_adc_plain(codes, luts, bias, k=32, extra=extra,
+                        lut_dtype=lut_dtype)
+    top = fit_qt(m, W, 32, lut_dtype, 1, _build.card(dev))
+    for qt in [t for t in QTS if t <= top] + [None]:
+        got = pq_adc_cuda(codes, luts, bias, k=32, extra=extra,
+                          lut_dtype=lut_dtype, qt=qt)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]), qt
+        assert torch.equal(got[0], want[0]), qt
+
+
+def test_plan_shared_memory_matches_the_kernels():
+    """The plans' shared-memory formulas (Python) equal the kernels' own
+    (C), which carve the blocks."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import hamming as H
+    from repro_torch.kernels import pq_adc as P
+    _card()
+    lib = _build.load("pq_adc", P._SIGNATURES)
+    for dt_i, dt in enumerate(P.LUT_DTYPES):
+        for qt in P.QTS:
+            for m, W, extra in ((64, 256, 0), (7, 16, 0), (64, 2973, 1)):
+                for k, stages in ((1, 2), (32, 3), (256, 2)):
+                    assert lib.pq_adc_smem(dt_i, qt, m, extra, W, k, stages) \
+                        == P.smem_bytes(dt, qt, m, extra, W, k, stages)
+    hl = _build.load("hamming", H._SIGNATURES)
+    for qt in (1, 9, 32):
+        for L in (1, 64, 256):
+            for tw in (1, 16, 32):
+                assert hl.hamming_shortlist_smem(qt, L, tw) == \
+                    H.shortlist_smem(qt, L, tw)
+
+
 def _probe_inputs(db, q):
     idx = db.index
     metric = "dot" if idx.metric == "cosine" else idx.metric
@@ -280,6 +366,31 @@ def test_hamming_shortlist_kernel_heavy_ties():
         d, i = hamming_shortlist_cuda(qc, cc, L)
         pd, pi = hamming_shortlist_plain(qc, cc, L)
         assert torch.equal(d, pd) and torch.equal(i, pi), L
+
+
+@pytest.mark.parametrize("L", [1, 64, 256])
+def test_hamming_shortlist_ties_straddle_the_threshold(L):
+    """Codes of six distinct values over 150,011 rows: thousands of rows
+    share each distance, so ties straddle every query's threshold across
+    tiles and chunks; at Q in {1, 8, 9, 32, 33, 512} the kernel, at the
+    plan's query tile and at tiles of up to 32, keeps the plain version's
+    lower row ids, bit for bit."""
+    from repro_torch.kernels.hamming import (hamming_shortlist_cuda,
+                                             hamming_shortlist_plain)
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(7 + L)
+    distinct = _words(gen, (4, 6, 4), dev)
+    N = 150_011
+    pick = torch.randint(0, 6, (N,), generator=gen, device=dev)
+    cc = distinct[:, pick].contiguous()
+    for Q in (1, 8, 9, 32, 33, 512):
+        qc = torch.cat([distinct, _words(gen, (4, Q, 4), dev)], dim=1)[:, :Q]
+        qc = qc.contiguous()
+        pd, pi = hamming_shortlist_plain(qc, cc, L)
+        for qt in (None, 32):
+            d, i = hamming_shortlist_cuda(qc, cc, L, qt)
+            torch.cuda.synchronize()
+            assert torch.equal(d, pd) and torch.equal(i, pi), (Q, L, qt)
 
 
 def test_lsh_engine_launches_hamming_on_the_card():

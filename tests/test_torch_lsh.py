@@ -267,3 +267,36 @@ def test_lsh_launches_nothing_on_cpu(data):
     ops.reset_launch_counts()
     db.query(q, k=5)
     assert ops.launch_counts()["hamming"] == 0
+
+
+@pytest.mark.parametrize("L", [1, 64, 256])
+@pytest.mark.parametrize("T,W", [(4, 4), (8, 2), (1, 8), (4, 8), (1, 1)])
+def test_hamming_shortlist_plan_fits_the_card_and_covers(T, W, L):
+    """The shortlist kernel's launch plan, computed here from an H100's
+    properties: every block fits 232,448 bytes of shared memory and, with
+    the blocks an SM it counts, the SM's shared memory and registers; the
+    query tiles (at most 16 queries up to Q = 64, 32 above, as even as Q
+    allows) cover Q; the row chunks are whole 256-row tiles that cover N
+    exactly once."""
+    from repro_torch.kernels import _build
+    card = _build.H100
+    for N in (256, 300, 50_003, 262_144, 8_841_823):
+        if L > N:
+            continue
+        for Q in (1, 2, 8, 9, 31, 32, 33, 100, 512):
+            p = H.shortlist_plan(N, Q, T, W, L, card)
+            assert set(p) == set(H.SHORTLIST_PLAN_KEYS)
+            assert p["smem"] == H.shortlist_smem(p["qt"], L, T * W)
+            assert p["smem"] <= 232_448
+            assert p["blocks_per_sm"] * (p["smem"] + 1024) <= card["smem_sm"]
+            assert p["blocks_per_sm"] * H.ROW_TILE * p["regs"] \
+                <= card["regs_sm"]
+            assert 1 <= p["qt"] <= H.MAX_QT
+            q_tiles = -(-Q // p["qt"])
+            assert (q_tiles - 1) * p["qt"] < Q <= q_tiles * p["qt"]
+            cap = 16 if Q <= 64 else 32
+            assert q_tiles == -(-Q // cap)
+            rpc, nc = p["rows_per_chunk"], p["n_chunks"]
+            assert rpc % H.ROW_TILE == 0 and 1 <= nc <= 65_535
+            assert (nc - 1) * rpc < N <= nc * rpc
+            assert 1 <= p["merge_groups"] <= max(1, -(-nc // 8))

@@ -295,3 +295,67 @@ def test_scan_all_refuses_l2(data):
                   device="cpu").load(corpus)
     with pytest.raises(ValueError, match="scan_all"):
         db.query(q, k=3)
+
+
+PLAN_NS = (1, 511, 512, 50_003, 262_144, 8_841_823)
+PLAN_QS = (1, 2, 3, 5, 9, 32, 33, 100, 512)
+
+
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("k", [1, 32, 256])
+@pytest.mark.parametrize("m,W,has_extra", [(8, 256, 0), (64, 256, 0),
+                                           (7, 16, 0), (64, 2973, 1),
+                                           (16, 3001, 1), (96, 256, 0)])
+def test_pq_adc_plan_fits_the_card_and_covers(lut_dtype, k, m, W, has_extra):
+    """The kernel's launch plan, computed here from an H100's properties:
+    every block fits 232,448 bytes of shared memory and, with the blocks
+    an SM it counts, the SM's shared memory and registers; the query tiles
+    (kernel templates no larger than what fits) cover Q in as few tiles as
+    fit; the row chunks are whole 512-row tiles that cover N exactly once,
+    within the grid's 65,535 chunks."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import pq_adc as P
+    card = _build.H100
+    for N in PLAN_NS:
+        for Q in PLAN_QS:
+            p = P.plan(N, Q, m, W, k, lut_dtype, has_extra, card)
+            assert set(p) == set(P.PLAN_KEYS)
+            top = P.fit_qt(m, W, k, lut_dtype, has_extra, card)
+            assert p["qt"] in P.QTS and p["qt"] <= top
+            assert p["smem"] == P.smem_bytes(lut_dtype, p["qt"], m, has_extra,
+                                              W, k, p["stages"])
+            assert p["smem"] <= 232_448 and p["stages"] in (2, 3)
+            assert p["blocks_per_sm"] * (p["smem"] + 1024) <= card["smem_sm"]
+            assert p["blocks_per_sm"] * P.THREADS * p["regs"] \
+                <= card["regs_sm"]
+            assert p["regs"] >= 64
+            q_tiles = -(-Q // p["qt"])
+            assert (q_tiles - 1) * p["qt"] < Q <= q_tiles * p["qt"]
+            assert q_tiles == -(-Q // top)  # as few tiles as fit
+            rpc, nc = p["rows_per_chunk"], p["n_chunks"]
+            assert rpc % P.TILE_ROWS == 0 and 1 <= nc <= 65_535
+            assert (nc - 1) * rpc < N <= nc * rpc
+            assert 1 <= p["merge_groups"] <= max(1, -(-nc // 8))
+
+
+def test_pq_adc_plan_takes_the_fewest_query_tiles():
+    """The plan takes as few query tiles as the largest tile that fits
+    allows, each the smallest template that covers Q in that many, among
+    the tiles whose tables fit; ``qt`` forces one, an unfit one is
+    refused."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import pq_adc as P
+    card = _build.H100
+    assert P.fit_qt(64, 256, 32, "float32", 0, card) == 3
+    assert P.fit_qt(64, 256, 32, "bfloat16", 0, card) == 4
+    assert P.fit_qt(64, 256, 32, "int8", 0, card) == 8
+    assert P.fit_qt(16, 256, 32, "int8", 0, card) == 12
+    N = 8_841_823
+    for Q, dt, qt in ((32, "float32", 3), (33, "float32", 3),
+                      (4, "float32", 2), (512, "float32", 3),
+                      (32, "bfloat16", 4), (5, "bfloat16", 3),
+                      (32, "int8", 8), (9, "int8", 6), (1, "int8", 1)):
+        assert P.plan(N, Q, 64, 256, 32, dt, 0, card)["qt"] == qt, (Q, dt)
+    assert P.plan(N, 32, 64, 256, 32, "float32", 0, card, qt=2)["qt"] == 2
+    with pytest.raises(ValueError, match="query tile 4"):
+        P.plan(N, 32, 64, 256, 32, "float32", 0, card, qt=4)

@@ -220,21 +220,15 @@ def test_new_kernel_limits_are_named():
 
 def test_pq_adc_table_limit_is_named():
     """A table too large for a block's shared memory is refused with the
-    sizes named (pq_adc stages the first 256 entries of each subspace)."""
+    sizes named (pq_adc stages the first 256 entries of each subspace);
+    otherwise the plan's largest query tile is what fits."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels import pq_adc as P
-
-    class _Lib:
-        @staticmethod
-        def pq_adc_query_smem(lut_type, m, has_extra, W, k):
-            return ((4, 2, 1)[lut_type] * m * min(W, 256) + 64 * k
-                    + 4 * (m + has_extra))
-
+    card = _build.H100
     with pytest.raises(ValueError, match="m=256, W=256 float32"):
-        P._query_tile(_Lib, 0, 256, 0, 256, 10, 4, 232_448, "float32")
-    assert P._query_tile(_Lib, 0, 64, 1, 2973, 10, 512, 232_448,
-                         "float32") == 3
-    assert P._query_tile(_Lib, 2, 64, 0, 256, 10, 512, 232_448,
-                         "int8") == P.MAX_QT
+        P.plan(1000, 4, 256, 256, 10, "float32", 0, card)
+    assert P.fit_qt(64, 2973, 10, "float32", 1, card) == 3
+    assert P.fit_qt(16, 256, 10, "int8", 0, card) == P.MAX_QT
 
 
 def test_hamming_entries_refuse_the_kernel_on_cpu():
