@@ -24,7 +24,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``ivf_adc_blocked`` and ``ivf_adc_run_resident`` for {dot, l2,
      cosine} x {float32, bfloat16, int8} x Q in {1, 32, 512} (the grouped
      grids at qblk 8, and 4 and 16 for float32 dot), each grouped result
-     also against the per-query kernel's, bit for bit; ``hamming`` and
+     also against the per-query kernel's, bit for bit; the grouped grids
+     on synthetic inputs at Q one below, at and one above the plan's tile
+     width and the widest that fits (at the plan's width and forced to the
+     widest: a ragged last tile)
+     for each table type, shared and per-probe tables, m in {64, 8, 7}
+     (16-byte, word and byte code reads), k in {1, 32, 256}, qblk in
+     {4, 8, 16}, and with tiles that have no scheduled pair, a query
+     whose every probe is knocked out and an adaptive probe mask, each
+     against its plain version and the per-query kernel; ``hamming`` and
      ``hamming_shortlist`` for (T, W) in {(4, 4), (8, 2), (1, 8)} x Q in
      {1, 32, 512} (the shortlist at L in {10, 64, 256}) on words over the
      full 2^32 range, a ragged N and codes of five distinct values (ties
@@ -43,8 +51,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      then ``VectorDB("ivf_pq")`` served under adc_mode auto (the default),
      per_query, blocked and run_resident from one trained state (every
      grid's ids and scores equal per_query's bit for bit), and scan_all at
-     Q = 32, then ``VectorDB("lsh")`` at the reference defaults (128 bits,
-     4 tables, shortlist 64) with the earlier engines dropped, its kernel
+     Q = 32, the three ivf_adc kernels at Q = 1, 32, 512 (the grouped ones
+     beside their times before this design) and on the hot set (32 corpus
+     rows x
+     16 noisy copies, shuffled: its sharing factor, all three grids at
+     Q = 32 and 512, the grouped ones bit-equal to their plain versions and
+     the per-query kernel), then ``VectorDB("lsh")`` at the reference
+     defaults (128 bits, 4 tables, shortlist 64) with the earlier engines
+     dropped, its kernel
      path's ids and scores equal to the plain path's at Q = 1 and 32, and
      its stage times; load seconds, p50/p99 latency and QPS at Q = 1, 32, 512,
      recall@10 against flat, each kernel's time beside its bound, the plain
@@ -106,12 +120,18 @@ POPC_PER_CLOCK_PER_SM = 16
 LOOKUPS_PER_CLOCK_PER_SM = 32
 # The redesigned kernels' times before this design (PERF.md section 6:
 # chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W; pq_adc float32 table,
-# k = 32; hamming_shortlist L = 64), printed beside this run's
+# k = 32; hamming_shortlist L = 64; the grouped ivf_adc grids float32
+# tables, k = 32, qblk = 8), printed beside this run's
 EARLIER_MS = {"pq_adc": {1: 1.675, 32: 42.960, 512: 757.685},
-              "hamming_shortlist": {1: 0.715, 32: 8.822, 512: 46.098}}
+              "hamming_shortlist": {1: 0.715, 32: 8.822, 512: 46.098},
+              "ivf_adc_blocked": {1: 0.254, 32: 0.747, 512: 4.357},
+              "ivf_adc_run_resident": {1: 0.277, 32: 0.774, 512: 4.515}}
 PQ_TILE_MS = (8, 64, 7)        # phase 3's pq_adc sweep: m = 7 is byte-staged
 PQ_TILE_QS = (1, 2, 3, 9, 33, 512)
 PQ_TILE_KS = (1, 32, 256)
+GROUPED_TILE_MS = (64, 8, 7)   # phase 3's grouped sweep: 16-byte, word, byte reads
+GROUPED_QBLKS = (4, 8, 16)
+HOT_ROWS, HOT_COPIES = 32, 16  # phase 4's hot set (hot_queries)
 TIE_ROWS = 150_011             # phase 3's hamming tie case
 HAMMING_SHAPES = ((4, 4), (8, 2), (1, 8))   # (tables, words): 128, 16, 256 bits
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's (tests/test_kernels.py)
@@ -199,6 +219,33 @@ def gpu_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_us(fn, reps: int = 5) -> dict:
+    """Device microseconds a call of fn() spends in each kernel, by
+    torch.profiler's CUDA activity over reps calls after a warm-up:
+    {kernel name (its template name, cut at '('): us a call}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        # a kernel's own device time; a host op's kernels are its children
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0 and not e.key.startswith(("aten::", "Activity")):
+            name = e.key.replace("void ", "").replace(
+                "(anonymous namespace)::", "").replace("at::native::", "")
+            name = name.split("(")[0].split("<")[0]
+            out[name] = out.get(name, 0.0) + us / reps
+    return out
+
+
 def bound_ms(n_bytes: float, n_ops: float,
              ops_per_s: float = FP32_OPS_PER_S) -> tuple:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -221,8 +268,10 @@ def percentile(xs, p: float) -> float:
 
 
 def serve_batches(db, queries, label: str) -> dict:
-    """Run the query batches through the front; host clock around work
-    that ends in a synchronize. Returns {Q: (scores, ids)} of the last rep."""
+    """Run the query batches through the front, one batch of Q queries
+    served again and again (so ivf_pq's schedule cache hits after the
+    first); host clock around work that ends in a synchronize. Returns
+    {Q: (scores, ids)} of the last rep."""
     import torch
     last = {}
     for Q in BATCHES:
@@ -238,7 +287,8 @@ def serve_batches(db, queries, label: str) -> dict:
         last[Q] = (s, i)
         p50, p99 = percentile(times, 50), percentile(times, 99)
         log(f"  {label} Q={Q}: p50 {p50 * 1e3:.3f} ms, p99 {p99 * 1e3:.3f} ms "
-            f"(n={len(times)}), QPS {Q * len(times) / sum(times):.1f}")
+            f"(n={len(times)}, one batch repeated), QPS "
+            f"{Q * len(times) / sum(times):.1f}")
         if not (torch.isfinite(s[:, 0]).all() and s.shape == (Q, 10)):
             raise AssertionError(f"{label} Q={Q}: bad result {tuple(s.shape)}")
     return last
@@ -511,6 +561,7 @@ def phase_mid(seed: int, device, rank: int) -> None:
     del corpus, queries
     torch.cuda.empty_cache()
     pq_tiles_mid(seed, device)
+    grouped_tiles_mid(seed, device)
     hamming_mid(seed, device)
     flash_mid(seed, device)
 
@@ -593,6 +644,136 @@ def pq_tiles_mid(seed: int, device) -> None:
                       f"pq_adc {lut_dtype} extra W={W} Q={Q} k=32 query "
                       f"tile {qt}")
     del codes, extra, luts
+    torch.cuda.empty_cache()
+
+
+def grouped_inputs(gen, device, *, Q, m, per_probe, B=4000, blk=32,
+                   nprobe=8, spp=32, ksub=256, pad_share=0.3):
+    """Synthetic grouped-grid inputs made on the card: random codes with a
+    tenth of the slots -1, a (Q, nprobe * spp) visit table over B - 1
+    blocks with a share of visits to the pad block (B - 1, all -1), random
+    tables (per (query, probe) with ``per_probe``) and coarse terms."""
+    import torch
+    codes = torch.randint(0, ksub, (B, blk, m), generator=gen, device=device,
+                          dtype=torch.uint8)
+    ids = torch.arange(B * blk, device=device,
+                       dtype=torch.int32).reshape(B, blk)
+    ids[torch.rand((B, blk), generator=gen, device=device) < 0.1] = -1
+    ids[-1] = -1
+    T = nprobe * spp
+    visit = torch.randint(0, B - 1, (Q, T), generator=gen, device=device,
+                          dtype=torch.int32)
+    visit[torch.rand((Q, T), generator=gen, device=device) < pad_share] = B - 1
+    shape = (Q, nprobe, m, ksub) if per_probe else (Q, m, ksub)
+    luts = torch.randn(shape, generator=gen, device=device)
+    coarse = torch.randn((Q, nprobe), generator=gen, device=device)
+    return codes, ids, visit, luts, coarse, spp
+
+
+def grouped_case(codes, ids, visit, luts, coarse, spp, *, k, lut_dtype, qblk,
+                 tiles, label) -> int:
+    """Both grouped kernels, at the plan's tile width and at each of
+    ``tiles``, against their plain versions and the per-query kernel, bit
+    for bit; raises on the first difference. Returns the cases checked."""
+    from repro_torch.kernels import ivf_adc as K
+    from repro_torch.kernels import ops
+    kw = dict(k=k, steps_per_probe=spp, lut_dtype=lut_dtype)
+    per_query = ops.normalize_knockouts(*K.ivf_adc_cuda(
+        codes, ids, visit, luts, coarse, **kw))
+    sched = ops.build_schedule(visit, qblk=qblk, pad_block=ids.shape[0] - 1)
+    n = 0
+    for runs, plain, name in (
+            (False, K.ivf_adc_blocked_plain, "blocked"),
+            (True, K.ivf_adc_run_resident_plain, "run_resident")):
+        want = ops.normalize_knockouts(*plain(codes, ids, visit, sched, luts,
+                                              coarse, **kw))
+        if not same_result(want, per_query):
+            raise AssertionError(f"{label} {name}: plain version differs "
+                                 "from the per-query kernel")
+        for qt in (None,) + tuple(tiles):
+            got = ops.normalize_knockouts(*K._grouped_cuda(
+                codes, ids, visit, sched, luts, coarse, runs=runs, qt=qt,
+                **kw))
+            if not same_result(got, want):
+                raise AssertionError(f"ivf_adc_{name} {label} qt={qt}: "
+                                     "kernel and plain version differ")
+            n += 1
+    return n
+
+
+def grouped_tiles_mid(seed: int, device) -> None:
+    """The grouped kernels on synthetic inputs (4,000 blocks of 32 slots,
+    nprobe 8 x 32 steps), bit for bit against their plain versions and the
+    per-query kernel: Q one below, at and one above the plan's tile width
+    and the widest that fits, at the plan's width and forced to the widest
+    (a ragged last tile), for each table type, shared and per-probe
+    tables, m in GROUPED_TILE_MS, k in (1, 32, 256), qblk in
+    GROUPED_QBLKS; then tiles with no scheduled pair, a query whose every
+    probe is knocked out, an adaptive probe mask, and blocks of 8 x 7 and
+    6 x 8 code bytes (staged byte by byte)."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ivf_adc import fit_tile, plan_width
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    card = _build.card(device)
+    t0 = time.perf_counter()
+    total = 0
+    for m in GROUPED_TILE_MS:
+        for lut_dtype in ("float32", "bfloat16", "int8"):
+            for per_probe in (False, True):
+                n = 0
+                cw = 1 if per_probe else 8  # coarse terms a table row
+                for k in PQ_TILE_KS:
+                    top = fit_tile(m, 256, 32, k, lut_dtype, card, cw)
+                    width = plan_width(m, 256, 32, k, lut_dtype, card, cw)
+                    for Q in sorted({max(1, w + d) for w in (width, top)
+                                     for d in (-1, 0, 1)}):
+                        *args, spp = grouped_inputs(gen, device, Q=Q, m=m,
+                                                    per_probe=per_probe)
+                        args[4][0, 1] = -1e30  # a knocked-out probe
+                        for qblk in GROUPED_QBLKS:
+                            n += grouped_case(
+                                *args, spp, k=k, lut_dtype=lut_dtype,
+                                qblk=qblk, tiles=(top,),
+                                label=f"{lut_dtype} m={m} per_probe="
+                                      f"{per_probe} k={k} Q={Q} qblk={qblk}")
+                log(f"  ivf_adc grouped kernels {lut_dtype} m={m} "
+                    f"{'per-probe' if per_probe else 'shared'} tables: {n} "
+                    f"cases (Q one below, at and one above the plan's and "
+                    f"the widest tile at k in {PQ_TILE_KS}, qblk in "
+                    f"{GROUPED_QBLKS}) equal their plain versions and the "
+                    f"per-query kernel bit for bit")
+                total += n
+    for lut_dtype in ("float32", "bfloat16", "int8"):
+        for per_probe in (False, True):
+            codes, ids, visit, luts, coarse, spp = grouped_inputs(
+                gen, device, Q=40, m=M_SUBSPACES, per_probe=per_probe)
+            pad = ids.shape[0] - 1
+            visit[:12] = pad                  # the first tiles: no pair
+            coarse[20] = -1e30                # every probe knocked out
+            drop = torch.rand((40, 8), generator=gen, device=device) < 0.5
+            drop[:, 0] = False                # adaptive: probe 0 stays
+            visit[torch.repeat_interleave(drop, spp, dim=1)] = pad
+            coarse[drop] = -1e30
+            for qblk in GROUPED_QBLKS:
+                total += grouped_case(
+                    codes, ids, visit, luts, coarse, spp, k=32,
+                    lut_dtype=lut_dtype, qblk=qblk, tiles=(1,),
+                    label=f"{lut_dtype} per_probe={per_probe} empty tiles, "
+                          f"knocked-out query, adaptive mask qblk={qblk}")
+    for blk, m in ((8, 7), (6, 8)):  # blocks staged byte by byte
+        for lut_dtype in ("float32", "bfloat16", "int8"):
+            for per_probe in (False, True):
+                *args, spp = grouped_inputs(gen, device, Q=10, m=m, blk=blk,
+                                            per_probe=per_probe)
+                total += grouped_case(
+                    *args, spp, k=32, lut_dtype=lut_dtype, qblk=8,
+                    tiles=(1,), label=f"{lut_dtype} blk={blk} m={m} "
+                                      f"per_probe={per_probe}")
+    log(f"  ivf_adc grouped kernels: empty tiles, a query with every probe "
+        f"knocked out, an adaptive probe mask and blocks staged byte by "
+        f"byte (blk, m in (8, 7), (6, 8)) equal too; {total} cases in "
+        f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
 
@@ -755,7 +936,7 @@ def phase_main(n: int, seed: int, device, rank: int, min_recall: float,
     log(f"  [pq: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
     recalls["ivf_pq"] = main_ivf(corpus, queries, truth, device, kernels,
-                                 launches, rates["lookups"])
+                                 launches, rates["lookups"], seed)
     log(f"  [ivf_pq: {time.perf_counter() - t0:.1f} s]")
     peak = torch.cuda.max_memory_allocated()
     log(f"  peak device memory through ivf_pq: {peak / 1e9:.2f} GB")
@@ -983,10 +1164,28 @@ def main_pq(corpus, queries, truth, device, kernels, launches,
     return recall
 
 
+def hot_queries(corpus, seed: int, device):
+    """The hot set: HOT_ROWS corpus rows, each repeated HOT_COPIES times
+    with noise of 0.01 a dimension, normalized, in an order shuffled by
+    seed. Popular queries recur across users (Xie and O'Hallaron, "Locality
+    in Search Engine Queries and Its Implications for Caching", INFOCOM
+    2002: query popularity is Zipf-like); the 32 x 16 split stands in for
+    the head of that distribution and is not taken from the study."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed + 8)
+    rows = torch.randperm(corpus.shape[0], generator=gen,
+                          device=device)[:HOT_ROWS]
+    q = corpus[rows].repeat_interleave(HOT_COPIES, dim=0)
+    q = q + 0.01 * torch.randn(q.shape, generator=gen, device=device)
+    q = q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+    return q[torch.randperm(q.shape[0], generator=gen, device=device)]
+
+
 def main_ivf(corpus, queries, truth, device, kernels, launches,
-             lookups_per_s: float) -> float:
+             lookups_per_s: float, seed: int) -> float:
     """ivf_pq, trained once, served under every grid; scan_all at Q = 32;
-    the three ivf_adc kernels timed."""
+    the three ivf_adc kernels timed on the phase's queries and on the hot
+    set."""
     import torch
     from repro_torch import VectorDB
     from repro_torch.kernels import ivf_adc as K
@@ -1032,7 +1231,7 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
              "ivf_adc_run_resident": (K.ivf_adc_run_resident_cuda,
                                       K.ivf_adc_run_resident_plain,
                                       "run_resident")}
-    timed = {}
+    timed, by_q = {}, {name: {} for name in grids}
     for Q in BATCHES:
         codes, ids, visit, luts, coarse, spp = probe_inputs(idx, queries[:Q])
         t_s = time.perf_counter()
@@ -1058,8 +1257,13 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
             ms = gpu_ms(fn, 5)
             b = ivf_bound(ids, visit, luts, coarse, blk, m, lookups_per_s, k,
                           sched if mode else None)
+            by_q[name][Q] = (ms, b)
+            before = (f"; before this design {EARLIER_MS[name][Q]:.3f} ms"
+                      if name in EARLIER_MS else "")
+            dev_us = device_us(fn)
             log(f"  {name} kernel Q={Q}: {ms:.3f} ms (bound {b[0]:.3f} ms, "
-                f"{b[1]})")
+                f"{b[1]}{before}); device us a call by kernel (profiler): "
+                + ", ".join(f"{n} {u:.1f}" for n, u in dev_us.items()))
             if Q == 32:
                 args = ((codes, ids, visit, luts, coarse) if mode is None
                         else (codes, ids, visit, sched, luts, coarse))
@@ -1081,6 +1285,7 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
                                           compare_grouped(
                 *args[:5], mode=mode, qblk=8, **kw,
                 label=f"ivf_adc_{mode} full size Q={Q}"))
+    hot_set(idx, corpus, seed, device, grids, lookups_per_s)
     for name, (ms, plain_ms, b, shape) in timed.items():
         kernels.append(kernel_entry(
             name, "src/repro_torch/csrc/ivf_adc.cu",
@@ -1090,6 +1295,9 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
             launches[name], errs[name], ms, plain_ms, b, None,
             shape + "; library_ms null: no single PyTorch call gathers and "
             "sums table entries"))
+        kernels[-1]["by_q"] = {str(Q): {"ms": t[0], "bound_ms": t[1][0],
+                                        "bound_by": t[1][1]}
+                               for Q, t in by_q[name].items()}
         log(f"  {name} Q=32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"bound {b[0]:.3f} ms ({b[1]}), no single library call")
 
@@ -1119,6 +1327,46 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
     del sdb, db, idx, codes, luts, assign, live
     torch.cuda.empty_cache()
     return recall
+
+
+def hot_set(idx, corpus, seed: int, device, grids: dict,
+            lookups_per_s: float) -> None:
+    """The three ivf_adc kernels on the hot set at Q = 32 and 512: the
+    sharing factor, each grid's time beside the bound, and both grouped
+    grids against their plain versions and the per-query kernel, bit for
+    bit."""
+    import torch
+    from repro_torch.kernels import ops
+    hot = hot_queries(corpus, seed, device)
+    k, blk, m = idx.refine, idx.block_size, idx.codebooks.shape[0]
+    for Q in (32, 512):
+        codes, ids, visit, luts, coarse, spp = probe_inputs(idx, hot[:Q])
+        pad = ids.shape[0] - 1
+        share = ops.visit_sharing(visit, pad_block=pad)
+        sched = ops.build_schedule(visit, qblk=8, pad_block=pad)
+        times = {}
+        for name, (cuda, _, mode) in grids.items():
+            if mode is None:
+                times[name] = gpu_ms(lambda: cuda(codes, ids, visit, luts,
+                                                  coarse, k=k,
+                                                  steps_per_probe=spp), 5)
+            else:
+                times[name] = gpu_ms(lambda: cuda(codes, ids, visit, sched,
+                                                  luts, coarse, k=k,
+                                                  steps_per_probe=spp), 5)
+        b = ivf_bound(ids, visit, luts, coarse, blk, m, lookups_per_s, k)
+        log(f"  hot set Q={Q} ({HOT_ROWS} rows x {HOT_COPIES} noisy copies, "
+            f"shuffled): sharing {share['sharing']:.3f} (pairs "
+            f"{share['pairs']}, blocks {share['blocks']}; groups "
+            f"{sched['groups']}, runs {sched['n_runs']}); "
+            + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items())
+            + f" (bound {b[0]:.3f} ms, {b[1]})")
+        for mode in GROUPED:
+            compare_grouped(codes, ids, visit, luts, coarse, k=k, spp=spp,
+                            lut_dtype="float32", mode=mode, qblk=8,
+                            label=f"ivf_adc_{mode} hot set Q={Q}")
+    del hot
+    torch.cuda.empty_cache()
 
 
 def ivf_breakdown(idx, queries) -> None:

@@ -7,7 +7,9 @@ backend is ``"cuda"`` (the kernels) or ``"plain"`` (their plain versions).
 Until the key has one, each auto batch runs ONE candidate grid (per_query,
 blocked at the default group width, run-resident over a small qblk sweep)
 with a warm-up call and then a timed call, each ending in a device
-synchronize, and records (sharing factor, wall seconds). Every candidate
+synchronize, and records (sharing factor, wall seconds). The timed call is
+the dispatch as the batch is served: for a grouped grid, the schedule from
+the cache or, on a miss, built with the kernel's pair index. Every candidate
 returns the same results bit for bit, so probe batches serve real answers
 while they measure.
 

@@ -11,11 +11,21 @@ come back below NEG_INF / 2 with any id; ``ops.ivf_adc_topk`` turns them
 into (-inf, -1).
 
   * ``ivf_adc``: the per-query grid over the (Q, T) visit table;
-  * ``ivf_adc_blocked``: one program per group of the segmented schedule
-    (``core.ivf.build_block_schedule``), each a block shared by up to qblk
-    (query, step) pairs;
-  * ``ivf_adc_run_resident``: one program per run of the schedule, each a
-    distinct block read once for the whole batch.
+  * ``ivf_adc_blocked``: over the segmented schedule
+    (``core.ivf.build_block_schedule``), each group a block shared by up
+    to qblk (query, step) pairs;
+  * ``ivf_adc_run_resident``: over the same schedule's runs, each a
+    distinct block.
+
+On the card the two grouped grids share one kernel (``ivf_adc_tiles``): a
+block keeps the tables of a tile of ``qt`` table rows (queries, or
+(query, probe) rows for per-probe tables) in shared memory and streams
+the code blocks of the tile's scheduled pairs past them, one fetch per
+(tile, group) in the blocked grid and per (tile, run) in the run-resident
+grid, folding scores straight into per-row boards. ``grouped_plan`` sizes
+the tile from the card's shared memory; ``tile_index`` buckets the
+schedule's pairs by tile (cached with the schedule). The plain versions
+gather and scatter as the reference's twins do.
 
 All three agree bit for bit, on the card and on the CPU (invariant 5 of
 docs/ARCHITECTURE.md). Table precisions as in ``kernels.pq_adc``.
@@ -23,24 +33,35 @@ docs/ARCHITECTURE.md). Table precisions as in ``kernels.pq_adc``.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from repro_torch.core.distances import merge_topk, topk_scores
 from repro_torch.device import kernel_path
 from repro_torch.kernels import _build
-from repro_torch.kernels.pq_adc import LUT_DTYPES, gather_terms, kernel_table
+from repro_torch.kernels.pq_adc import (LUT_BYTES, LUT_DTYPES, gather_terms,
+                                        kernel_table)
 from repro_torch.kernels.topk_distance import KMAX, NEG_INF
 
 LAUNCHES = _build.LaunchCounter("ivf_adc")
 LAUNCHES_BLOCKED = _build.LaunchCounter("ivf_adc_blocked")
 LAUNCHES_RUN_RESIDENT = _build.LaunchCounter("ivf_adc_run_resident")
 
+THREADS = 256   # threads of a grouped-grid tile block (kThreads)
+WARPS = THREADS // 32
+SEG_MAX = 16    # pairs one fetch serves at most (kSegMax); longer runs are cut
+MAX_QT = 16     # table rows a tile holds at most
+MIN_CHUNK_PAIRS = 8   # pairs a chunk at least: one a warp
+CHUNK_WAVES = 2       # waves of blocks the chunks of a batch's pairs make
+GROUPED_PLAN_KEYS = ("qt", "tiles", "smem", "blocks_per_sm", "slots")
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "ivf_adc_launch": ([_P, _P, _P, _P, _P, _P] + [_I] * 11 + [_P] * 5, _I),
-    "ivf_adc_grouped_launch": ([_P] * 11 + [_I] * 14 + [_P] * 7, _I),
+    "ivf_adc_grouped_launch": ([_P] * 8 + [_I] * 13 + [_P] * 7, _I),
     "ivf_adc_smem_bytes": ([_I, _I, _I, _I], ctypes.c_size_t),
+    "ivf_adc_grouped_smem": ([_I] * 7, ctypes.c_size_t),
 }
 
 
@@ -275,49 +296,196 @@ def ivf_adc_cuda(bucket_codes, bucket_ids, visit, luts, coarse, *, k: int,
     return out_s, out_i
 
 
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def tile_smem_bytes(lut_dtype: str, qt: int, m: int, ksub: int, blk: int,
+                    k: int, cw: int = 1) -> int:
+    """Shared memory of one grouped-grid tile block (csrc/ivf_adc.cu
+    tile_layout): qt tables of m x ksub entries, each 16-byte aligned; the
+    code ring, two stages a warp of one block's codes and slot ids; for
+    each row a packed threshold, a sorted board, a lock, its ``cw`` coarse
+    terms (nprobe for a shared table, 1 for a per-probe one) and, for
+    int8, its m scales; and each warp's list of 32 candidates."""
+    table = _align16(LUT_BYTES[lut_dtype] * m * ksub)
+    stage = _align16(blk * m) + _align16(4 * blk)
+    scales = 4 * m if lut_dtype == "int8" else 0
+    return (qt * table + WARPS * 2 * stage + WARPS * 32 * 8
+            + qt * (8 + 8 * _build.board_entries(k) + 4 + 4 * cw + scales))
+
+
+def fit_tile(m: int, ksub: int, blk: int, k: int, lut_dtype: str,
+             card: dict, cw: int = 1) -> int:
+    """The most table rows (up to MAX_QT) a tile block holds within the
+    card's shared memory; raises, naming the sizes, if one does not fit."""
+    for qt in range(MAX_QT, 0, -1):
+        if tile_smem_bytes(lut_dtype, qt, m, ksub, blk, k, cw) \
+                <= card["smem_block"]:
+            return qt
+    raise ValueError(
+        f"ivf_adc grouped grids: one m={m}, ksub={ksub} {lut_dtype} table "
+        f"with blk={blk}, k={k} needs "
+        f"{tile_smem_bytes(lut_dtype, 1, m, ksub, blk, k, cw)} bytes of "
+        f"shared memory a block; the card allows {card['smem_block']}")
+
+
+def plan_width(m: int, ksub: int, blk: int, k: int, lut_dtype: str,
+               card: dict, cw: int = 1) -> int:
+    """The widest tile the plan takes: the most table rows with which two
+    blocks still share an SM (16 warps to hide the code stream's latency;
+    the kernel's register bound allows no more), else the most that fit
+    one block (``fit_tile``)."""
+    top = fit_tile(m, ksub, blk, k, lut_dtype, card, cw)
+    two = card["smem_sm"] // 2 - 1024  # a block's share, less its reserve
+    for qt in range(top, 0, -1):
+        if tile_smem_bytes(lut_dtype, qt, m, ksub, blk, k, cw) <= two:
+            return qt
+    return top
+
+
+def grouped_plan(Q: int, T: int, steps_per_probe: int, per_probe: bool,
+                 m: int, ksub: int, blk: int, k: int, lut_dtype: str,
+                 card: dict, qt=None) -> dict:
+    """The grouped grids' launch plan (``GROUPED_PLAN_KEYS``), a pure
+    function of the shapes and the card (``_build.card``): as few tiles of
+    table rows (Q rows, or Q x nprobe with per-probe tables) as the widest
+    tile ``plan_width`` allows, each the narrowest that still covers the
+    rows in that many; blocks an SM from shared memory (two at most, the
+    kernel's register bound), and so the blocks of one wave (``slots``),
+    from which ``tile_index`` sizes the chunks of the batch's pairs.
+    ``qt`` forces the tile width, up to the most that fit one block (for a
+    comparison on the card)."""
+    if lut_dtype not in LUT_DTYPES:
+        raise ValueError(f"lut_dtype must be one of {LUT_DTYPES}")
+    nprobe = T // steps_per_probe
+    rows = Q * nprobe if per_probe else Q
+    cw = 1 if per_probe else nprobe
+    if qt is None:
+        top = plan_width(m, ksub, blk, k, lut_dtype, card, cw)
+        qt = -(-rows // -(-rows // top))
+    elif not 1 <= qt <= fit_tile(m, ksub, blk, k, lut_dtype, card, cw):
+        raise ValueError(
+            f"ivf_adc grouped grids: tile width {qt} is not in "
+            f"1..{fit_tile(m, ksub, blk, k, lut_dtype, card, cw)}")
+    tiles = -(-rows // qt)
+    smem = tile_smem_bytes(lut_dtype, qt, m, ksub, blk, k, cw)
+    bps = max(1, min(2, card["smem_sm"] // (smem + 1024)))
+    return dict(qt=qt, tiles=tiles, smem=smem, blocks_per_sm=bps,
+                slots=card["sms"] * bps)
+
+
+def tile_index(sched, *, rows: int, qt: int, nprobe: int,
+               steps_per_probe: int, per_probe: bool, runs: bool,
+               slots: int = 1) -> dict:
+    """The schedule's pairs bucketed by tile of ``qt`` table rows, on the
+    schedule's device, for the grouped kernel; cached in ``sched`` (which
+    the plan ledger's ``ScheduleCache`` keeps), so a repeated batch skips
+    it.
+
+    One stable sort of the flat pair index on the pair's tile (row q, or
+    q * nprobe + t // steps_per_probe with per-probe tables) keeps the
+    schedule's block order within a tile and sends the sentinel pairs
+    (q = -1) to the end, where they are dropped. A pair opens a segment
+    (one fetch of its block) where its tile or its fetch unit changes --
+    its schedule group (blocked) or run (``runs``) -- and every SEG_MAX
+    pairs of one unit. A tile's pairs are cut into chunks of
+    ``chunk_pairs``, one block each: enough for about CHUNK_WAVES waves of
+    ``slots`` blocks over the batch's P pairs (at least MIN_CHUNK_PAIRS),
+    so that no block holds much more than its share however unevenly the
+    pairs fall on the tiles; ``n_chunks`` is the most chunks a tile needs
+    (one host sync, when the index is built).
+
+    Returns {"meta": (P, 4) int32 rows (block, query, step, opens a
+    segment + 2 x probe), "tile_pairs": (tiles + 1,) int32 offsets of each
+    tile's pairs, "chunk_pairs", "n_chunks"}, P = the schedule's real
+    pairs.
+    """
+    key = (rows, qt, nprobe, steps_per_probe, per_probe, runs, slots)
+    cache = sched.setdefault("tile_index", {})
+    if key in cache:
+        return cache[key]
+    sq, st = sched["sq"], sched["st"]
+    qblk = sq.shape[1]
+    dev = sq.device
+    P = int(sched["pairs"])
+    tiles = -(-rows // qt)
+    q = sq.reshape(-1).long()
+    t = st.reshape(-1).long()
+    row = q * nprobe + t // steps_per_probe if per_probe else q
+    tile = torch.where(q >= 0, torch.div(row, qt, rounding_mode="floor"),
+                       tiles)
+    tile, order = torch.sort(tile, stable=True)
+    tile, order = tile[:P], order[:P]
+    g = torch.div(order, qblk, rounding_mode="floor")
+    unit = sched["grun"].long()[g] if runs else g
+    block = sched["rb"].long()[unit] if runs else sched["sb"].long()[g]
+    first = torch.ones(P, dtype=torch.bool, device=dev)
+    first[1:] = (tile[1:] != tile[:-1]) | (unit[1:] != unit[:-1])
+    pos = torch.arange(P, device=dev)
+    rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values \
+        if P else pos
+    t = t[order]
+    meta = torch.stack([block, q[order], t,
+                        (rank % SEG_MAX == 0).long()
+                        + 2 * torch.div(t, steps_per_probe,
+                                        rounding_mode="floor")], 1)
+    tile_pairs = torch.searchsorted(tile, torch.arange(tiles + 1, device=dev))
+    chunk = max(MIN_CHUNK_PAIRS, math.ceil(P / (CHUNK_WAVES * slots)))
+    most = int((tile_pairs[1:] - tile_pairs[:-1]).max()) if tiles else 0
+    out = {"meta": meta.to(torch.int32).contiguous(),
+           "tile_pairs": tile_pairs.to(torch.int32), "chunk_pairs": chunk,
+           "n_chunks": max(1, -(-most // chunk))}
+    cache[key] = out
+    return out
+
+
 def _grouped_cuda(bucket_codes, bucket_ids, visit, sched, luts, coarse, *,
-                  k: int, steps_per_probe: int, lut_dtype: str, runs: bool):
-    """Launch a grouped grid: the pair scoring (one program per schedule
-    group, or per run), the per-(query, chunk) fold of the scored pairs in
-    visit order, and the merge of the chunk boards."""
+                  k: int, steps_per_probe: int, lut_dtype: str, runs: bool,
+                  qt=None):
+    """Launch a grouped grid: the tile kernel over the pairs bucketed by
+    tile (``tile_index``), then the merge of each query's boards. ``qt``
+    forces the plan's tile width, for comparisons on the card; it counts
+    no launch (the public wrappers below do)."""
     codes, ids, visit, table, scales, coarse, lut_type = _kernel_inputs(
         bucket_codes, bucket_ids, visit, luts, coarse, k, steps_per_probe,
         lut_dtype)
+    codes, ids, table = (_build.aligned(x) for x in (codes, ids, table))
     dev = visit.device
     B, blk, m = codes.shape
     Q, T = visit.shape
     ksub = luts.shape[-1]
-    sq = sched["sq"].to(device=dev, dtype=torch.int32).contiguous()
-    st = sched["st"].to(device=dev, dtype=torch.int32).contiguous()
-    G, qblk = sq.shape
-    if G * qblk * blk >= 2 ** 31:
-        raise ValueError("ivf_adc grouped kernels index pair scores in int32:"
-                         " G * qblk * blk < 2^31")
-    if runs:
-        block_of = sched["rb"]
-        run_start = sched["rs"].to(device=dev, dtype=torch.int32).contiguous()
-        run_len = sched["rl"].to(device=dev, dtype=torch.int32).contiguous()
-    else:
-        block_of, run_start, run_len = sched["sb"], None, None
-    block_of = block_of.to(device=dev, dtype=torch.int32).contiguous()
+    nprobe = T // steps_per_probe
+    per_probe = luts.dim() == 4
+    if sched["sq"].numel() >= 2 ** 31:
+        raise ValueError("ivf_adc grouped kernels index pairs in int32: "
+                         "G * qblk < 2^31")
+    p = _build.cached_plan(grouped_plan, dev, Q, T, steps_per_probe,
+                           per_probe, m, ksub, blk, k, lut_dtype, qt)
+    idx = tile_index(sched, rows=Q * nprobe if per_probe else Q, qt=p["qt"],
+                     nprobe=nprobe, steps_per_probe=steps_per_probe,
+                     per_probe=per_probe, runs=runs, slots=p["slots"])
+    if idx["n_chunks"] > 65535:
+        raise ValueError("ivf_adc grouped kernels: a tile needs "
+                         f"{idx['n_chunks']} chunks; the grid takes 65535")
     lib = _build.load("ivf_adc", _SIGNATURES)
-    n_chunks, steps = _chunks(Q, T, dev)
-    pair_s = torch.empty((G * qblk * blk,), dtype=torch.float32, device=dev)
-    pair_of = torch.full((Q, T), -1, dtype=torch.int32, device=dev)
-    part_s = torch.empty((Q, n_chunks, k), dtype=torch.float32, device=dev)
-    part_k = torch.empty((Q, n_chunks, k), dtype=torch.int32, device=dev)
+    n_parts = (nprobe if per_probe else 1) * idx["n_chunks"]
+    groups = _build.merge_groups(n_parts, Q,
+                                 p["slots"] // p["blocks_per_sm"])
+    part_s = torch.empty((Q, n_parts, k), dtype=torch.float32, device=dev)
+    part_k = torch.empty((Q, n_parts, k), dtype=torch.int32, device=dev)
+    slice_s = torch.empty((Q, groups, k), dtype=torch.float32, device=dev)
+    slice_k = torch.empty((Q, groups, k), dtype=torch.int32, device=dev)
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.ivf_adc_grouped_launch(
         codes.data_ptr(), ids.data_ptr(), visit.data_ptr(), table.data_ptr(),
         None if scales is None else scales.data_ptr(), coarse.data_ptr(),
-        block_of.data_ptr(), None if run_start is None else run_start.data_ptr(),
-        None if run_len is None else run_len.data_ptr(), sq.data_ptr(),
-        st.data_ptr(), Q, T, blk, m, ksub, steps_per_probe,
-        int(luts.dim() == 4), lut_type, k, qblk, int(runs),
-        block_of.shape[0], n_chunks, steps, pair_s.data_ptr(),
-        pair_of.data_ptr(), part_s.data_ptr(), part_k.data_ptr(),
+        idx["meta"].data_ptr(), idx["tile_pairs"].data_ptr(), Q, T, blk, m,
+        ksub, steps_per_probe, int(per_probe), lut_type, k, p["qt"],
+        idx["chunk_pairs"], idx["n_chunks"], groups, part_s.data_ptr(),
+        part_k.data_ptr(), slice_s.data_ptr(), slice_k.data_ptr(),
         out_s.data_ptr(), out_i.data_ptr(), stream)
     _build.check(lib, code,
                  "ivf_adc_run_resident" if runs else "ivf_adc_blocked")
@@ -327,8 +495,8 @@ def _grouped_cuda(bucket_codes, bucket_ids, visit, sched, luts, coarse, *,
 def ivf_adc_blocked_cuda(bucket_codes, bucket_ids, visit, sched, luts, coarse,
                          *, k: int, steps_per_probe: int = 1,
                          lut_dtype: str = "float32"):
-    """Launch the blocked grid (one program per schedule group). Arguments
-    and result as ``ivf_adc_blocked_plain``."""
+    """Launch the blocked grid (a block fetched once per tile and schedule
+    group). Arguments and result as ``ivf_adc_blocked_plain``."""
     out = _grouped_cuda(bucket_codes, bucket_ids, visit, sched, luts, coarse,
                         k=k, steps_per_probe=steps_per_probe,
                         lut_dtype=lut_dtype, runs=False)
@@ -339,8 +507,8 @@ def ivf_adc_blocked_cuda(bucket_codes, bucket_ids, visit, sched, luts, coarse,
 def ivf_adc_run_resident_cuda(bucket_codes, bucket_ids, visit, sched, luts,
                               coarse, *, k: int, steps_per_probe: int = 1,
                               lut_dtype: str = "float32"):
-    """Launch the run-resident grid (one program per distinct block).
-    Arguments and result as ``ivf_adc_run_resident_plain``."""
+    """Launch the run-resident grid (a block fetched once per tile and
+    schedule run). Arguments and result as ``ivf_adc_run_resident_plain``."""
     out = _grouped_cuda(bucket_codes, bucket_ids, visit, sched, luts, coarse,
                         k=k, steps_per_probe=steps_per_probe,
                         lut_dtype=lut_dtype, runs=True)

@@ -127,13 +127,15 @@ def adc_topk(codes, luts, *, k: int, valid=None, extra_codes=None,
 def build_schedule(visit, *, qblk: int, pad_block=None) -> dict:
     """The grouped grids' inputs for one visit table: the segmented
     schedule (``sb``, ``sq``, ``st``), its runs (``rb``, ``rs``, ``rl``),
-    the group -> run map ``grun``, and the real group and run counts."""
+    the group -> run map ``grun``, and the real pair, group and run
+    counts. The grouped kernels add their pair index by tile
+    (``kernels.ivf_adc.tile_index``) under ``tile_index``."""
     sb, sq, st, s2 = build_block_schedule(visit, qblk=qblk,
                                           pad_block=pad_block)
     rb, rs, rl = s2["runs"]
     return {"sb": sb, "sq": sq, "st": st, "rb": rb, "rs": rs, "rl": rl,
-            "grun": s2["grun"], "groups": s2["groups"],
-            "n_runs": s2["n_runs"]}
+            "grun": s2["grun"], "pairs": s2["pairs"],
+            "groups": s2["groups"], "n_runs": s2["n_runs"]}
 
 
 def _build_schedule_cached(visit, qblk, pad_block, cache, base_key, Q, T):
@@ -179,7 +181,9 @@ def ivf_adc_topk(bucket_codes, bucket_ids, visit, luts, *, k: int,
     once for the batch), or 'auto'. 'auto' reads the cheap sharing probe
     (``visit_sharing``) and asks the measured autotuner (``LEDGER``, or
     the ``AutoTuner`` passed as ``autotune``) for the grid; while a key is
-    still being measured, each batch times one candidate grid.
+    still being measured, each batch times one candidate grid as it is
+    served, a grouped grid's schedule and pair index included where the
+    schedule cache misses.
     ``autotune=False`` uses the untuned constants instead. A grouped grid
     runs only where the (Q+1, T, blk) board fits BLOCKED_MAX_BOARD_SLOTS,
     as in the reference. ``sched_cache``/``sched_key``: the plan ledger's
@@ -232,41 +236,49 @@ def ivf_adc_topk(bucket_codes, bucket_ids, visit, luts, *, k: int,
                     if probe_cfg[1]:
                         eff_qblk = probe_cfg[1]
                     sstats["probe"] = True
-    sched = None
-    if grid != "per_query":
-        sched = _build_schedule_cached(visit, eff_qblk, pad_block,
-                                       sched_cache, sched_key, Q, T)
-        sstats["groups"] = sched["groups"]
-        sstats["qblk"] = eff_qblk
-    sstats["mode"] = grid
-    if stats is not None:
-        stats.update(sstats)
     kw = dict(k=k, steps_per_probe=steps_per_probe, lut_dtype=lut_dtype,
               use_kernel=use_kernel)
 
-    def _run(g):
+    def _schedule():
+        return _build_schedule_cached(visit, eff_qblk, pad_block,
+                                      sched_cache, sched_key, Q, T)
+
+    def _run(g, sched):
         if g == "per_query":
             return _ivf.ivf_adc(bucket_codes, bucket_ids, visit, luts, coarse,
                                 **kw)
         fn = _ivf.ivf_adc_blocked if g == "blocked" else _ivf.ivf_adc_run_resident
         return fn(bucket_codes, bucket_ids, visit, sched, luts, coarse, **kw)
 
+    grouped = grid != "per_query"
     if probe_cfg is not None:
-        # a measured probe: a warm-up call, then one timed call, each ending
-        # in a synchronize (the schedule is built already, so its sort is
-        # the same for every grouped candidate and leaves the comparison)
-        _run(grid)
+        # a measured probe times the dispatch as this batch is served: a
+        # grouped grid's schedule from the cache, or, on a miss, built with
+        # its pair index, then the kernel. The warm-up call runs on a
+        # schedule kept out of the cache, so the timed call misses exactly
+        # where the batch would have; each call ends in a synchronize. The
+        # sharing probe above is paid by every candidate alike.
+        _run(grid, build_schedule(visit, qblk=eff_qblk, pad_block=pad_block)
+             if grouped else None)
         _synchronize(visit)
         t0 = time.perf_counter()
-        s, i = _run(grid)
+        sched = _schedule() if grouped else None
+        s, i = _run(grid, sched)
         _synchronize(visit)
         tuner.record(tkey, probe_cfg, sstats["sharing"],
                      time.perf_counter() - t0)
         entry = tuner.lookup(tkey)
-        if entry is not None and stats is not None:
-            stats["crossover"] = entry["crossover"]
+        if entry is not None:
+            sstats["crossover"] = entry["crossover"]
     else:
-        s, i = _run(grid)
+        sched = _schedule() if grouped else None
+        s, i = _run(grid, sched)
+    if grouped:
+        sstats["groups"] = sched["groups"]
+        sstats["qblk"] = eff_qblk
+    sstats["mode"] = grid
+    if stats is not None:
+        stats.update(sstats)
     return normalize_knockouts(s, i)
 
 

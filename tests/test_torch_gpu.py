@@ -307,6 +307,179 @@ def test_grouped_kernels_match_plain_and_per_query(metric, lut_dtype, mode,
                                 **kw))
 
 
+def _grouped_problem(rng, dev, *, Q, m, per_probe, B=400, blk=32, nprobe=4,
+                     spp=16, ksub=256, pad_share=0.3):
+    """Synthetic grouped-grid inputs: random codes (a tenth of the slots
+    -1), a (Q, nprobe * spp) visit table over B - 1 blocks with a share of
+    pad visits (block B - 1, all -1), random tables and coarse terms."""
+    codes = rng.integers(0, ksub, (B, blk, m)).astype(np.uint8)
+    ids = np.arange(B * blk, dtype=np.int32).reshape(B, blk)
+    ids[rng.random((B, blk)) < 0.1] = -1
+    ids[-1] = -1
+    T = nprobe * spp
+    visit = rng.integers(0, B - 1, (Q, T)).astype(np.int32)
+    visit[rng.random((Q, T)) < pad_share] = B - 1
+    shape = (Q, nprobe, m, ksub) if per_probe else (Q, m, ksub)
+    luts = rng.normal(size=shape).astype(np.float32)
+    coarse = rng.normal(size=(Q, nprobe)).astype(np.float32)
+    t = [torch.as_tensor(x, device=dev) for x in (codes, ids, visit, luts)]
+    return t, dict(coarse=torch.as_tensor(coarse, device=dev),
+                   steps_per_probe=spp, pad_block=B - 1)
+
+
+def _grouped_same(args, kw, mode, qblk):
+    """A grouped kernel against its plain version and the per-query
+    kernel, bit for bit."""
+    got = ops.ivf_adc_topk(*args, mode=mode, qblk=qblk, use_kernel=True, **kw)
+    _same(got, ops.ivf_adc_topk(*args, mode=mode, qblk=qblk,
+                                use_kernel=False, **kw))
+    _same(got, ops.ivf_adc_topk(*args, mode="per_query", use_kernel=True,
+                                **kw))
+
+
+@pytest.mark.parametrize("k", [1, 32, 256])
+@pytest.mark.parametrize("per_probe", [False, True])
+@pytest.mark.parametrize("m", [64, 8, 7])
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16", "int8"])
+def test_grouped_kernels_at_the_tile_edges(lut_dtype, m, per_probe, k):
+    """Q one below, at and one above the plan's tile width (table rows a
+    block) and the widest that fits, at the plan's width and forced to the
+    widest (a ragged last tile), qblk 4, 8, 16, both grids, against the
+    plain versions and the per-query kernel: m = 64 streams swizzled
+    16-byte chunks, m = 8 reads words, m = 7 bytes."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ivf_adc as K
+    dev = _card()
+    rng = np.random.default_rng(5)
+    nprobe, spp = 4, 16
+    card = _build.card(dev)
+    cw = 1 if per_probe else nprobe
+    top = K.fit_tile(m, 256, 32, k, lut_dtype, card, cw)
+    width = K.plan_width(m, 256, 32, k, lut_dtype, card, cw)
+    grids = ((False, K.ivf_adc_blocked_plain),
+             (True, K.ivf_adc_run_resident_plain))
+    for Q in sorted({max(1, w + d) for w in (width, top) for d in (-1, 0, 1)}):
+        args, kw = _grouped_problem(rng, dev, Q=Q, m=m, per_probe=per_probe,
+                                    nprobe=nprobe, spp=spp)
+        kw["coarse"][0, 1] = -1e30
+        codes, ids, visit, luts = args
+        call = dict(k=k, steps_per_probe=spp, lut_dtype=lut_dtype)
+        want = ops.ivf_adc_topk(*args, mode="per_query", use_kernel=True,
+                                **kw, k=k, lut_dtype=lut_dtype)
+        for qblk in (4, 8, 16):
+            sched = ops.build_schedule(visit, qblk=qblk,
+                                       pad_block=kw["pad_block"])
+            for runs, plain in grids:
+                ref = ops.normalize_knockouts(*plain(
+                    codes, ids, visit, sched, luts, kw["coarse"], **call))
+                _same(ref, want)
+                for qt in (None, top):
+                    got = ops.normalize_knockouts(*K._grouped_cuda(
+                        codes, ids, visit, sched, luts, kw["coarse"],
+                        runs=runs, qt=qt, **call))
+                    _same(got, ref)
+
+
+@pytest.mark.parametrize("blk,m", [(8, 7), (6, 8), (12, 5)])
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16", "int8"])
+def test_grouped_kernels_byte_staged_blocks(lut_dtype, blk, m):
+    """Blocks whose codes are not a whole number of 16-byte chunks, or
+    whose slot ids are not (blk % 4), are staged byte by byte."""
+    dev = _card()
+    rng = np.random.default_rng(9)
+    for per_probe in (False, True):
+        args, kw = _grouped_problem(rng, dev, Q=10, m=m, blk=blk,
+                                    per_probe=per_probe)
+        kw.update(k=32, lut_dtype=lut_dtype)
+        for mode in ("blocked", "run_resident"):
+            _grouped_same(args, kw, mode, 8)
+
+
+@pytest.mark.parametrize("mode", ["blocked", "run_resident"])
+def test_grouped_kernels_empty_tiles_and_knocked_out_queries(mode):
+    """A tile with no scheduled pair (its queries visit only the pad
+    block), a query whose every probe is knocked out, and an adaptive
+    probe mask (steps of dropped probes to the pad block, their coarse
+    term NEG_INF; probe 0 kept)."""
+    dev = _card()
+    rng = np.random.default_rng(6)
+    for per_probe in (False, True):
+        args, kw = _grouped_problem(rng, dev, Q=24, m=64,
+                                    per_probe=per_probe)
+        codes, ids, visit, luts = args
+        visit[:6] = ids.shape[0] - 1          # tiles 0 (and 1): no pair
+        kw["coarse"][9] = -1e30               # every probe knocked out
+        drop = torch.as_tensor(rng.random((24, 4)) < 0.5, device=dev)
+        drop[:, 0] = False
+        visit[torch.repeat_interleave(drop, 16, dim=1)] = ids.shape[0] - 1
+        kw["coarse"][drop] = -1e30
+        kw.update(k=32, lut_dtype="float32")
+        _grouped_same((codes, ids, visit, luts), kw, mode, 8)
+        s, i = ops.ivf_adc_topk(codes, ids, visit, luts, mode=mode, qblk=8,
+                                use_kernel=True, **kw)
+        assert bool(torch.isneginf(s[:6]).all()) and bool((i[9] == -1).all())
+
+
+def test_grouped_engine_adaptive_nprobe_on_the_card():
+    """ivf_pq with adaptive probing answers the same under every grid."""
+    dev = _card()
+    rng = np.random.default_rng(7)
+    centres = rng.normal(size=(30, 64)).astype(np.float32)
+    corpus = centres[rng.integers(0, 30, 20_000)] + rng.normal(
+        size=(20_000, 64)).astype(np.float32)
+    q = torch.as_tensor(corpus[:33], device=dev)
+    db = VectorDB("ivf_pq", metric="l2", m=16, refine=0, nprobe=6,
+                  adaptive_nprobe=2.0, adc_mode="per_query",
+                  device=dev).load(corpus)
+    want = db.query(q, k=20)
+    assert db.adc_stats["eff_nprobe_sum"] < 6
+    for mode in ("blocked", "run_resident"):
+        db.index.adc_mode = mode
+        _same(db.query(q, k=20), want)
+
+
+def test_grouped_plan_shared_memory_matches_the_kernel():
+    """grouped_plan's byte count (Python) equals the kernel's tile_layout
+    (C), which carves the block."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ivf_adc as K
+    _card()
+    lib = _build.load("ivf_adc", K._SIGNATURES)
+    for dt_i, dt in enumerate(K.LUT_DTYPES):
+        for qt in (1, 3, 16):
+            for m, ksub, blk in ((64, 256, 32), (7, 32, 8), (8, 256, 128)):
+                for k, cw in ((1, 1), (32, 8), (256, 3)):
+                    assert lib.ivf_adc_grouped_smem(dt_i, qt, m, ksub, blk,
+                                                    k, cw) == \
+                        K.tile_smem_bytes(dt, qt, m, ksub, blk, k, cw)
+
+
+def test_grouped_cuda_allocates_no_pair_buffers():
+    """Once the pair index is cached with the schedule, a grouped call
+    allocates only its chunk boards and result: less than the (Q, T) pair
+    map or the (G, qblk, blk) pair scores of a design that writes every
+    pair's scores out."""
+    from repro_torch.kernels import ivf_adc as K
+    dev = _card()
+    rng = np.random.default_rng(8)
+    args, kw = _grouped_problem(rng, dev, Q=64, m=16, per_probe=False,
+                                B=3000, nprobe=8, spp=256)
+    codes, ids, visit, luts = args
+    sched = ops.build_schedule(visit, qblk=8, pad_block=kw["pad_block"])
+    G, qblk = sched["sq"].shape
+    call = dict(k=4, steps_per_probe=kw["steps_per_probe"])
+    for fn in (K.ivf_adc_blocked_cuda, K.ivf_adc_run_resident_cuda):
+        fn(codes, ids, visit, sched, luts, kw["coarse"], **call)  # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(codes, ids, visit, sched, luts, kw["coarse"], **call)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - base
+        assert extra < min(visit.numel() * 4, G * qblk * ids.shape[1] * 4), \
+            extra
+
+
 def test_engines_launch_their_kernels_on_the_card():
     """VectorDB("pq") runs pq_adc; ivf_pq under each forced grid runs that
     grid's kernel and answers the same."""

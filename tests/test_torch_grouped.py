@@ -274,6 +274,48 @@ def test_auto_probes_each_candidate_then_decides(rng):
     assert tuner.lookup(("plain", 8, 32, 8, "float32")) is not None
 
 
+@pytest.mark.parametrize("cached", [False, True])
+def test_auto_probe_times_the_dispatch_as_served(rng, monkeypatch, cached):
+    """A grouped probe's timed call is the dispatch the batch gets: where
+    the schedule cache misses it includes building the schedule, where the
+    batch is a repeat (a hit) it does not. The schedule build is slowed by
+    a known delay so the recorded time shows which."""
+    import time as _time
+    codes, slots, visit, luts, coarse, spp = _problem(rng, per_probe=False)
+    args = (_t(codes), _t(slots), _t(visit), _t(luts))
+    kw = dict(k=10, coarse=_t(coarse), steps_per_probe=spp,
+              pad_block=slots.shape[0] - 1)
+    cache = tivf.ScheduleCache()
+    if cached:  # the batch was served before by a grouped grid at qblk 8
+        ops.ivf_adc_topk(*args, mode="blocked", qblk=8, sched_cache=cache,
+                         sched_key=("b",), **kw)
+    delay = 0.05
+    build = ops.build_schedule
+
+    def slow_build(*a, **k):
+        _time.sleep(delay)
+        return build(*a, **k)
+
+    monkeypatch.setattr(ops, "build_schedule", slow_build)
+    recorded = []
+
+    class Tuner(ttune.AutoTuner):
+        def record(self, key, candidate, sharing, seconds):
+            recorded.append((candidate, seconds))
+            super().record(key, candidate, sharing, seconds)
+
+    tuner = Tuner(reps=1)
+    for _ in range(2):  # per_query, then blocked at qblk 8
+        stats = {}
+        ops.ivf_adc_topk(*args, stats=stats, autotune=tuner,
+                         sched_cache=cache, sched_key=("b",), **kw)
+        assert stats["probe"]
+    (c0, t0), (c1, t1) = recorded
+    assert c0 == ("per_query", 0) and t0 < delay
+    assert c1 == ("blocked", 8) and (t1 < delay if cached else t1 >= delay)
+    assert cache.stats["hits"] == (1 if cached else 0)
+
+
 def test_untuned_constants_pick_blocked(rng):
     """autotune=False: blocked at Q >= 32 and sharing >= 2, else per-query."""
     codes, slots, visit, luts, coarse, spp = _problem(rng, per_probe=False,
