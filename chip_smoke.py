@@ -24,8 +24,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      ``ivf_adc_blocked`` and ``ivf_adc_run_resident`` for {dot, l2,
      cosine} x {float32, bfloat16, int8} x Q in {1, 32, 512} (the grouped
      grids at qblk 8, and 4 and 16 for float32 dot), each grouped result
-     also against the per-query kernel's, bit for bit; the grouped grids
-     on synthetic inputs at Q one below, at and one above the plan's tile
+     also against the per-query kernel's, bit for bit; the per-query
+     kernel (the plan's variant and the direct-read one, with and without
+     the pad block) on synthetic inputs with 0, 30, 60 and 100 % of the
+     steps on the pad block for each table type and shared and per-probe
+     tables, one real step among 4,095, a query on the pad block alone and
+     one with every probe knocked out at k in {1, 256}, m = 7 and m = 210
+     float32 at k = 256, against its plain version and both grouped
+     kernels (but at m = 210, which no tile fits), bit for bit; the
+     grouped grids on synthetic inputs at Q one below, at and one above
+     the plan's tile
      width and the widest that fits (at the plan's width and forced to the
      widest: a ragged last tile)
      for each table type, shared and per-probe tables, m in {64, 8, 7}
@@ -51,12 +59,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      then ``VectorDB("ivf_pq")`` served under adc_mode auto (the default),
      per_query, blocked and run_resident from one trained state (every
      grid's ids and scores equal per_query's bit for bit), and scan_all at
-     Q = 32, the three ivf_adc kernels at Q = 1, 32, 512 (the grouped ones
-     beside their times before this design) and on the hot set (32 corpus
-     rows x
-     16 noisy copies, shuffled: its sharing factor, all three grids at
-     Q = 32 and 512, the grouped ones bit-equal to their plain versions and
-     the per-query kernel), then ``VectorDB("lsh")`` at the reference
+     Q = 32, the three ivf_adc kernels at Q = 1, 32, 512 beside their
+     times before this design, each kernel's device time by the profiler
+     (scan and merges) and the visit steps the per-query kernel scored,
+     counted by the kernel, against the real ones and Q x T, and on the
+     hot set (32 corpus rows x 16 noisy copies, shuffled: its sharing
+     factor, all three grids at Q = 32 and 512, the grouped ones bit-equal
+     to their plain versions and the per-query kernel, the per-query one
+     to its plain version at Q = 32), then ``VectorDB("lsh")`` at the reference
      defaults (128 bits, 4 tables, shortlist 64) with the earlier engines
      dropped, its kernel
      path's ids and scores equal to the plain path's at Q = 1 and 32, and
@@ -120,10 +130,11 @@ POPC_PER_CLOCK_PER_SM = 16
 LOOKUPS_PER_CLOCK_PER_SM = 32
 # The redesigned kernels' times before this design (PERF.md section 6:
 # chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W; pq_adc float32 table,
-# k = 32; hamming_shortlist L = 64; the grouped ivf_adc grids float32
-# tables, k = 32, qblk = 8), printed beside this run's
+# k = 32; hamming_shortlist L = 64; the ivf_adc grids float32 tables,
+# k = 32, the grouped ones at qblk = 8), printed beside this run's
 EARLIER_MS = {"pq_adc": {1: 1.675, 32: 42.960, 512: 757.685},
               "hamming_shortlist": {1: 0.715, 32: 8.822, 512: 46.098},
+              "ivf_adc": {1: 0.127, 32: 0.286, 512: 2.043},
               "ivf_adc_blocked": {1: 0.254, 32: 0.747, 512: 4.357},
               "ivf_adc_run_resident": {1: 0.277, 32: 0.774, 512: 4.515}}
 PQ_TILE_MS = (8, 64, 7)        # phase 3's pq_adc sweep: m = 7 is byte-staged
@@ -131,6 +142,7 @@ PQ_TILE_QS = (1, 2, 3, 9, 33, 512)
 PQ_TILE_KS = (1, 32, 256)
 GROUPED_TILE_MS = (64, 8, 7)   # phase 3's grouped sweep: 16-byte, word, byte reads
 GROUPED_QBLKS = (4, 8, 16)
+PAD_SHARES = (0.0, 0.3, 0.6, 1.0)  # phase 3's per-query sweep: pad steps
 HOT_ROWS, HOT_COPIES = 32, 16  # phase 4's hot set (hot_queries)
 TIE_ROWS = 150_011             # phase 3's hamming tie case
 HAMMING_SHAPES = ((4, 4), (8, 2), (1, 8))   # (tables, words): 128, 16, 256 bits
@@ -391,11 +403,11 @@ def bit_equal(kern, plain, label: str) -> float:
 def compare_ivf(bucket_codes, bucket_ids, visit, luts, coarse, *, k, spp,
                 lut_dtype, label) -> float:
     """ops.ivf_adc_topk's per-query grid on the kernel and on the plain
-    version."""
+    version, the last block the all-pad one, as the engine passes it."""
     from repro_torch.kernels import ops
     args = (bucket_codes, bucket_ids, visit, luts)
     kw = dict(k=k, coarse=coarse, steps_per_probe=spp, lut_dtype=lut_dtype,
-              mode="per_query")
+              mode="per_query", pad_block=bucket_ids.shape[0] - 1)
     return bit_equal(ops.ivf_adc_topk(*args, use_kernel=True, **kw),
                      ops.ivf_adc_topk(*args, use_kernel=False, **kw), label)
 
@@ -561,6 +573,7 @@ def phase_mid(seed: int, device, rank: int) -> None:
     del corpus, queries
     torch.cuda.empty_cache()
     pq_tiles_mid(seed, device)
+    per_query_mid(seed, device)
     grouped_tiles_mid(seed, device)
     hamming_mid(seed, device)
     flash_mid(seed, device)
@@ -679,7 +692,7 @@ def grouped_case(codes, ids, visit, luts, coarse, spp, *, k, lut_dtype, qblk,
     from repro_torch.kernels import ops
     kw = dict(k=k, steps_per_probe=spp, lut_dtype=lut_dtype)
     per_query = ops.normalize_knockouts(*K.ivf_adc_cuda(
-        codes, ids, visit, luts, coarse, **kw))
+        codes, ids, visit, luts, coarse, pad_block=ids.shape[0] - 1, **kw))
     sched = ops.build_schedule(visit, qblk=qblk, pad_block=ids.shape[0] - 1)
     n = 0
     for runs, plain, name in (
@@ -699,6 +712,107 @@ def grouped_case(codes, ids, visit, luts, coarse, spp, *, k, lut_dtype, qblk,
                                      "kernel and plain version differ")
             n += 1
     return n
+
+
+def per_query_case(codes, ids, visit, luts, coarse, spp, *, k, lut_dtype,
+                   label, grouped=True) -> int:
+    """The per-query kernel (the plan's variant, and the direct-read one
+    forced, each with the pad block and with none given) against its plain
+    version and, where a tile fits, both grouped kernels at qblk 8, bit for
+    bit; raises on the first difference. Returns the results checked."""
+    from repro_torch.kernels import ivf_adc as K
+    from repro_torch.kernels import ops
+    kw = dict(k=k, steps_per_probe=spp, lut_dtype=lut_dtype)
+    pad = ids.shape[0] - 1
+    want = ops.normalize_knockouts(*K.ivf_adc_plain(codes, ids, visit, luts,
+                                                    coarse, **kw))
+    n = 0
+    for ring in (None, False):
+        for pad_block in (pad, None):
+            got = ops.normalize_knockouts(*K._per_query_cuda(
+                codes, ids, visit, luts, coarse, ring=ring,
+                pad_block=pad_block, **kw))
+            if not same_result(got, want):
+                raise AssertionError(f"ivf_adc {label} ring={ring} pad_block="
+                                     f"{pad_block}: kernel and plain version "
+                                     "differ")
+            n += 1
+    if grouped:
+        sched = ops.build_schedule(visit, qblk=8, pad_block=pad)
+        for name, fn in (("blocked", K.ivf_adc_blocked_cuda),
+                         ("run_resident", K.ivf_adc_run_resident_cuda)):
+            got = ops.normalize_knockouts(*fn(codes, ids, visit, sched, luts,
+                                              coarse, **kw))
+            if not same_result(got, want):
+                raise AssertionError(f"ivf_adc_{name} {label}: differs from "
+                                     "the per-query grid")
+            n += 1
+    return n
+
+
+def per_query_mid(seed: int, device) -> None:
+    """The per-query kernel on synthetic inputs (4,000 blocks of 32 slots),
+    bit for bit against its plain version and both grouped kernels: a share
+    of the steps on the pad block in PAD_SHARES, for each table type,
+    shared and per-probe tables; then one real step among 4,095 pad steps,
+    a query that visits only the pad block and one whose every probe is
+    knocked out, k = 1 and 256, m = 7 (byte reads) and m = 210 float32 at
+    k = 256 (the direct-read variant; no grouped tile fits it)."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+    t0 = time.perf_counter()
+    total = 0
+    for pad_share in PAD_SHARES:
+        for lut_dtype in ("float32", "bfloat16", "int8"):
+            for per_probe in (False, True):
+                *args, spp = grouped_inputs(gen, device, Q=40, m=M_SUBSPACES,
+                                            per_probe=per_probe,
+                                            pad_share=pad_share)
+                args[4][3, 2] = -1e30  # a knocked-out probe
+                total += per_query_case(
+                    *args, spp, k=32, lut_dtype=lut_dtype,
+                    label=f"pad share {pad_share} {lut_dtype} "
+                          f"per_probe={per_probe}")
+    log(f"  ivf_adc per-query kernel at pad shares {PAD_SHARES}, each table "
+        "type, shared and per-probe tables: equal to its plain version and "
+        "both grouped kernels bit for bit")
+    for per_probe in (False, True):
+        *args, spp = grouped_inputs(gen, device, Q=1, m=M_SUBSPACES, spp=512,
+                                    per_probe=per_probe)
+        codes, ids, visit = args[:3]
+        visit[:] = ids.shape[0] - 1
+        visit[0, 3 * 512 + 5] = 17    # one real step among 4,095
+        for k in (1, 32):
+            total += per_query_case(*args, spp, k=k, lut_dtype="float32",
+                                    label=f"one real step per_probe="
+                                          f"{per_probe} k={k}")
+        *args, spp = grouped_inputs(gen, device, Q=12, m=M_SUBSPACES,
+                                    per_probe=per_probe)
+        args[2][4] = args[1].shape[0] - 1   # a query on the pad block alone
+        args[4][7] = -1e30                  # every probe knocked out
+        for lut_dtype in ("float32", "bfloat16", "int8"):
+            for k in (1, 256):
+                total += per_query_case(
+                    *args, spp, k=k, lut_dtype=lut_dtype,
+                    label=f"all-pad and knocked-out queries {lut_dtype} "
+                          f"per_probe={per_probe} k={k}")
+        for lut_dtype in ("float32", "bfloat16", "int8"):
+            *args, spp = grouped_inputs(gen, device, Q=9, m=7,
+                                        per_probe=per_probe)
+            total += per_query_case(*args, spp, k=32, lut_dtype=lut_dtype,
+                                    label=f"m=7 {lut_dtype} "
+                                          f"per_probe={per_probe}")
+        *args, spp = grouped_inputs(gen, device, Q=5, m=210,
+                                    per_probe=per_probe)
+        total += per_query_case(*args, spp, k=256, lut_dtype="float32",
+                                label=f"m=210 float32 k=256 "
+                                      f"per_probe={per_probe}",
+                                grouped=False)
+    log(f"  ivf_adc per-query kernel: one real step among 4,095, all-pad and "
+        f"knocked-out queries, k in (1, 256), m = 7 and m = 210 float32 at "
+        f"k = 256 (direct reads) equal too; {total} results in "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
 
 def grouped_tiles_mid(seed: int, device) -> None:
@@ -1249,7 +1363,8 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
             if mode is None:
                 def fn():
                     return cuda(codes, ids, visit, luts, coarse, k=k,
-                                steps_per_probe=spp)
+                                steps_per_probe=spp,
+                                pad_block=ids.shape[0] - 1)
             else:
                 def fn():
                     return cuda(codes, ids, visit, sched, luts, coarse, k=k,
@@ -1264,6 +1379,8 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
             log(f"  {name} kernel Q={Q}: {ms:.3f} ms (bound {b[0]:.3f} ms, "
                 f"{b[1]}{before}); device us a call by kernel (profiler): "
                 + ", ".join(f"{n} {u:.1f}" for n, u in dev_us.items()))
+            if mode is None:
+                walked_steps(codes, ids, visit, luts, coarse, spp, k, Q)
             if Q == 32:
                 args = ((codes, ids, visit, luts, coarse) if mode is None
                         else (codes, ids, visit, sched, luts, coarse))
@@ -1349,7 +1466,8 @@ def hot_set(idx, corpus, seed: int, device, grids: dict,
             if mode is None:
                 times[name] = gpu_ms(lambda: cuda(codes, ids, visit, luts,
                                                   coarse, k=k,
-                                                  steps_per_probe=spp), 5)
+                                                  steps_per_probe=spp,
+                                                  pad_block=pad), 5)
             else:
                 times[name] = gpu_ms(lambda: cuda(codes, ids, visit, sched,
                                                   luts, coarse, k=k,
@@ -1361,6 +1479,9 @@ def hot_set(idx, corpus, seed: int, device, grids: dict,
             f"{sched['groups']}, runs {sched['n_runs']}); "
             + ", ".join(f"{n} {t:.3f} ms" for n, t in times.items())
             + f" (bound {b[0]:.3f} ms, {b[1]})")
+        if Q < max(BATCHES):
+            compare_ivf(codes, ids, visit, luts, coarse, k=k, spp=spp,
+                        lut_dtype="float32", label=f"ivf_adc hot set Q={Q}")
         for mode in GROUPED:
             compare_grouped(codes, ids, visit, luts, coarse, k=k, spp=spp,
                             lut_dtype="float32", mode=mode, qblk=8,
@@ -1385,10 +1506,12 @@ def ivf_breakdown(idx, queries) -> None:
         visit, luts, coarse, _ = _ivf_probe_stage(*args, **kw)
         scan = gpu_ms(lambda: ops.ivf_adc_topk(
             idx.codes_bm, idx.bucket_ids, visit, luts, k=idx.refine,
-            coarse=coarse, steps_per_probe=idx.spp, mode="per_query"), 5)
+            coarse=coarse, steps_per_probe=idx.spp, mode="per_query",
+            pad_block=kw["pad_block"]), 5)
         _, cand = ops.ivf_adc_topk(idx.codes_bm, idx.bucket_ids, visit, luts,
                                    k=idx.refine, coarse=coarse,
-                                   steps_per_probe=idx.spp, mode="per_query")
+                                   steps_per_probe=idx.spp, mode="per_query",
+                                   pad_block=kw["pad_block"])
         rerank = gpu_ms(lambda: _exact_rerank(idx.corpus, idx.corpus_sq, cand,
                                               q, metric="dot", k=10), 5)
         log(f"  ivf_pq stages Q={Q}: probe stage {probe:.3f} ms, ivf_adc "
@@ -1519,6 +1642,33 @@ def lsh_breakdown(idx, queries) -> None:
                     5)
         log(f"  lsh stages Q={Q}: signatures {sig:.3f} ms, hamming_shortlist "
             f"{short:.3f} ms, re-rank {rr:.3f} ms (device ms, CUDA events)")
+
+
+def walked_steps(codes, ids, visit, luts, coarse, spp: int, k: int,
+                 Q: int) -> None:
+    """The visit steps the per-query kernel scored, counted by the kernel
+    itself, against the real steps of the visit table (neither on the pad
+    block nor in a knocked-out probe) and against Q x T; fails unless the
+    kernel scored exactly the real ones."""
+    import torch
+    from repro_torch.kernels import ivf_adc as K
+    pad = ids.shape[0] - 1
+    walked = torch.zeros(visit.shape[0], dtype=torch.int32,
+                         device=visit.device)
+    K._per_query_cuda(codes, ids, visit, luts, coarse, k=k,
+                      steps_per_probe=spp, lut_dtype="float32",
+                      pad_block=pad, walked=walked)
+    live = torch.repeat_interleave(coarse > 0.5 * -1e30, spp, dim=1)
+    real = (live & (visit != pad)).sum(1)
+    got, want = int(walked.sum()), int(real.sum())
+    log(f"  ivf_adc Q={Q}: the kernel scored {got} visit steps of "
+        f"{visit.numel()} (Q x T; {got / visit.numel():.1%}), "
+        f"{float(walked.float().mean()):.1f} a query (least "
+        f"{int(walked.min())}, most {int(walked.max())}); real steps "
+        f"{want}")
+    if not torch.equal(walked.long(), real):
+        raise AssertionError(f"ivf_adc Q={Q}: the kernel scored other steps "
+                             "than the real ones")
 
 
 def ivf_bound(ids, visit, luts, coarse, blk: int, m: int,

@@ -10,8 +10,9 @@
 //
 // G picks where the table (and the int8 scales) live: false for shared
 // memory (plain loads), true for device memory read through the read-only
-// cache (__ldg). Codes are uint8, read four at a time as 32-bit words when
-// m is a multiple of 4; kCodesG says whether they live in device memory.
+// cache (__ldg); adc_sum's GS, where it differs, for the scales alone.
+// Codes are uint8, read four at a time as 32-bit words when m is a
+// multiple of 4; kCodesG says whether they live in device memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -65,7 +66,7 @@ __device__ __forceinline__ float scale_of(const float* scales, int j) {
     return 0.f;
 }
 
-template <int DT, bool G, bool kCodesG>
+template <int DT, bool G, bool kCodesG, bool GS = G>
 __device__ __forceinline__ float adc_sum(const uint8_t* code, int m, long stride,
                                          const typename LutT<DT>::T* lut, const float* scales) {
   float acc = -0.0f;
@@ -77,13 +78,13 @@ __device__ __forceinline__ float adc_sum(const uint8_t* code, int m, long stride
       for (int u = 0; u < 4; ++u) {
         const int j = 4 * w + u;
         acc = __fadd_rn(acc, lut_term<DT, G>(lut, j * stride + ((v >> (8 * u)) & 0xff),
-                                             scale_of<DT, G>(scales, j)));
+                                             scale_of<DT, GS>(scales, j)));
       }
     }
   } else {
     for (int j = 0; j < m; ++j)
       acc = __fadd_rn(acc, lut_term<DT, G>(lut, j * stride + load<kCodesG>(code + j),
-                                           scale_of<DT, G>(scales, j)));
+                                           scale_of<DT, GS>(scales, j)));
   }
   return acc;
 }

@@ -8,12 +8,12 @@
 // does not depend on the order the blocks of the grid ran in.
 //
 // Two kinds of board, each one warp's:
-//   * WarpBoard (topk_distance, ivf_adc): k entries in shared memory,
+//   * WarpBoard (topk_distance): k entries in shared memory,
 //     unsorted, with the worst entry's (score, key, slot) held in registers,
 //     the same in every lane. A candidate that beats the worst entry
 //     overwrites its slot and the warp finds the new worst. Only the final
 //     write sorts, by rank counting.
-//   * SortedBoard (pq_adc, hamming; their GateBoards and merges): the best
+//   * SortedBoard (pq_adc, hamming, ivf_adc; their boards and merges): the best
 //     32 E entries sorted in registers, candidates folded 32 at a time by
 //     bitonic networks, cheaper where many candidates enter.
 #pragma once

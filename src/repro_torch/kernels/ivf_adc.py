@@ -17,15 +17,21 @@ into (-inf, -1).
   * ``ivf_adc_run_resident``: over the same schedule's runs, each a
     distinct block.
 
-On the card the two grouped grids share one kernel (``ivf_adc_tiles``): a
-block keeps the tables of a tile of ``qt`` table rows (queries, or
-(query, probe) rows for per-probe tables) in shared memory and streams
-the code blocks of the tile's scheduled pairs past them, one fetch per
-(tile, group) in the blocked grid and per (tile, run) in the run-resident
-grid, folding scores straight into per-row boards. ``grouped_plan`` sizes
-the tile from the card's shared memory; ``tile_index`` buckets the
-schedule's pairs by tile (cached with the schedule). The plain versions
-gather and scatter as the reference's twins do.
+On the card the per-query grid (``ivf_adc_rows``) needs no schedule, no
+sort and no host sync: a block takes one table row (a query, or a
+(query, probe) row for per-probe tables) and the row's visit steps dealt to
+its chunk (``query_plan``, ``step_owners``), stages the row's table once
+and scores only the real steps, skipping the pad block's and those of
+knocked-out probes on the device. The two grouped grids share one kernel
+(``ivf_adc_tiles``): a block keeps the tables of a tile of ``qt`` table
+rows in shared memory and streams the code blocks of the tile's scheduled
+pairs past them, one fetch per (tile, group) in the blocked grid and per
+(tile, run) in the run-resident grid. ``grouped_plan`` sizes the tile from
+the card's shared memory; ``tile_index`` buckets the schedule's pairs by
+tile (cached with the schedule). Every grid streams its code blocks
+through per-warp cp.async rings, folds scores straight into per-row
+boards and ends in the same two-level merge. The plain versions gather
+and scatter as the reference's twins do.
 
 All three agree bit for bit, on the card and on the CPU (invariant 5 of
 docs/ARCHITECTURE.md). Table precisions as in ``kernels.pq_adc``.
@@ -48,19 +54,22 @@ LAUNCHES = _build.LaunchCounter("ivf_adc")
 LAUNCHES_BLOCKED = _build.LaunchCounter("ivf_adc_blocked")
 LAUNCHES_RUN_RESIDENT = _build.LaunchCounter("ivf_adc_run_resident")
 
-THREADS = 256   # threads of a grouped-grid tile block (kThreads)
+THREADS = 256   # threads of a per-query or tile block (kThreads)
 WARPS = THREADS // 32
 SEG_MAX = 16    # pairs one fetch serves at most (kSegMax); longer runs are cut
 MAX_QT = 16     # table rows a tile holds at most
 MIN_CHUNK_PAIRS = 8   # pairs a chunk at least: one a warp
 CHUNK_WAVES = 2       # waves of blocks the chunks of a batch's pairs make
 GROUPED_PLAN_KEYS = ("qt", "tiles", "smem", "blocks_per_sm", "slots")
+MIN_CHUNK_STEPS = 32  # visit steps a per-query chunk at least: four a warp
+QUERY_PLAN_KEYS = ("rows", "n_chunks", "ring", "smem", "blocks_per_sm",
+                   "groups")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "ivf_adc_launch": ([_P, _P, _P, _P, _P, _P] + [_I] * 11 + [_P] * 5, _I),
+    "ivf_adc_launch": ([_P] * 6 + [_I] * 13 + [_P] * 8, _I),
     "ivf_adc_grouped_launch": ([_P] * 8 + [_I] * 13 + [_P] * 7, _I),
-    "ivf_adc_smem_bytes": ([_I, _I, _I, _I], ctypes.c_size_t),
+    "ivf_adc_query_smem": ([_I] * 6, ctypes.c_size_t),
     "ivf_adc_grouped_smem": ([_I] * 7, ctypes.c_size_t),
 }
 
@@ -222,16 +231,6 @@ def ivf_adc_run_resident_plain(bucket_codes, bucket_ids, visit, sched, luts,
     return bs, torch.where((bs <= 0.5 * NEG_INF) | (pos < 0), -1, bi)
 
 
-def _chunks(Q: int, T: int, device) -> tuple:
-    """(n_chunks, steps_per_chunk): enough (query, chunk) blocks to fill
-    the SMs about four times over, at least 8 visit steps (one a warp)
-    a chunk."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    n = max(1, min(-(-T // 8), -(-4 * sms // Q), 65535))
-    steps = -(-T // n)
-    return -(-T // steps), steps
-
-
 def _kernel_inputs(bucket_codes, bucket_ids, visit, luts, coarse, k: int,
                    steps_per_probe: int, lut_dtype: str):
     """Check what every grid's kernel takes and make it contiguous:
@@ -260,40 +259,65 @@ def _kernel_inputs(bucket_codes, bucket_ids, visit, luts, coarse, k: int,
             coarse.float().contiguous(), LUT_DTYPES.index(lut_dtype))
 
 
-def ivf_adc_cuda(bucket_codes, bucket_ids, visit, luts, coarse, *, k: int,
-                 steps_per_probe: int = 1, lut_dtype: str = "float32"):
-    """Launch the per-query kernel: the (query, chunk of visit steps)
-    pass, then the merge of the chunk boards. Arguments and result as
-    ``ivf_adc_plain``."""
+def _per_query_cuda(bucket_codes, bucket_ids, visit, luts, coarse, *, k: int,
+                    steps_per_probe: int, lut_dtype: str, pad_block=None,
+                    ring=None, walked=None):
+    """Launch the per-query kernel, then the merge of each query's chunk
+    boards. ``ring`` forces the code ring (True) or the direct-read variant
+    (False) for comparisons on the card; ``walked``, a (Q,) int32 tensor of
+    zeros, receives the visit steps the kernel scored a query. Counts no
+    launch (``ivf_adc_cuda`` does)."""
     codes, ids, visit, table, scales, coarse, lut_type = _kernel_inputs(
         bucket_codes, bucket_ids, visit, luts, coarse, k, steps_per_probe,
         lut_dtype)
+    codes, ids, table = (_build.aligned(x) for x in (codes, ids, table))
     dev = visit.device
     B, blk, m = codes.shape
     Q, T = visit.shape
     ksub = luts.shape[-1]
-    lib = _build.load("ivf_adc", _SIGNATURES)
-    smem = lib.ivf_adc_smem_bytes(lut_type, m, ksub, k)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"an m={m}, ksub={ksub} {lut_dtype} table with k={k} "
-                         f"needs {smem} bytes of shared memory a block; the "
-                         f"card allows {limit}")
-    n_chunks, steps = _chunks(Q, T, dev)
-    part_s = torch.empty((Q, n_chunks, k), dtype=torch.float32, device=dev)
-    part_k = torch.empty((Q, n_chunks, k), dtype=torch.int32, device=dev)
+    nprobe = T // steps_per_probe
+    per_probe = luts.dim() == 4
+    if pad_block is not None and not 0 <= int(pad_block) < B:
+        raise ValueError(f"pad_block {pad_block} is not a block id in "
+                         f"0..{B - 1}")
     out_s = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    if Q == 0:
+        return out_s, out_i
+    p = _build.cached_plan(query_plan, dev, Q, T, steps_per_probe, per_probe,
+                           m, ksub, blk, k, lut_dtype, ring)
+    lib = _build.load("ivf_adc", _SIGNATURES)
+    n_parts = (nprobe if per_probe else 1) * p["n_chunks"]
+    part_s = torch.empty((Q, n_parts, k), dtype=torch.float32, device=dev)
+    part_k = torch.empty((Q, n_parts, k), dtype=torch.int32, device=dev)
+    slice_s = torch.empty((Q, p["groups"], k), dtype=torch.float32,
+                          device=dev)
+    slice_k = torch.empty((Q, p["groups"], k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.ivf_adc_launch(
         codes.data_ptr(), ids.data_ptr(), visit.data_ptr(), table.data_ptr(),
         None if scales is None else scales.data_ptr(), coarse.data_ptr(),
-        Q, T, blk, m, ksub, steps_per_probe, int(luts.dim() == 4), lut_type,
-        k, n_chunks, steps, part_s.data_ptr(), part_k.data_ptr(),
-        out_s.data_ptr(), out_i.data_ptr(), stream)
+        Q, T, blk, m, ksub, steps_per_probe, int(per_probe), lut_type, k,
+        p["n_chunks"], int(p["ring"]),
+        -1 if pad_block is None else int(pad_block), p["groups"],
+        part_s.data_ptr(), part_k.data_ptr(), slice_s.data_ptr(),
+        slice_k.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        None if walked is None else walked.data_ptr(), stream)
     _build.check(lib, code, "ivf_adc")
-    LAUNCHES.n += 1
     return out_s, out_i
+
+
+def ivf_adc_cuda(bucket_codes, bucket_ids, visit, luts, coarse, *, k: int,
+                 steps_per_probe: int = 1, lut_dtype: str = "float32",
+                 pad_block=None):
+    """Launch the per-query grid. ``pad_block``: the all-pad block's id
+    (every slot -1), whose steps the kernel skips; None walks every step.
+    Other arguments and result as ``ivf_adc_plain``."""
+    out = _per_query_cuda(bucket_codes, bucket_ids, visit, luts, coarse, k=k,
+                          steps_per_probe=steps_per_probe,
+                          lut_dtype=lut_dtype, pad_block=pad_block)
+    LAUNCHES.n += 1
+    return out
 
 
 def _align16(x: int) -> int:
@@ -313,6 +337,79 @@ def tile_smem_bytes(lut_dtype: str, qt: int, m: int, ksub: int, blk: int,
     scales = 4 * m if lut_dtype == "int8" else 0
     return (qt * table + WARPS * 2 * stage + WARPS * 32 * 8
             + qt * (8 + 8 * _build.board_entries(k) + 4 + 4 * cw + scales))
+
+
+def query_smem_bytes(lut_dtype: str, m: int, ksub: int, blk: int, k: int,
+                     ring: bool) -> int:
+    """Shared memory of one per-query block (csrc/ivf_adc.cu
+    ivf_adc_query_smem): with the code ring, one tile row's
+    (``tile_smem_bytes``) less the coarse terms, which the kernel reads
+    from device memory; the direct-read variant holds only the table, the
+    row's threshold, board and lock (no candidate lists; its int8 scales
+    stay in device memory)."""
+    if ring:
+        return tile_smem_bytes(lut_dtype, 1, m, ksub, blk, k, cw=0)
+    return (_align16(LUT_BYTES[lut_dtype] * m * ksub) + 8
+            + 8 * _build.board_entries(k) + 4)
+
+
+def query_plan(Q: int, T: int, steps_per_probe: int, per_probe: bool, m: int,
+               ksub: int, blk: int, k: int, lut_dtype: str, card: dict,
+               ring=None) -> dict:
+    """The per-query grid's launch plan (``QUERY_PLAN_KEYS``), a pure
+    function of the shapes and the card (``_build.card``), with no look at
+    the data. Rows: Q table rows, or Q x nprobe with per-probe tables
+    (a per-probe table changes with the probe), each with its ``steps``
+    (T, or steps_per_probe). Each row's steps are cut into ``n_chunks``
+    chunks, one block each: as many as keep one wave of blocks (SMs x
+    blocks an SM) full, but at least MIN_CHUNK_STEPS steps a chunk, so that
+    a block stages its table once for many real steps: at T = 4,096 on 132
+    SMs, 128 chunks at Q = 1 (about one block an SM), 8 at Q = 32, 1 at
+    Q = 512. The code ring where it fits the card's shared memory beside
+    the table and the board, else the direct-read variant (``ring`` forces
+    either); a size that fits neither raises. ``groups``: the first merge
+    level's blocks a query (``_build.merge_groups``)."""
+    if lut_dtype not in LUT_DTYPES:
+        raise ValueError(f"lut_dtype must be one of {LUT_DTYPES}")
+    nprobe = T // steps_per_probe
+    rows = Q * nprobe if per_probe else Q
+    steps = steps_per_probe if per_probe else T
+    limit = card["smem_block"]
+    with_ring = query_smem_bytes(lut_dtype, m, ksub, blk, k, True)
+    direct = query_smem_bytes(lut_dtype, m, ksub, blk, k, False)
+    if ring is None:
+        ring = with_ring <= limit
+    if ring and with_ring > limit or direct > limit:
+        raise ValueError(
+            f"ivf_adc per-query grid: an m={m}, ksub={ksub} {lut_dtype} "
+            f"table with k={k} needs {direct} bytes of shared memory a "
+            f"block with its board ({with_ring} with the code ring of "
+            f"blk={blk}); the card allows {limit}")
+    smem = with_ring if ring else direct
+    bps = max(1, min(2, card["smem_sm"] // (smem + 1024)))
+    n_chunks = max(1, min(card["sms"] * bps // rows,
+                          steps // MIN_CHUNK_STEPS, 65535))
+    n_parts = (nprobe if per_probe else 1) * n_chunks
+    return dict(rows=rows, n_chunks=n_chunks, ring=bool(ring), smem=smem,
+                blocks_per_sm=bps,
+                groups=_build.merge_groups(n_parts, Q, card["sms"]))
+
+
+def step_owners(steps: int, steps_per_probe: int, n_chunks: int) -> tuple:
+    """(chunk, warp) of each of a table row's ``steps`` visit steps, as the
+    per-query kernel deals them: step j of the row's probe p (of P =
+    steps / steps_per_probe) goes to virtual chunk u = (j + p V // P) mod V
+    of V = n_chunks x WARPS, that is to warp u // n_chunks of chunk
+    u % n_chunks. Round robin within a probe, so a probe's real steps,
+    which come first, spread within one of even over the chunks (and the
+    warps); the probes' offsets spread what is left over."""
+    V = n_chunks * WARPS
+    P = steps // steps_per_probe
+    s = torch.arange(steps)
+    p = torch.div(s, steps_per_probe, rounding_mode="floor")
+    off = torch.div(p * V, P, rounding_mode="floor")
+    u = (s - p * steps_per_probe + off) % V
+    return u % n_chunks, torch.div(u, n_chunks, rounding_mode="floor")
 
 
 def fit_tile(m: int, ksub: int, blk: int, k: int, lut_dtype: str,
@@ -518,12 +615,16 @@ def ivf_adc_run_resident_cuda(bucket_codes, bucket_ids, visit, sched, luts,
 
 def ivf_adc(bucket_codes, bucket_ids, visit, luts, coarse, *, k: int,
             steps_per_probe: int = 1, lut_dtype: str = "float32",
-            use_kernel=None):
+            pad_block=None, use_kernel=None):
     """Per-query bucket-resident ADC top-k on the kernel or the plain
-    version, by the device of ``visit`` (``repro_torch.device.kernel_path``)."""
-    fn = ivf_adc_cuda if kernel_path(visit, use_kernel) else ivf_adc_plain
-    return fn(bucket_codes, bucket_ids, visit, luts, coarse, k=k,
-              steps_per_probe=steps_per_probe, lut_dtype=lut_dtype)
+    version, by the device of ``visit`` (``repro_torch.device.kernel_path``).
+    The kernel skips ``pad_block``'s steps; the plain version has no need
+    to, since the pad block's slots are all -1."""
+    kw = dict(k=k, steps_per_probe=steps_per_probe, lut_dtype=lut_dtype)
+    if kernel_path(visit, use_kernel):
+        return ivf_adc_cuda(bucket_codes, bucket_ids, visit, luts, coarse,
+                            pad_block=pad_block, **kw)
+    return ivf_adc_plain(bucket_codes, bucket_ids, visit, luts, coarse, **kw)
 
 
 def ivf_adc_blocked(bucket_codes, bucket_ids, visit, sched, luts, coarse, *,

@@ -175,10 +175,12 @@ def ivf_adc_topk(bucket_codes, bucket_ids, visit, luts, *, k: int,
     ``coarse``: optional (Q, nprobe) f32 additive per-probe term, also a
     probe knockout when an entry is NEG_INF.
 
-    ``mode`` picks the grid: 'per_query', 'blocked' (the visit table's
-    pairs sorted into groups of ``qblk`` that share a block, with
+    ``mode`` picks the grid: 'per_query' (each query's visit row walked
+    on the device, ``pad_block``'s steps skipped), 'blocked' (the visit
+    table's pairs sorted into groups of ``qblk`` that share a block, with
     ``pad_block``'s pairs dropped), 'run_resident' (each distinct block
-    once for the batch), or 'auto'. 'auto' reads the cheap sharing probe
+    once for the batch), or 'auto'. ``pad_block``: the all-pad block
+    (every slot -1), or None. 'auto' reads the cheap sharing probe
     (``visit_sharing``) and asks the measured autotuner (``LEDGER``, or
     the ``AutoTuner`` passed as ``autotune``) for the grid; while a key is
     still being measured, each batch times one candidate grid as it is
@@ -246,7 +248,7 @@ def ivf_adc_topk(bucket_codes, bucket_ids, visit, luts, *, k: int,
     def _run(g, sched):
         if g == "per_query":
             return _ivf.ivf_adc(bucket_codes, bucket_ids, visit, luts, coarse,
-                                **kw)
+                                pad_block=pad_block, **kw)
         fn = _ivf.ivf_adc_blocked if g == "blocked" else _ivf.ivf_adc_run_resident
         return fn(bucket_codes, bucket_ids, visit, sched, luts, coarse, **kw)
 

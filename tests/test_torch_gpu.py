@@ -139,6 +139,202 @@ def _same(a, b):
     assert torch.equal(ks, ps)
 
 
+def _front_loaded(rng, dev, *, Q, m, per_probe=False, B=300, blk=32,
+                  nprobe=8, spp=64, ksub=256, real_share=0.4):
+    """Per-query inputs shaped like the engine's: each probe's first steps
+    (at most real_share of them) visit real blocks, a tenth of whose slots
+    are -1, and the rest the all-pad block B - 1; random tables and coarse
+    terms."""
+    codes = rng.integers(0, ksub, (B, blk, m)).astype(np.uint8)
+    ids = np.arange(B * blk, dtype=np.int32).reshape(B, blk)
+    ids[rng.random((B, blk)) < 0.1] = -1
+    ids[-1] = -1
+    real = rng.integers(0, int(real_share * spp) + 1, (Q, nprobe))
+    j = np.arange(spp)[None, None, :]
+    visit = np.where(j < real[:, :, None],
+                     rng.integers(0, B - 1, (Q, nprobe, spp)), B - 1)
+    shape = (Q, nprobe, m, ksub) if per_probe else (Q, m, ksub)
+    luts = rng.normal(size=shape).astype(np.float32)
+    coarse = rng.normal(size=(Q, nprobe)).astype(np.float32)
+    t = [torch.as_tensor(x, device=dev) for x in
+         (codes, ids, visit.reshape(Q, -1).astype(np.int32), luts)]
+    return t, dict(coarse=torch.as_tensor(coarse, device=dev),
+                   steps_per_probe=spp, pad_block=B - 1)
+
+
+def _per_query_same(args, kw, rings=(None, False)):
+    """The per-query kernel against its plain version, bit for bit: through
+    ops with and without pad_block, and at each of ``rings`` (None: the
+    plan's variant; False: the direct-read one)."""
+    from repro_torch.kernels import ivf_adc as K
+    want = ops.ivf_adc_topk(*args, mode="per_query", use_kernel=False, **kw)
+    got = ops.ivf_adc_topk(*args, mode="per_query", use_kernel=True, **kw)
+    _same(got, want)
+    _same(ops.ivf_adc_topk(*args, mode="per_query", use_kernel=True,
+                           **dict(kw, pad_block=None)), want)
+    call = {key: kw[key] for key in ("k", "steps_per_probe", "lut_dtype",
+                                     "pad_block")}
+    for ring in rings:
+        _same(ops.normalize_knockouts(*K._per_query_cuda(
+            *args, kw["coarse"], ring=ring, **call)), want)
+    return want
+
+
+def test_per_query_one_real_step_among_pad():
+    """Q = 1 over T = 4,096 steps (8 probes of 512), one of them real: its
+    block's live slots are the answer, on either variant."""
+    dev = _card()
+    rng = np.random.default_rng(21)
+    args, kw = _front_loaded(rng, dev, Q=1, m=64, spp=512)
+    codes, ids, visit, luts = args
+    visit[:] = kw["pad_block"]
+    visit[0, 3 * 512 + 5] = 17
+    for k in (1, 32):
+        kw.update(k=k, lut_dtype="float32")
+        s, i = _per_query_same(args, kw)
+        live = ids[17][ids[17] >= 0]
+        assert set(i[0][i[0] >= 0].tolist()) <= set(live.tolist())
+        assert int((i[0] >= 0).sum()) == min(k, live.numel())
+
+
+def test_per_query_all_pad_and_knocked_out_queries():
+    """A query that visits only the pad block and one whose every probe is
+    knocked out come back all (-inf, -1); the others as the plain version
+    gives them."""
+    dev = _card()
+    rng = np.random.default_rng(22)
+    for per_probe in (False, True):
+        args, kw = _front_loaded(rng, dev, Q=5, m=64, per_probe=per_probe)
+        args[2][1] = kw["pad_block"]
+        kw["coarse"][3] = -1e30
+        kw.update(k=32, lut_dtype="float32")
+        s, i = _per_query_same(args, kw)
+        assert bool(torch.isneginf(s[[1, 3]]).all())
+        assert bool((i[[1, 3]] == -1).all())
+
+
+@pytest.mark.parametrize("k", [1, 256])
+@pytest.mark.parametrize("Q", [1, 37, 600])
+def test_per_query_k_edges(Q, k):
+    """k = 1 and k = 256 (the largest board) at one query (128 chunks), a
+    few (several chunks a query) and more queries than a wave of blocks
+    (one chunk a query)."""
+    dev = _card()
+    rng = np.random.default_rng(23)
+    args, kw = _front_loaded(rng, dev, Q=Q, m=64)
+    kw["coarse"][0, 2] = -1e30
+    kw.update(k=k, lut_dtype="float32")
+    _per_query_same(args, kw)
+
+
+def test_per_query_widest_table_reads_codes_directly():
+    """m = 210 float32 tables at k = 256, the widest the grid took before
+    this design: the code ring does not fit beside the table, so the plan
+    takes the direct-read variant, which still equals the plain version."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ivf_adc as K
+    dev = _card()
+    rng = np.random.default_rng(24)
+    assert not K.query_plan(3, 512, 64, False, 210, 256, 32, 256, "float32",
+                            _build.card(dev))["ring"]
+    for per_probe in (False, True):
+        args, kw = _front_loaded(rng, dev, Q=3, m=210, per_probe=per_probe)
+        kw.update(k=256, lut_dtype="float32")
+        _per_query_same(args, kw, rings=(None,))
+
+
+@pytest.mark.parametrize("blk,m", [(32, 7), (8, 7), (6, 8), (12, 5)])
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16", "int8"])
+def test_per_query_byte_path(lut_dtype, blk, m):
+    """Code rows read by bytes (m = 7, 5) from a 16-byte-copied ring
+    (blk * m % 16 == 0) or from a byte-copied one, and words from a
+    byte-copied ring (blk = 6)."""
+    dev = _card()
+    rng = np.random.default_rng(25)
+    for per_probe in (False, True):
+        args, kw = _front_loaded(rng, dev, Q=9, m=m, blk=blk,
+                                 per_probe=per_probe)
+        kw.update(k=32, lut_dtype=lut_dtype)
+        _per_query_same(args, kw)
+
+
+@pytest.mark.parametrize("m", [64, 16, 8])
+@pytest.mark.parametrize("per_probe", [False, True])
+@pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16", "int8"])
+def test_per_query_table_types(lut_dtype, per_probe, m):
+    """Shared and per-probe (l2) tables in float32, bf16 and int8, swizzled
+    16-byte code reads (m = 64, 16) and words (m = 8), on both variants."""
+    dev = _card()
+    rng = np.random.default_rng(26)
+    args, kw = _front_loaded(rng, dev, Q=33, m=m, per_probe=per_probe)
+    kw["coarse"][4, 0] = -1e30
+    kw.update(k=40, lut_dtype=lut_dtype)
+    _per_query_same(args, kw)
+
+
+def test_per_query_counts_one_launch_a_call():
+    """The ivf_adc counter counts each per-query call once, whatever its
+    chunks and merge levels, and nothing else moves it."""
+    from repro_torch.kernels import ivf_adc as K
+    dev = _card()
+    rng = np.random.default_rng(27)
+    args, kw = _front_loaded(rng, dev, Q=2, m=16)
+    kw.update(k=10, lut_dtype="float32")
+    ops.reset_launch_counts()
+    ops.ivf_adc_topk(*args, mode="per_query", **kw)
+    assert ops.launch_counts()["ivf_adc"] == 1
+    call = {key: kw[key] for key in ("k", "steps_per_probe", "lut_dtype")}
+    K.ivf_adc_cuda(*args, kw["coarse"], **call)
+    K.ivf_adc_cuda(*args, kw["coarse"], **call)
+    assert ops.launch_counts()["ivf_adc"] == 3
+    ops.ivf_adc_topk(*args, mode="per_query", use_kernel=False, **kw)
+    ops.ivf_adc_topk(*args, mode="blocked", qblk=8, **kw)
+    counts = ops.launch_counts()
+    assert counts["ivf_adc"] == 3 and counts["ivf_adc_blocked"] == 1
+
+
+def test_per_query_walks_only_the_real_steps():
+    """With pad_block the kernel scores, a query, exactly the steps that are
+    neither on the pad block nor in a knocked-out probe; without it, every
+    step of the live probes."""
+    from repro_torch.kernels import ivf_adc as K
+    dev = _card()
+    rng = np.random.default_rng(28)
+    for per_probe in (False, True):
+        args, kw = _front_loaded(rng, dev, Q=40, m=64, spp=512,
+                                 per_probe=per_probe)
+        kw["coarse"][2] = -1e30
+        kw["coarse"][5, 3] = -1e30
+        visit, coarse, spp = args[2], kw["coarse"], kw["steps_per_probe"]
+        live = torch.repeat_interleave(coarse > -5e29, spp, dim=1)
+        call = dict(k=32, steps_per_probe=spp, lut_dtype="float32")
+        for pad, want in ((kw["pad_block"],
+                           (live & (visit != kw["pad_block"])).sum(1)),
+                          (None, live.sum(1))):
+            walked = torch.zeros(40, dtype=torch.int32, device=dev)
+            K._per_query_cuda(*args, coarse, pad_block=pad, walked=walked,
+                              **call)
+            torch.cuda.synchronize()
+            assert torch.equal(walked.long(), want)
+
+
+def test_per_query_shared_memory_matches_the_kernel():
+    """query_smem_bytes (Python) equals the kernel's own count (C), which
+    carves the block, for the ring and the direct-read variants."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ivf_adc as K
+    _card()
+    lib = _build.load("ivf_adc", K._SIGNATURES)
+    for dt_i, dt in enumerate(K.LUT_DTYPES):
+        for m, ksub, blk in ((64, 256, 32), (7, 32, 8), (210, 256, 32),
+                             (3, 5, 6)):
+            for k in (1, 32, 33, 256):
+                for ring in (True, False):
+                    assert lib.ivf_adc_query_smem(dt_i, m, ksub, blk, k,
+                                                  int(ring)) == \
+                        K.query_smem_bytes(dt, m, ksub, blk, k, ring)
+
+
 @pytest.mark.parametrize("lut_dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("Q,k", [(1, 10), (7, 200), (40, 32)])
 def test_pq_adc_kernel_matches_plain(lut_dtype, Q, k):

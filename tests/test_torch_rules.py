@@ -1,8 +1,9 @@
 """Rules the port keeps, checked on the CPU.
 
 1. Importing ``repro_torch`` loads neither JAX nor the JAX package.
-2. No module of ``src/repro_torch``, not ``chip_smoke.py`` and not
-   ``tools/ivf_dispatch.py`` imports ``jax`` or ``repro``.
+2. No module of ``src/repro_torch``, not ``chip_smoke.py`` and neither
+   ``tools/ivf_dispatch.py`` nor ``tools/ivf_kernels.py`` imports ``jax``
+   or ``repro``.
 3. Entry points run on the card: ``VectorDB()`` without a device raises
    when there is none.
 4. Kernel dispatch follows the tensor: ``use_kernel=True`` on a CPU tensor
@@ -30,7 +31,8 @@ from repro_torch.kernels import ops  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "tools" / "ivf_dispatch.py"]
+    REPO / "chip_smoke.py", REPO / "tools" / "ivf_dispatch.py",
+    REPO / "tools" / "ivf_kernels.py"]
 
 
 def test_import_loads_no_jax():
