@@ -90,7 +90,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      0.999 at (32, 64) and (32, 512)), 512 passages sent back as queries
      finding themselves in their top 10 (>= 99 %), and the kernel
      launched on the path;
-  6. a JSON line of the kernels, then the result line.
+  6. mutation and serving, after phase 5, on the phase-4 data made again
+     from ``--seed``: ``VectorDB("ivf_pq")`` at the reference defaults but
+     m = 64 (its copy of the data dropped after load) takes the
+     reference's mutation mix (BENCH_mutation.json's paths): 88,418 new
+     rows of the same distribution inserted in batches of 1,024, 884,182
+     random live ids deleted in batches of 8,192, 88,418 other live ids
+     upserted with fresh vectors in batches of 1,024, then ``compact``;
+     rows/s of each, compact seconds, the layout's capacity, blocks and
+     steps_per_probe and plan_generation before and after, p50/p99 under
+     every adc_mode at Q = 1, 32, 512 before the writes, at 10 %
+     tombstones and after compact, each ivf_adc kernel's time and the
+     visit steps the per-query kernel scored (equal to the real ones);
+     checks: no deleted id in any result, every grid equal to per_query
+     bit for bit and the kernels to their plain versions on the mutated
+     and the compacted layout, 512 inserted and 512 upserted rows found in
+     their own top 10 (>= 99 %), results after compact equal to those
+     before it (ties aside), the re-rank rows of the written ids equal to
+     ``preprocess_corpus`` of the vectors written, the size the writes
+     imply, recall@10 against the exact top 10 over the live rows
+     (``topk_distance`` on the engine's corpus under the live mask, the
+     kernel against its plain version) >= ``--min-recall``; then
+     ``QueryEngine`` and ``AsyncQueryEngine`` (max_batch 64) on the
+     mutated index: 2,048 single reads with a 64-row insert or delete
+     after every 8 (interleaved_1to8; a read behind an insert finds the
+     row, no read sees an id deleted before it) and 2,048 reads alone
+     (ids equal ``db.query(bucketize=False)``), p50/p99, QPS,
+     queue_depth_max, plan hits and misses; then ``flat`` (float32, bf16)
+     and ``pq`` at 262,144 rows under the same mix, scaled: each kernel
+     path against its plain path on the mutated buffers and the float32
+     flat against brute force over the live rows; peak device memory;
+  7. a JSON line of the kernels, then the result line.
 
 It needs one CUDA card and the repository's ``src/`` beside it, and it
 imports nothing of the JAX package.
@@ -177,21 +207,33 @@ def log(*args) -> None:
 
 
 # ----------------------------------------------------------------- data
-def clustered_rows(n: int, d: int, gen, device, *, n_centres: int,
-                   rank: int = 8, spread: float = 0.35, noise: float = 0.01,
-                   chunk: int = 1 << 18):
-    """Unit rows around ``n_centres`` random unit centres: each row is its
-    centre plus a draw from a ``rank``-dimensional subspace shared by all
-    centres (scale ``spread``) plus isotropic noise, normalized. Made on
-    ``device`` from ``gen``, a chunk of rows at a time."""
+def cluster_frame(d: int, gen, device, *, n_centres: int, rank: int):
+    """(centres, basis): ``n_centres`` random unit centres and a
+    ``rank``-dimensional subspace they share, the first draws of ``gen``."""
     import torch
     centres = torch.randn(n_centres, d, generator=gen, device=device)
     centres /= torch.linalg.vector_norm(centres, dim=1, keepdim=True)
     basis = torch.randn(rank, d, generator=gen, device=device) / math.sqrt(d)
+    return centres, basis
+
+
+def clustered_rows(n: int, d: int, gen, device, *, n_centres: int,
+                   rank: int = 8, spread: float = 0.35, noise: float = 0.01,
+                   chunk: int = 1 << 18, frame=None):
+    """Unit rows around ``n_centres`` random unit centres: each row is its
+    centre plus a draw from a ``rank``-dimensional subspace shared by all
+    centres (scale ``spread``) plus isotropic noise, normalized. Made on
+    ``device`` from ``gen``, a chunk of rows at a time; ``frame`` (from
+    ``cluster_frame``) gives the centres and subspace, else ``gen`` draws
+    them first."""
+    import torch
+    centres, basis = frame or cluster_frame(d, gen, device,
+                                            n_centres=n_centres, rank=rank)
     out = torch.empty((n, d), dtype=torch.float32, device=device)
     for a in range(0, n, chunk):
         b = min(n, a + chunk)
-        which = torch.randint(n_centres, (b - a,), generator=gen, device=device)
+        which = torch.randint(centres.shape[0], (b - a,), generator=gen,
+                              device=device)
         z = torch.randn(b - a, rank, generator=gen, device=device) * spread
         x = centres[which] + z @ basis
         x += noise * torch.randn(b - a, d, generator=gen, device=device)
@@ -213,6 +255,18 @@ def make_dataset(n: int, n_queries: int, seed: int, device, rank: int = 8):
     del rows
     q = held + 0.01 * torch.randn(held.shape, generator=gen, device=device)
     return corpus, q / torch.linalg.vector_norm(q, dim=1, keepdim=True)
+
+
+def new_rows(n_new: int, n: int, seed: int, salt: int, device, rank: int = 8):
+    """``n_new`` more rows of ``make_dataset(n, ..., seed)``'s distribution:
+    the same centres and shared subspace (re-drawn from ``seed``), the rows
+    themselves from a generator of their own (``seed + salt``)."""
+    import torch
+    frame = cluster_frame(DIM, torch.Generator(device=device).manual_seed(seed),
+                          device, n_centres=max(1, math.isqrt(n)), rank=rank)
+    gen = torch.Generator(device=device).manual_seed(seed + salt)
+    return clustered_rows(n_new, DIM, gen, device, n_centres=len(frame[0]),
+                          rank=rank, frame=frame)
 
 
 # ------------------------------------------------------------ measuring
@@ -1031,7 +1085,7 @@ def kernel_entry(name, source, replaces, launches, err, ms, plain_ms, bound,
 
 
 def phase_main(n: int, seed: int, device, rank: int, min_recall: float,
-               rates: dict) -> list:
+               rates: dict) -> tuple:
     import torch
     log(f"phase 4: main path, N={n} rows (MS MARCO v1 passages: "
         f"{MARCO_PASSAGES}), d={DIM}, cosine, shared subspace rank {rank}")
@@ -1070,7 +1124,7 @@ def phase_main(n: int, seed: int, device, rank: int, min_recall: float,
         if recalls[engine] < min_recall:
             raise AssertionError(f"{engine} recall@10 {recalls[engine]:.4f} "
                                  f"below {min_recall}")
-    return kernels
+    return kernels, recalls
 
 
 def library_topk(corpus, q, k: int, chunk: int = 128):
@@ -1970,6 +2024,589 @@ def phase_text(seed: int, device) -> dict:
         f"F.scaled_dot_product_attention with the same boolean mask")
 
 
+# ------------------------------------------------ phase 6: writes, serving
+MUT_INSERT = 88_418      # 1 % of the passages: new rows
+MUT_DELETE = 884_182     # 10 %: random live ids tombstoned
+MUT_UPSERT = 88_418      # 1 %: existing ids re-encoded with fresh vectors
+MUT_BATCH = {"insert": 1024, "delete": 8192, "upsert": 1024}
+SELF_QUERIES = 4096      # rows sent back as queries, of each kind
+SELF_MARGIN = 0.02       # written rows found at least as often as loaded ones
+                         # less this (5 standard deviations of the difference
+                         # of two rates near 0.93 over 4,096 rows each)
+SERVE_READS = 2048       # single-query reads a stream
+SERVE_EVERY = 8          # one write after every 8 reads (interleaved_1to8)
+SERVE_ROWS = 64          # rows a write
+SERVE_BATCH = 64         # the fronts' max_batch
+
+
+def counted(acc: dict, fn, *args, **kw):
+    """fn(*args, **kw), adding the kernel launches it made to ``acc``: the
+    phase counts the launches of its path, not of its comparisons."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    out = fn(*args, **kw)
+    for name, c in ops.launch_counts().items():
+        acc[name] = acc.get(name, 0) + c - before[name]
+    return out
+
+
+def apply_writes(db, kind: str, total: int, batch: int, vectors=None,
+                 ids=None, label: str = "") -> list:
+    """Apply ``total`` rows of one write kind in batches; logs rows/s (host
+    clock around the batches, ending in a synchronize). Returns the
+    writes' results."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = []
+    for a in range(0, total, batch):
+        b = min(total, a + batch)
+        if kind == "insert":
+            outs.append(db.insert(vectors[a:b]))
+        elif kind == "delete":
+            outs.append(db.delete(ids[a:b]))
+        else:
+            outs.append(db.upsert(vectors[a:b], ids[a:b]))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log(f"  {label}{kind} {total} rows in batches of {batch}: {secs:.3f} s, "
+        f"{total / secs:.1f} rows/s (host clock, synced)")
+    return outs
+
+
+def write_mix(db, n: int, seed: int, device, rank: int, label: str = ""):
+    """The reference's mutation mix (BENCH_mutation.json's paths) scaled to
+    n rows: inserts of 1 % new rows, deletes of 10 % random loaded ids,
+    upserts of 1 % other loaded ids with fresh vectors (so the inserted
+    rows stay as written). Returns (inserted ids, their vectors, upserted
+    ids, their vectors, deleted ids)."""
+    import torch
+    n_ins, n_del, n_ups = n // 100, n // 10, n // 100
+    ins_vecs = new_rows(n_ins, n, seed, 1, device, rank)
+    ins_ids = torch.cat(apply_writes(db, "insert", n_ins, MUT_BATCH["insert"],
+                                     vectors=ins_vecs, label=label))
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    perm = torch.randperm(n, generator=gen, device=device)  # loaded rows
+    dead, ups_ids = perm[:n_del], perm[n_del:n_del + n_ups]
+    deleted = sum(apply_writes(db, "delete", n_del, MUT_BATCH["delete"],
+                               ids=dead, label=label))
+    if deleted != n_del:
+        raise AssertionError(f"{label}deleted {deleted} of {n_del} live ids")
+    ups_vecs = new_rows(n_ups, n, seed, 2, device, rank)
+    apply_writes(db, "upsert", n_ups, MUT_BATCH["upsert"], vectors=ups_vecs,
+                 ids=ups_ids, label=label)
+    want = n + n_ins - n_del
+    if db.index.size != want or db.n != want:
+        raise AssertionError(f"{label}size {db.index.size} after the writes, "
+                             f"expected {want}")
+    return ins_ids, ins_vecs, ups_ids, ups_vecs, dead
+
+
+def no_dead_ids(ids, dead_mask, label: str) -> None:
+    got = ids[ids >= 0].long()
+    if bool(dead_mask[got].any()):
+        raise AssertionError(f"{label}: a deleted id in the results")
+
+
+def equal_up_to_ties(a, b, label: str) -> None:
+    """Scores bit-equal rank by rank; ids equal but where the score at
+    that rank ties with a neighbour's."""
+    import torch
+    (s0, i0), (s1, i1) = a, b
+    same_s = (s0 == s1) | (torch.isneginf(s0) & torch.isneginf(s1))
+    if not bool(same_s.all()):
+        raise AssertionError(f"{label}: scores differ")
+    tie = torch.zeros_like(s0, dtype=torch.bool)
+    tie[:, 1:] |= s0[:, 1:] == s0[:, :-1]
+    tie[:, :-1] |= s0[:, :-1] == s0[:, 1:]
+    diff = i0 != i1
+    if bool((diff & ~tie).any()):
+        raise AssertionError(f"{label}: ids differ outside ties")
+    log(f"  {label}: scores bit-equal, ids equal at "
+        f"{float((~diff).float().mean()):.4f} of ranks (the rest ties)")
+
+
+def self_found(db, vecs, ids, label: str) -> float:
+    """Share of rows, sent back as queries (batches of 512), found in their
+    own top 10."""
+    import torch
+    got = torch.cat([db.query(vecs[a:a + 512], k=10)[1]
+                     for a in range(0, vecs.shape[0], 512)])
+    rate = float((got.long() == ids.long()[:, None]).any(1).float().mean())
+    log(f"  {label}: {rate:.4f} of {vecs.shape[0]} found in their own top 10")
+    return rate
+
+
+def rows_in_layout(idx, ids, vecs, what: str) -> None:
+    """Every written id sits in one slot of the layout, in the block list
+    of the cluster its row is assigned to, with the codes its row encodes
+    to (the engine's encode, in the batches it was written in)."""
+    import torch
+    lay = idx.layout
+    pos = lay.pos[ids]
+    if not bool((pos >= 0).all()):
+        raise AssertionError(f"a {what} id is missing from the layout")
+    enc = [idx._encode_batch(vecs[a:a + MUT_BATCH["insert"]])
+           for a in range(0, vecs.shape[0], MUT_BATCH["insert"])]
+    codes = torch.cat([e[0] for e in enc])
+    assign = torch.cat([e[1] for e in enc])
+    if not (torch.equal(lay.slots.view(-1)[pos].long(), ids.long())
+            and torch.equal(lay.block_cluster[pos // lay.blk].long(),
+                            assign.long())
+            and torch.equal(lay.codes.view(-1, lay.m)[pos], codes)):
+        raise AssertionError(f"a {what} row's slot, cluster or codes differ "
+                             "from its encode")
+    log(f"  all {ids.numel()} {what} ids sit in their cluster's block list "
+        "with the codes their rows encode to")
+
+
+def layout_facts(idx) -> str:
+    lay = idx.layout
+    return (f"storage rows {lay.capacity}, blocks {lay.n_blocks}, "
+            f"steps_per_probe {lay.steps_per_probe}, re-rank corpus rows "
+            f"{idx._corpus.capacity}, live {lay.live}, tombstones "
+            f"{lay.tombstones} ({lay.tombstone_fraction:.4f})")
+
+
+def grid_times(idx, queries, lookups_per_s: float, label: str) -> dict:
+    """The three ivf_adc kernels at each Q of BATCHES on the engine's
+    current layout: ms (CUDA events) beside the bound, and the visit steps
+    the per-query kernel scored against the real ones (``walked_steps``
+    fails unless equal). Returns {name: {Q: (ms, bound)}}."""
+    from repro_torch.kernels import ivf_adc as K
+    from repro_torch.kernels import ops
+    k, blk, m = idx.refine, idx.block_size, idx.codebooks.shape[0]
+    out = {n: {} for n in ("ivf_adc", "ivf_adc_blocked",
+                           "ivf_adc_run_resident")}
+    for Q in BATCHES:
+        codes, ids, visit, luts, coarse, spp = probe_inputs(idx, queries[:Q])
+        pad = ids.shape[0] - 1
+        sched = ops.build_schedule(visit, qblk=8, pad_block=pad)
+        calls = {
+            "ivf_adc": lambda: K.ivf_adc_cuda(codes, ids, visit, luts, coarse,
+                                              k=k, steps_per_probe=spp,
+                                              pad_block=pad),
+            "ivf_adc_blocked": lambda: K.ivf_adc_blocked_cuda(
+                codes, ids, visit, sched, luts, coarse, k=k,
+                steps_per_probe=spp),
+            "ivf_adc_run_resident": lambda: K.ivf_adc_run_resident_cuda(
+                codes, ids, visit, sched, luts, coarse, k=k,
+                steps_per_probe=spp)}
+        parts = []
+        for name, fn in calls.items():
+            ms = gpu_ms(fn, 5)
+            b = ivf_bound(ids, visit, luts, coarse, blk, m, lookups_per_s, k,
+                          None if name == "ivf_adc" else sched)
+            out[name][Q] = (ms, b)
+            parts.append(f"{name} {ms:.3f} ms (bound {b[0]:.3f}, {b[1]})")
+        log(f"  {label} Q={Q} (T={visit.shape[1]}): " + ", ".join(parts))
+        walked_steps(codes, ids, visit, luts, coarse, spp, k, Q)
+    return out
+
+
+def serve_modes(db, queries, dead, label: str) -> dict:
+    """Every adc_mode over the batches; no deleted id anywhere; auto,
+    blocked and run_resident equal per_query bit for bit."""
+    idx = db.index
+    res = {}
+    for mode in ("auto", "per_query") + GROUPED:
+        idx.adc_mode = mode
+        res[mode] = serve_batches(db, queries, f"ivf_pq {mode} {label}")
+        for Q in BATCHES:
+            no_dead_ids(res[mode][Q][1], dead, f"{mode} {label} Q={Q}")
+    for mode in ("auto",) + GROUPED:
+        for Q in BATCHES:
+            if not same_result(res[mode][Q], res["per_query"][Q]):
+                raise AssertionError(f"ivf_pq {mode} {label} Q={Q} differs "
+                                     "from per_query")
+    log(f"  {label}: no deleted id at Q = {BATCHES} under any adc_mode; "
+        "auto, blocked and run_resident equal per_query bit for bit")
+    idx.adc_mode = "auto"
+    return res
+
+
+def kernel_against_plain(idx, queries, label: str) -> None:
+    """The three grids on the mutated layout against their plain versions
+    (the grouped ones also against the per-query kernel), bit for bit."""
+    for Q in (1, 32):
+        args = probe_inputs(idx, queries[:Q])
+        kw = dict(k=idx.refine, spp=args[5], lut_dtype="float32")
+        compare_ivf(*args[:5], **kw, label=f"ivf_adc {label} Q={Q}")
+        for mode in GROUPED:
+            compare_grouped(*args[:5], mode=mode, qblk=8, **kw,
+                            label=f"ivf_adc_{mode} {label} Q={Q}")
+
+
+def live_truth(idx, queries, label: str, acc: dict):
+    """Exact top 10 over the live rows (flat_search through topk_distance
+    on the engine's re-rank corpus under the layout's live mask, its
+    launches counted in ``acc``), and that kernel held against its plain
+    version at Q = 32."""
+    import torch
+    from repro_torch.core.flat import flat_search
+    valid = torch.zeros(idx._corpus.capacity, dtype=torch.bool,
+                        device=queries.device)
+    valid[: idx.n] = idx.layout.live_mask(idx.n)
+    _, truth = counted(acc, flat_search, idx._corpus.data, queries,
+                       metric="cosine", k=10, valid=valid)
+    compare_topk(idx._corpus.data,
+                 queries[:32] / torch.linalg.vector_norm(
+                     queries[:32], dim=1, keepdim=True),
+                 "dot", 10, f"topk_distance live rows {label} Q=32",
+                 valid=valid)
+    return truth
+
+
+def stream_script(db, queries, n: int, seed: int, salt: int, device,
+                  rank: int):
+    """The interleaved_1to8 stream: SERVE_READS single-query reads (k = 10)
+    and after every SERVE_EVERY of them one write of SERVE_ROWS rows,
+    inserts and deletes in turn. An insert's first row is an isotropic
+    random unit vector, far from every cluster, and the read after it
+    queries that row: it finds the row whenever the insert came first (a
+    clustered row is found in its own top 10 only as often as the ADC cut
+    keeps it, about 93 %). A delete takes the 64 best ids of the read
+    after it (found before the stream). Returns the ops, in order."""
+    import torch
+    n_writes = SERVE_READS // SERVE_EVERY
+    fresh = new_rows(n_writes * SERVE_ROWS, n, seed, salt, device, rank)
+    gen = torch.Generator(device=device).manual_seed(seed + salt)
+    probe = torch.randn(n_writes, DIM, generator=gen, device=device)
+    fresh[::SERVE_ROWS] = probe / torch.linalg.vector_norm(probe, dim=1,
+                                                            keepdim=True)
+    fresh = fresh.cpu()
+    host_q = queries.cpu()
+    after_delete = [host_q[(w * SERVE_EVERY + SERVE_EVERY) % host_q.shape[0]]
+                    for w in range(n_writes)]
+    victims = db.query(torch.stack(after_delete).to(device), k=SERVE_ROWS,
+                       bucketize=False)[1].cpu()
+    ops_, last = [], None
+    for i in range(SERVE_READS):
+        if i and i % SERVE_EVERY == 0:
+            w = i // SERVE_EVERY - 1
+            if w % 2 == 0:
+                last = ("insert", fresh[w * SERVE_ROWS:(w + 1) * SERVE_ROWS])
+                ops_.append(("write", "insert", last[1], None))
+            else:
+                last = ("delete", victims[w])
+                ops_.append(("write", "delete", None, victims[w]))
+        if last is not None and last[0] == "insert":
+            ops_.append(("read", last[1][0], "new"))
+        elif last is not None:
+            ops_.append(("read", after_delete[i // SERVE_EVERY - 1], None))
+        else:
+            ops_.append(("read", host_q[i % host_q.shape[0]], None))
+        last = None
+    return ops_
+
+
+def check_stream(ops_, results, label: str) -> None:
+    """Read-your-writes on a stream's results: the read after an insert
+    finds the id of the row it queries; no read returns an id deleted
+    before it."""
+    deleted, new_id, found, n_new = set(), None, 0, 0
+    for op, res in zip(ops_, results):
+        if op[0] == "write":
+            kind, out = res
+            if kind == "insert":
+                new_id = int(out[0])
+            else:
+                deleted.update(int(i) for i in op[3].tolist() if i >= 0)
+            continue
+        ids = set(res[1].tolist())
+        if ids & deleted:
+            raise AssertionError(f"{label}: a read returned an id deleted "
+                                 "before it")
+        if op[2] == "new":
+            n_new += 1
+            found += new_id in ids
+    if found != n_new:
+        raise AssertionError(f"{label}: {n_new - found} of {n_new} reads "
+                             "behind an insert missed the inserted row")
+    log(f"  {label}: {n_new} reads behind an insert found the new row; no "
+        f"read saw any of the {len(deleted)} ids deleted before it")
+
+
+def run_pump(db, ops_) -> tuple:
+    """The stream through QueryEngine: everything queued, then drained.
+    Returns (results in op order, latency_stats, seconds from the first
+    submit to the last result, read batches)."""
+    from repro_torch.serve import QueryEngine
+    plans = sum(db.plan_stats.values())
+    eng = QueryEngine(db, max_batch=SERVE_BATCH, max_wait_ms=2.0)
+    t0 = time.perf_counter()
+    rids = [eng.submit(op[1], 10) if op[0] == "read"
+            else eng.submit_write(op[1], op[2], op[3]) for op in ops_]
+    eng.drain()
+    secs = time.perf_counter() - t0
+    return ([eng.result(r) for r in rids], eng.latency_stats(), secs,
+            sum(db.plan_stats.values()) - plans)
+
+
+def run_async(db, ops_, queued: bool) -> tuple:
+    """The stream through AsyncQueryEngine from one submitting thread:
+    ``queued`` submits it all before the engine starts (the pump's
+    setting), else the engine serves while the thread submits. Returns
+    as ``run_pump``."""
+    from repro_torch.serve import AsyncQueryEngine
+    plans = sum(db.plan_stats.values())
+    eng = AsyncQueryEngine(db, max_batch=SERVE_BATCH, max_wait_ms=2.0,
+                           max_queue=4096, start=not queued)
+    with eng:
+        t0 = time.perf_counter()
+        futs = [eng.submit(op[1], 10) if op[0] == "read"
+                else eng.submit_write(op[1], op[2], op[3]) for op in ops_]
+        eng.start()
+        results = [f.result(timeout=600) for f in futs]
+        secs = time.perf_counter() - t0
+    return (results, eng.latency_stats(), secs,
+            sum(db.plan_stats.values()) - plans)
+
+
+FRONTS = (("QueryEngine", run_pump),
+          ("AsyncQueryEngine queued", lambda db, o: run_async(db, o, True)),
+          ("AsyncQueryEngine live", lambda db, o: run_async(db, o, False)))
+
+
+def log_front(name: str, stats: dict, secs: float, batches: int,
+              n_reads: int) -> None:
+    log(f"  {name}: {n_reads} reads in {secs:.3f} s, QPS {n_reads / secs:.1f}, "
+        f"{batches} read batches, p50 {stats['p50_ms']:.3f} ms, p99 "
+        f"{stats['p99_ms']:.3f} ms (enqueue to result), queue_depth_max "
+        f"{stats.get('queue_depth_max', '-')}, plan hits "
+        f"{stats['plan_hits']} misses {stats['plan_misses']}, writes "
+        + str({k: v for k, v in stats.items() if k.startswith('write_')}))
+
+
+def ids_match_oracle(results, oracle, label: str) -> None:
+    """A front's read ids against the oracle's rows: equal, but where two
+    ids' scores agree within 1e-6 (two launches may round the re-rank's
+    float32 sums differently)."""
+    import torch
+    s_o, i_o = oracle
+    swaps = 0
+    for r, (s, i) in enumerate(results):
+        diff = torch.nonzero(i != i_o[r])[:, 0]
+        for j in diff.tolist():
+            where = torch.nonzero(i_o[r] == i[j])[:, 0]
+            other = s_o[r, where[0]] if where.numel() else s_o[r, -1]
+            if abs(float(other) - float(s[j])) > 1e-6:
+                raise AssertionError(f"{label}: read {r} differs from "
+                                     "db.query(bucketize=False)")
+            swaps += 1
+    log(f"  {label}: ids equal db.query(bucketize=False) row by row "
+        f"({swaps} swaps within 1e-6)")
+
+
+def phase_serving(db, queries, n: int, seed: int, device, rank: int) -> None:
+    """Both serving fronts on the mutated full-size index (the async one
+    with the stream queued before it starts, as the pump drains it, and
+    live, serving while one thread submits): the mixed stream
+    (read-your-writes) under auto, then a read-only stream under auto and
+    per_query against db.query(bucketize=False)."""
+    import torch
+    for salt, (name, run) in zip((5, 6, 7), FRONTS):
+        ops_ = stream_script(db, queries, n, seed, salt, device, rank)
+        results, stats, secs, batches = run(db, ops_)
+        log_front(f"{name} interleaved_1to8", stats, secs, batches,
+                  SERVE_READS)
+        check_stream(ops_, results, f"{name} interleaved_1to8")
+    host_q = queries.cpu()
+    reads = [host_q[i % host_q.shape[0]] for i in range(SERVE_READS)]
+    oracle = tuple(x.cpu() for x in db.query(torch.stack(reads).to(device),
+                                            k=10, bucketize=False))
+    # auto syncs the host inside every batch (its sharing probe), so a
+    # batcher cannot run ahead of the card; per_query's path has no sync
+    for mode in ("auto", "per_query"):
+        db.index.adc_mode = mode
+        for name, run in FRONTS:
+            results, stats, secs, batches = run(db, [("read", q, None)
+                                                     for q in reads])
+            log_front(f"{name} read-only {mode}", stats, secs, batches,
+                      SERVE_READS)
+            ids_match_oracle(results, oracle, f"{name} read-only {mode}")
+    db.index.adc_mode = "auto"
+
+
+def phase_mutation(n: int, seed: int, device, rank: int, rates: dict,
+                   min_recall: float, p4_recall: float) -> dict:
+    """Phase 6: writes on ivf_pq at full size, both serving fronts on the
+    mutated index, then writes on flat (float32, bf16) and pq at mid size.
+    Returns {kernel name: {launches, ...}} for the kernels line."""
+    import torch
+    from repro_torch import VectorDB
+    from repro_torch.core import distances as D
+    log(f"phase 6: mutation and serving, ivf_pq N={n}, d={DIM}, cosine, m="
+        f"{M_SUBSPACES}: insert {n // 100} new rows (batches of "
+        f"{MUT_BATCH['insert']}), delete {n // 10} live ids (batches of "
+        f"{MUT_BATCH['delete']}), upsert {n // 100} ids (batches of "
+        f"{MUT_BATCH['upsert']}), compact")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    corpus, queries = make_dataset(n, max(BATCHES), seed, device, rank)
+    db = VectorDB("ivf_pq", metric="cosine", m=M_SUBSPACES,
+                  device=device).load(corpus)
+    torch.cuda.synchronize()
+    del corpus  # the engine keeps its own normalized copy
+    torch.cuda.empty_cache()
+    idx = db.index
+    log(f"  load {time.perf_counter() - t0:.2f} s (data made on the card and "
+        f"ivf_pq trained); the data's copy dropped, device memory in use "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB; {layout_facts(idx)}; "
+        f"plan_generation {db.plan_generation}")
+    path = {}  # launches of the phase's path: its writes, queries, serving
+    counted(path, serve_batches, db, queries, "ivf_pq auto before the writes")
+    grid_times(idx, queries, rates["lookups"], "before the writes")
+    orig = torch.arange(SELF_QUERIES, device=device)
+    baseline = self_found(db, idx._corpus.data[orig], orig,
+                          "loaded rows (the baseline)")
+
+    ins_ids, ins_vecs, ups_ids, ups_vecs, _ = counted(
+        path, write_mix, db, n, seed, device, rank)
+    dead = ~idx.layout.live_mask(idx.n)
+    log(f"  after the writes: {layout_facts(idx)}; plan_generation "
+        f"{db.plan_generation}; device memory in use "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    for ids, vecs, what in ((ins_ids, ins_vecs, "inserted"),
+                            (ups_ids, ups_vecs, "upserted")):
+        want = torch.cat([D.preprocess_corpus(vecs[a:a + 1024], "cosine")[0]
+                          for a in range(0, vecs.shape[0], 1024)])
+        if not torch.equal(idx._corpus.data[ids], want):
+            raise AssertionError(f"re-rank rows of the {what} ids differ from "
+                                 "preprocess_corpus of the vectors written")
+    log("  re-rank rows of the inserted and upserted ids equal "
+        "preprocess_corpus of the vectors written, bit for bit")
+    for ids, vecs, what in ((ins_ids, ins_vecs, "inserted"),
+                            (ups_ids, ups_vecs, "upserted")):
+        rows_in_layout(idx, ids, vecs, what)
+        rate = self_found(db, vecs[:SELF_QUERIES], ids[:SELF_QUERIES],
+                          f"{what} rows")
+        if rate < baseline - SELF_MARGIN:
+            raise AssertionError(f"{what} rows found in their own top 10 "
+                                 f"{rate:.4f}, loaded rows {baseline:.4f}")
+    before = counted(path, serve_modes, db, queries, dead, "after the writes")
+    kernel_against_plain(idx, queries, "mutated")
+    times = grid_times(idx, queries, rates["lookups"], "after the writes")
+    truth = live_truth(idx, queries, "after the writes", path)
+    recall = recall_at_10(before["per_query"][max(BATCHES)][1], truth)
+    log(f"  recall@10 of ivf_pq against the exact top 10 over the live rows: "
+        f"{recall:.4f} (phase 4, before any write: {p4_recall:.4f})")
+    if recall < min_recall:
+        raise AssertionError(f"recall@10 after the writes {recall:.4f} "
+                             f"below {min_recall}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = counted(path, db.compact)
+    torch.cuda.synchronize()
+    log(f"  compact: {time.perf_counter() - t0:.3f} s, {stats}; "
+        f"{layout_facts(idx)}; plan_generation {db.plan_generation}")
+    after = counted(path, serve_modes, db, queries, dead, "after compact")
+    for Q in BATCHES:
+        equal_up_to_ties(before["per_query"][Q], after["per_query"][Q],
+                         f"per_query Q={Q} after compact against before")
+    kernel_against_plain(idx, queries, "compacted")
+    grid_times(idx, queries, rates["lookups"], "after compact")
+    counted(path, phase_serving, db, queries, n, seed, device, rank)
+    counts = path
+    log(f"  launches on the phase's path (writes, queries, serving; not the "
+        f"comparisons and timings): {counts}")
+    out = {}
+    for name in ("ivf_adc", "ivf_adc_blocked", "ivf_adc_run_resident",
+                 "topk_distance"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} never launched on the mutated index")
+        out[name] = {"launches": counts[name]}
+        if name in times:
+            out[name].update({f"ms_q{Q}": t[0] for Q, t in times[name].items()})
+            out[name].update({f"bound_ms_q{Q}": t[1][0]
+                              for Q, t in times[name].items()})
+    log(f"  peak device memory in the phase: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del db, idx, queries, truth, before, after, ins_vecs, ups_vecs
+    torch.cuda.empty_cache()
+    mid = mutation_mid(seed, device, rank)
+    for name, c in mid.items():
+        out.setdefault(name, {"launches": 0})
+        out[name]["mid_launches"] = c
+    return out
+
+
+def mutation_mid(seed: int, device, rank: int) -> dict:
+    """flat (float32, bf16) and pq at MID_ROWS under the same write mix,
+    scaled: kernel path against plain path on the mutated buffers, and the
+    float32 flat against brute force over the live rows. Returns the
+    kernels' launches."""
+    import torch
+    from repro_torch import VectorDB
+    from repro_torch.core import distances as D
+    corpus, queries = make_dataset(MID_ROWS, 512, seed + 1, device, rank)
+    q32 = queries[:32]
+    launches = {}
+    for engine, kw in (("flat", {}), ("flat", {"dtype": torch.bfloat16}),
+                       ("pq", {"m": M_SUBSPACES})):
+        label = f"{engine}{' bf16' if kw.get('dtype') else ''} N={MID_ROWS} "
+        db = VectorDB(engine, metric="cosine", device=device, **kw).load(corpus)
+        ins_ids, ins_vecs, ups_ids, ups_vecs, dead_ids = counted(
+            launches, write_mix, db, MID_ROWS, seed + 1, device, rank, label)
+        counted(launches, db.compact)
+        s, i = counted(launches, db.query, queries, k=10)
+        idx = db.index
+        idx._sync()
+        no_dead_ids(i, ~idx.valid, f"{label}after the writes")
+        if engine == "flat":
+            qd = D.l2_normalize(q32.to(idx.corpus.dtype))
+            compare_topk(idx.corpus, qd, "dot", 10, f"{label}mutated kernel "
+                         "against plain Q=32", valid=idx.valid)
+            if not kw:
+                brute_force(corpus, queries, ins_vecs, ups_ids, ups_vecs,
+                            dead_ids, (s, i), label)
+        else:
+            codes, luts, valid = pq_inputs(idx, q32)
+            compare_pq(codes, luts, k=32, lut_dtype="float32", valid=valid,
+                       label=f"{label}mutated pq_adc Q=32")
+        del db, idx
+        torch.cuda.empty_cache()
+    for name in ("topk_distance", "pq_adc"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched at mid size")
+    del corpus, queries
+    torch.cuda.empty_cache()
+    return {name: launches[name] for name in ("topk_distance", "pq_adc")}
+
+
+def brute_force(corpus, queries, ins_vecs, ups_ids, ups_vecs, dead_ids,
+                got, label: str) -> None:
+    """The float32 flat engine's answer against brute force over the live
+    rows, built apart from the engine: the loaded rows, the inserted ones
+    appended, the upserted ones replaced, the deleted ones masked."""
+    import torch
+    from repro_torch.core import distances as D
+    rows = D.l2_normalize(torch.cat([corpus, ins_vecs]))
+    rows[ups_ids] = D.l2_normalize(ups_vecs)
+    live = torch.ones(rows.shape[0], dtype=torch.bool, device=rows.device)
+    live[dead_ids] = False
+    live[ups_ids] = True
+    q = D.l2_normalize(queries)
+    exact = (q.double() @ rows.double().T).masked_fill(~live[None], -math.inf)
+    order = torch.sort(exact, dim=1, descending=True, stable=True)
+    ref_s, ref_i = order.values[:, :10], order.indices[:, :10]
+    s, i = got
+    tol = topk_tolerance(rows, q, False)[:, None]
+    if not bool(((s.double() - ref_s).abs() <= tol).all()):
+        raise AssertionError(f"{label}scores differ from brute force beyond "
+                             "compare_topk's bound")
+    diff = i.long() != ref_i
+    rows_, cols = torch.nonzero(diff, as_tuple=True)
+    gap = (exact[rows_, i[rows_, cols].long()] - ref_s[rows_, cols]).abs()
+    if not bool((gap <= 2 * tol[rows_, 0]).all()):
+        raise AssertionError(f"{label}ids differ from brute force beyond "
+                             "near-ties")
+    log(f"  {label}against brute force over the live rows (float64): ids "
+        f"agree {float((~diff).float().mean()):.4f} (bound: all but "
+        f"near-ties), max |dscore| {float((s.double() - ref_s).abs().max()):.3e}")
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=MARCO_PASSAGES,
@@ -2006,12 +2643,19 @@ def main(argv=None) -> int:
     phase_mid(args.seed, device, args.rank)
     log(f"[phase 3: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
-    kernels = phase_main(args.n, args.seed, device, args.rank, args.min_recall,
-                         rates)
+    kernels, recalls = phase_main(args.n, args.seed, device, args.rank,
+                                  args.min_recall, rates)
     log(f"[phase 4: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
     kernels.append(phase_text(args.seed, device))
     log(f"[phase 5: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    mutated = phase_mutation(args.n, args.seed, device, args.rank, rates,
+                             args.min_recall, recalls["ivf_pq"])
+    for entry in kernels:
+        if entry["name"] in mutated:
+            entry["mutation_phase"] = mutated[entry["name"]]
+    log(f"[phase 6: {time.perf_counter() - t0:.1f} s]")
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

@@ -2,7 +2,7 @@
 ``repro.configs.base``: ``MLAConfig``, ``MoEConfig``, ``LMConfig`` and
 ``EncoderConfig``, copied field for field so that a config compares equal
 to the reference's). The GNN and recsys configs and the registry come with
-their models (ROADMAP.md Queue 1, item 11).
+their models (ROADMAP.md Queue 1, item 8).
 """
 from __future__ import annotations
 

@@ -69,7 +69,7 @@ def from_reference_params(tree: dict, cfg) -> dict:
             continue
         if key in ("moe_blocks", "mtp"):
             raise NotImplementedError(
-                f"{key} come with the LM stack (ROADMAP.md Queue 1, item 11)")
+                f"{key} come with the LM stack (ROADMAP.md Queue 1, item 8)")
         if key == "dense_blocks":
             for name, leaf in _flatten(sub):
                 arr = np.asarray(leaf)

@@ -1,17 +1,21 @@
 """VectorDB: Thistle's load/query trait as the deployment API (port of
-``repro.core.db``, the single-host load and query path).
+``repro.core.db``, the single-host path).
 
     db = VectorDB(engine="flat|pq|ivf_pq|lsh", metric="cosine|l2|dot")
     db.load(vectors)
     scores, ids = db.query(q, k=10)
     db.load_texts(texts, encoder)      # encoder(list[str]) -> (B, d)
     scores, ids, hits = db.query_texts(texts, encoder, k=10)
+    ids = db.insert(new_vectors)       # online mutation (flat, pq, ivf_pq)
+    db.delete(ids); db.upsert(vs, ids); db.compact(); db.reserve(n)
 
 The front canonicalizes each batch to the ``PLAN_BUCKETS`` ladder and
 counts plan hits and misses as the reference does, so that the serving
 layer reads the same counters; padded rows repeat the last query and are
-sliced off again. Entry points run on the GPU unless given
-``device="cpu"``.
+sliced off again. Writes go to the engine (``core.mutable``); when one
+changes the engine's ``shape_key`` (a buffer was reallocated),
+``plan_generation`` bumps and the next query counts a plan miss. Entry
+points run on the GPU unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -35,6 +39,34 @@ ENGINES: Dict[str, Type] = {
 
 # plan bucket ladder: batches pad up to the next bucket
 PLAN_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
+
+
+class _WriteFront:
+    """The serving layer's single write entry point: one call dispatches
+    any of the four write kinds, so that both serving fronts share one
+    write body. Not thread-safe, like the writes themselves: the fronts
+    serialize writes and queries on one thread."""
+
+    WRITE_KINDS = ("insert", "delete", "upsert", "compact")
+
+    def apply_write(self, kind: str, vectors=None, ids=None, meta=None):
+        """Apply one write batch by kind. Returns the write's own result:
+        the ids (insert, upsert), the live rows deleted (delete) or the
+        stats dict (compact)."""
+        if meta is not None:
+            raise NotImplementedError(
+                "metadata comes with filtered search (ROADMAP.md Queue 1, "
+                "item 4)")
+        if kind == "insert":
+            return self.insert(vectors, ids)
+        if kind == "delete":
+            return self.delete(ids)
+        if kind == "upsert":
+            return self.upsert(vectors, ids)
+        if kind == "compact":
+            return self.compact()
+        raise ValueError(
+            f"unknown write kind {kind!r}; have {self.WRITE_KINDS}")
 
 
 class _PlanLedger:
@@ -85,9 +117,11 @@ def _empty_result(Q: int, k: int, device):
             torch.full((Q, 0), -1, dtype=torch.int32, device=device))
 
 
-class VectorDB(_PlanLedger):
+class VectorDB(_PlanLedger, _WriteFront):
     """Single-host front end over the engine registry. Single-writer,
-    single-reader: callers serialize access."""
+    single-reader: queries and writes share the engine's buffers, so
+    callers serialize access (the serving fronts run both on one
+    thread)."""
 
     def __init__(self, engine: str = "flat", metric: str = "cosine",
                  device=None, **engine_kwargs):
@@ -137,18 +171,71 @@ class VectorDB(_PlanLedger):
         self._loaded = True
         return self
 
+    # ----------------------------------------------------------- mutation
+    def _mutate(self, op: str, *args, meta=None):
+        if meta is not None:
+            raise NotImplementedError(
+                "metadata comes with filtered search (ROADMAP.md Queue 1, "
+                "item 4)")
+        if not self._loaded:
+            raise RuntimeError(f"{op} before load")
+        fn = getattr(self.index, op, None)
+        if fn is None:
+            raise NotImplementedError(
+                f"engine {self.engine_name!r} does not support {op}")
+        before = getattr(self.index, "shape_key", None)
+        out = fn(*args)
+        if getattr(self.index, "shape_key", None) != before:
+            # a buffer was reallocated: count the next query's plan as new
+            self.plan_generation += 1
+        self.n = self.index.size
+        return out
+
+    def insert(self, vectors, ids=None, meta=None) -> torch.Tensor:
+        """Append rows; returns their ids (int64, on the engine's device),
+        assigned by a host counter and never reused."""
+        return self._mutate("insert", vectors, ids, meta=meta)
+
+    def delete(self, ids) -> int:
+        """Tombstone rows by id; returns how many were live. Deleted slots
+        read like pad slots until ``compact``; the ids stay retired."""
+        return self._mutate("delete", ids)
+
+    def upsert(self, vectors, ids, meta=None) -> torch.Tensor:
+        """Re-encode existing ids in place (update or resurrect)."""
+        return self._mutate("upsert", vectors, ids, meta=meta)
+
+    def compact(self) -> dict:
+        """Reclaim tombstoned query work (engine-specific; capacities are
+        kept)."""
+        return self._mutate("compact")
+
+    def reserve(self, *args):
+        """Pre-size the engine's buffers for a planned ingest volume; a
+        reallocation is counted against the plan ledger here."""
+        return self._mutate("reserve", *args)
+
+    @property
+    def mutation_stats(self):
+        return getattr(self.index, "mutation_stats", None)
+
+    @property
+    def generation(self) -> int:
+        return getattr(self.index, "generation", 0)
+
+    # ----------------------------------------------------------- query
     def query(self, q, k: int = 10, *, bucketize: bool = True, where=None,
-              hybrid=None):
+              hybrid=None, hybrid_texts=None):
         """q: (d,) or (Q, d) -> (scores (Q, k) f32, ids (Q, k) int32).
 
         ``bucketize`` pads Q up to the plan-bucket ladder; rows are
         independent in every engine, so the padded rows (repeats of the
         last query) cannot change the first Q results.
         """
-        if where is not None or hybrid is not None:
+        if where is not None or hybrid is not None or hybrid_texts is not None:
             raise NotImplementedError(
                 "filtered and hybrid search come with ROADMAP.md Queue 1, "
-                "item 7")
+                "item 4")
         if not self._loaded:
             raise RuntimeError("query before load")
         # the plan is keyed on the caller's dtype, as the reference keys it;

@@ -12,6 +12,12 @@ reference's ``FlatIndex(dtype=jnp.bfloat16)`` does: rows are normalized
 (cosine) and |c|^2 taken (l2) in float32 before the cast, queries are cast
 to bf16 before they are normalized, and bf16 products are summed in
 float32.
+
+Mutation follows the reference: the corpus is an id-indexed buffer with a
+live mask; inserts append, deletes clear the mask, upserts overwrite in
+place, all on the device. A bf16 engine stores each written row as the
+float32 row (normalized for cosine) cast to bf16, which is what the
+reference's ``_sync`` makes of its float32 mirror.
 """
 from __future__ import annotations
 
@@ -52,7 +58,8 @@ def flat_search(corpus, q, *, metric: str = "cosine", k: int = 10,
 class FlatIndex(MutationMixin):
     """Exact-kNN engine (Thistle's Iterative, every metric). The corpus in
     ``dtype`` (float32 or bfloat16), |c|^2 for l2 in float32, and a live
-    mask live on ``device``."""
+    mask live on ``device``; queries scan the whole buffer with the mask
+    knocking out dead and unfilled rows."""
 
     def __init__(self, metric: str = "cosine", dtype=torch.float32,
                  device=None):
@@ -68,6 +75,10 @@ class FlatIndex(MutationMixin):
     @property
     def size(self) -> int:
         return 0 if self._valid is None else int(self._valid.data.sum())
+
+    @property
+    def shape_key(self) -> tuple:
+        return (0 if self._corpus is None else self._corpus.capacity,)
 
     def _init_storage(self, corpus, sq, live) -> None:
         self._corpus = GrowableRows.from_array(corpus)
@@ -95,6 +106,50 @@ class FlatIndex(MutationMixin):
                                                   device=self.device))
         return self
 
+    # ---------------------------------------------------------- mutation
+    def _encode_batch(self, vectors):
+        x = torch.atleast_2d(torch.as_tensor(vectors, dtype=torch.float32,
+                                             device=self.device))
+        return D.preprocess_corpus(x, self.metric)
+
+    def _write_rows(self, ids, rows, sq) -> None:
+        live = torch.ones_like(ids, dtype=torch.bool)
+        self._write_mirrors(ids, ((self._corpus, rows), (self._sq, sq),
+                                  (self._valid, live)))
+
+    def insert(self, vectors, ids=None) -> torch.Tensor:
+        rows, sq = self._encode_batch(vectors)
+        ids = self._take_ids(rows.shape[0], ids)
+        self._write_rows(ids, rows, sq)
+        self._record("inserts", ids.numel())
+        return ids
+
+    def delete(self, ids) -> int:
+        n = self._tombstone_valid(ids).numel()
+        if n:
+            self._record("deletes", n)
+        return n
+
+    def upsert(self, vectors, ids) -> torch.Tensor:
+        rows, sq = self._encode_batch(vectors)
+        ids = self._check_upsert_ids(rows.shape[0], ids)
+        self._write_rows(ids, rows, sq)
+        self._record("upserts", ids.numel())
+        return ids
+
+    def compact(self) -> dict:
+        """Ids are addresses here: nothing repacks, the mask already knocks
+        dead rows out of the scan. Counted, as in the reference."""
+        self._record("compactions", 1)
+        return {"dropped_tombstones": 0}
+
+    def reserve(self, extra_rows: int) -> tuple:
+        """Grow every buffer once to hold ``extra_rows`` more ids."""
+        self._reserve_mirrors(extra_rows, (self._corpus, self._sq,
+                                           self._valid))
+        return self.shape_key
+
+    # ------------------------------------------------------------- query
     def _sync(self) -> None:
         if not self._dirty:
             return

@@ -1,6 +1,6 @@
 """IVF coarse quantizer, the block-aligned inverted lists and the grouped
 grids' block schedule (port of ``repro.core.ivf``, the parts the IVF-PQ
-load and query paths use).
+engine uses: load, query and writes).
 
 ``kmeans`` and ``assign_clusters`` score rows against centroids in row
 chunks: the reference builds the whole (N, C) score matrix, which at
@@ -18,7 +18,7 @@ from collections import OrderedDict
 
 import torch
 
-from repro_torch.core.mutable import row_capacity
+from repro_torch.core.mutable import as_ids, row_capacity
 from repro_torch.device import strict_fp32
 
 SCORE_BUDGET = 1 << 28  # score-matrix entries a chunk may hold (1 GiB f32)
@@ -273,7 +273,8 @@ class ScheduleCache:
 
 
 class BlockListLayout:
-    """Block-aligned inverted lists on the device, the read side.
+    """Block-aligned inverted lists on the device, appendable and
+    tombstone-aware (port of the reference's ``BlockListLayout``).
 
     Storage is a (capacity, blk) slot table with a co-located
     (capacity, blk, m) uint8 code payload. Row ``capacity - 1`` is the
@@ -281,12 +282,26 @@ class BlockListLayout:
     c owns, in visit order, padded with -1 to the static ``steps_per_probe``
     width, which is a power of two. Capacities are power-of-two buckets
     (``mutable.row_capacity``), as in the reference, so that a layout built
-    here and one built there have the same shapes.
+    or mutated here and one there have the same arrays.
+
+    Invariants, the reference's: appends fill the cluster's last block
+    (``tail_fill`` slots of it used) before a new block is taken; a delete
+    writes -1 into the slot, exactly the pad sentinel every ADC grid knocks
+    out, and leaves its codes; ``compact`` repacks the live slots into
+    fresh dense blocks and keeps the capacities.
 
     ``pos`` maps a row id to its flat slot (row * blk + slot), -1 for an
-    id the layout does not hold; the reference keeps a dict for that.
-    Appends into partly filled tail blocks, deletes and compaction come
-    with ROADMAP.md Queue 1, item 5.
+    id the layout does not hold; the reference keeps a dict for that. It
+    grows with the id space, explicit ids beyond it included.
+
+    Free rows: the reference keeps a set and takes its lowest row for each
+    new block. In a single-host layout that set is always the one range
+    [next_free, capacity - 2]: load takes rows 0..B-1, a new block takes
+    the lowest free row, growth frees the old pad row (next in line), and
+    only compact frees blocks, all of them. So one integer stands for the
+    set, and a batch's new blocks are rows next_free + arange(R): clusters
+    in ascending order, each cluster's new blocks consecutive once its tail
+    block is full. That makes every write a few batched device operations.
     """
 
     def __init__(self, n_clusters: int, blk: int = 32, m: int = 0,
@@ -298,16 +313,18 @@ class BlockListLayout:
         self.m = int(m)
         self.spp_cap = 1
         cap = self._round_rows(2)
-        self.slots = torch.full((cap, blk), -1, dtype=torch.int32, device=device)
+        i32 = dict(dtype=torch.int32, device=device)
+        self.slots = torch.full((cap, blk), -1, **i32)
         self.codes = (torch.zeros((cap, blk, m), dtype=torch.uint8, device=device)
                       if m else None)
-        self.block_cluster = torch.full((cap,), -1, dtype=torch.int32,
-                                        device=device)
-        self.block_table = torch.full((self.C, 1), -1, dtype=torch.int32,
-                                      device=device)
-        self.bcnt = torch.zeros(self.C, dtype=torch.int32, device=device)
+        self.block_cluster = torch.full((cap,), -1, **i32)
+        self.block_table = torch.full((self.C, 1), -1, **i32)
+        self.bcnt = torch.zeros(self.C, **i32)
+        self.tail_fill = torch.zeros(self.C, **i32)
         self.pos = torch.full((0,), -1, dtype=torch.int64, device=device)
+        self.next_free = 0  # free storage rows: [next_free, capacity - 2]
         self.live = 0
+        self.tombstones = 0
 
     # ------------------------------------------------------------ build
     @classmethod
@@ -333,6 +350,8 @@ class BlockListLayout:
         m = 0 if payload is None else payload.shape[1]
         lay = cls(n_clusters, blk=blk, m=m, device=dev)
         lay.pos = torch.full((N,), -1, dtype=torch.int64, device=dev)
+        counts = torch.bincount(assign, minlength=n_clusters)
+        lay._reserve_rows(int(_block_ranges(counts, blk)[1].sum()) + 2)
         lay._bulk_append(assign, ids, payload)
         return lay
 
@@ -353,11 +372,17 @@ class BlockListLayout:
     def shape_key(self) -> tuple:
         return (self.capacity, self.spp_cap)
 
+    @property
+    def n_blocks(self) -> int:
+        """Allocated blocks, the pad row not counted."""
+        return self.next_free
+
     def _round_rows(self, n: int) -> int:
         return row_capacity(n, minimum=4)
 
     def _reserve_rows(self, n: int) -> bool:
-        """Grow storage to >= n rows (pad row included); True on growth."""
+        """Grow storage to >= n rows (pad row included); True on growth.
+        The old pad row becomes the first of the new free rows."""
         cap = self.capacity
         if n <= cap:
             return False
@@ -376,19 +401,47 @@ class BlockListLayout:
         self.block_cluster = bc
         return True
 
+    def _grow_spp(self, most: int) -> None:
+        """Double ``steps_per_probe`` until it holds ``most`` blocks."""
+        cap = self.spp_cap
+        while cap < max(1, most):
+            cap *= 2
+        if cap != self.spp_cap:
+            table = torch.full((self.C, cap), -1, dtype=torch.int32,
+                               device=self.block_table.device)
+            table[:, : self.spp_cap] = self.block_table
+            self.block_table = table
+            self.spp_cap = cap
+
+    def _ensure_pos(self, n_ids: int) -> None:
+        """Grow the id -> slot map to hold ids < n_ids."""
+        have = self.pos.numel()
+        if n_ids > have:
+            grown = torch.full((max(n_ids, have + have // 8),), -1,
+                               dtype=torch.int64, device=self.pos.device)
+            grown[:have] = self.pos
+            self.pos = grown
+
+    def reserve(self, extra_rows: int, extra_blocks_per_cluster: int = 0):
+        """Pre-size the capacity buckets for a planned ingest volume so that
+        the insert stream stays inside one shape bucket."""
+        blocks = -(-int(extra_rows) // self.blk) + self.C
+        self._reserve_rows(self.n_blocks + blocks + 2)
+        most = int(self.bcnt.max()) if self.C else 0
+        self._grow_spp(most + int(extra_blocks_per_cluster))
+
+    # --------------------------------------------------------- mutation
     def _bulk_append(self, clusters, ids, payload=None) -> None:
-        """Append rows to an empty layout (the load path): each cluster's
-        rows, in the given order, fill fresh contiguous blocks, clusters in
-        cluster order, and the last block of each is padded with -1.
-        Capacity grows to hold the blocks plus the pad row and one spare,
-        as the reference reserves."""
+        """Append rows to an empty layout (load and compact): each cluster's
+        rows, in the given order, fill fresh contiguous blocks from row 0,
+        clusters in cluster order, the last block of each padded with -1.
+        The capacity must already hold them."""
         clusters = clusters.long()
         dev = self.slots.device
         n = clusters.shape[0]
         counts = torch.bincount(clusters, minlength=self.C)
         bstart, bcnt = _block_ranges(counts, self.blk)
         total = int(bcnt.sum())
-        self._reserve_rows(total + 2)
         order = torch.sort(clusters, stable=True).indices
         c_sorted = clusters[order]
         rank = torch.arange(n, device=dev) - (torch.cumsum(counts, 0) - counts)[c_sorted]
@@ -399,16 +452,120 @@ class BlockListLayout:
             self.codes.view(-1, self.m)[flat] = payload[order].to(torch.uint8)
         self.pos[ids[order]] = flat
         owner = torch.repeat_interleave(
-            torch.arange(self.C, dtype=torch.int32, device=dev), bcnt)
+            torch.arange(self.C, dtype=torch.int32, device=dev), bcnt,
+            output_size=total)
         self.block_cluster[:total] = owner
-        most = max(1, int(bcnt.max())) if self.C else 1
-        while self.spp_cap < most:
-            self.spp_cap *= 2
+        self._grow_spp(int(bcnt.max()) if self.C else 0)
         r = torch.arange(self.spp_cap, device=dev)[None, :]
         self.block_table = torch.where(r < bcnt[:, None], bstart[:, None] + r,
                                        -1).to(torch.int32)
         self.bcnt = bcnt.to(torch.int32)
+        self.tail_fill = (counts - (bcnt - 1).clamp(min=0) * self.blk).to(torch.int32)
+        self.next_free = total
         self.live += n
+
+    def insert_rows(self, ids, clusters, payload=None) -> None:
+        """Append rows, all at once: each fills its cluster's last block,
+        then the cluster's fresh blocks (rows from ``next_free`` on, in
+        cluster order), exactly where the reference's row-by-row appends
+        put them. Capacity doubles while the new blocks do not fit, and
+        ``steps_per_probe`` while a cluster owns more blocks than it."""
+        ids = as_ids(ids, self.slots.device)
+        n = ids.numel()
+        if not n:
+            return
+        dev = ids.device
+        blk = self.blk
+        clusters = as_ids(clusters, dev)
+        counts = torch.bincount(clusters, minlength=self.C)
+        bcnt, fill = self.bcnt.long(), self.tail_fill.long()
+        take = torch.minimum(torch.where(bcnt > 0, blk - fill, 0), counts)
+        rest = counts - take
+        nb = -torch.div(-rest, blk, rounding_mode="floor")
+        R, most, top_id = torch.stack(
+            [nb.sum(), (bcnt + nb).max(), ids.max()]).tolist()
+        self._reserve_rows(self.next_free + R + 1)
+        self._grow_spp(most)
+        self._ensure_pos(top_id + 1)
+        first_new = torch.cumsum(nb, 0) - nb       # (C,) offset among new rows
+        order = torch.sort(clusters, stable=True).indices
+        c_s = clusters[order]
+        rank = torch.arange(n, device=dev) - (torch.cumsum(counts, 0) - counts)[c_s]
+        tail_row = self.block_table[torch.arange(self.C, device=dev),
+                                    (bcnt - 1).clamp(min=0)].long()
+        in_tail = rank < take[c_s]
+        extra = rank - take[c_s]
+        row = torch.where(in_tail, tail_row[c_s],
+                          self.next_free + first_new[c_s]
+                          + torch.div(extra, blk, rounding_mode="floor"))
+        flat = row * blk + torch.where(in_tail, fill[c_s] + rank, extra % blk)
+        self.slots.view(-1)[flat] = ids[order].to(torch.int32)
+        if payload is not None:
+            self.codes.view(-1, self.m)[flat] = payload[order].to(torch.uint8)
+        self.pos[ids[order]] = flat
+        if R:
+            new_c = torch.repeat_interleave(torch.arange(self.C, device=dev),
+                                            nb, output_size=R)
+            new_row = self.next_free + torch.arange(R, device=dev)
+            step = bcnt[new_c] + (new_row - self.next_free - first_new[new_c])
+            self.block_table[new_c, step] = new_row.to(torch.int32)
+            self.block_cluster[new_row] = new_c.to(torch.int32)
+        self.tail_fill = torch.where(nb > 0, rest - (nb - 1) * blk,
+                                     fill + take).to(torch.int32)
+        self.bcnt = (bcnt + nb).to(torch.int32)
+        self.next_free += R
+        self.live += n
+
+    def delete_rows(self, ids) -> int:
+        """Tombstone rows: each slot's id becomes the pad sentinel -1, so
+        every grid scores it exactly like a pad slot. Returns the distinct
+        live ids among ``ids`` (unknown and dead ids are ignored)."""
+        ids = as_ids(ids, self.pos.device)
+        ids = ids[(ids >= 0) & (ids < self.pos.numel())]
+        ids = torch.unique(ids[self.pos[ids] >= 0])
+        self.slots.view(-1)[self.pos[ids]] = -1
+        self.pos[ids] = -1
+        n = ids.numel()
+        self.live -= n
+        self.tombstones += n
+        return n
+
+    def contains(self, i: int) -> bool:
+        i = int(i)
+        return 0 <= i < self.pos.numel() and bool(self.pos[i] >= 0)
+
+    @property
+    def tombstone_fraction(self) -> float:
+        return self.tombstones / max(self.live + self.tombstones, 1)
+
+    def compact(self) -> dict:
+        """Repack the live slots into dense blocks, dropping tombstones and
+        restoring the <= blk - 1 tail slack, in one pass: the live slots in
+        (cluster, visit position, slot) order, then the load path's bulk
+        append. Capacities are kept, as in the reference."""
+        dev = self.slots.device
+        before, dropped = self.next_free, self.tombstones
+        owned = (torch.arange(self.spp_cap, device=dev)[None, :]
+                 < self.bcnt[:, None])
+        rows = self.block_table[owned].long()              # cluster-major
+        owner = torch.repeat_interleave(
+            torch.arange(self.C, device=dev), self.bcnt.long(),
+            output_size=before)
+        sl = self.slots[rows].reshape(-1)
+        keep = sl >= 0
+        ids = sl[keep].long()
+        clusters = torch.repeat_interleave(owner, self.blk)[keep]
+        payload = (self.codes[rows].reshape(-1, self.m)[keep]
+                   if self.codes is not None else None)
+        self.slots.fill_(-1)
+        if self.codes is not None:
+            self.codes.zero_()
+        self.block_cluster.fill_(-1)
+        self.pos.fill_(-1)
+        self.live = self.tombstones = 0
+        self._bulk_append(clusters, ids, payload)
+        return {"dropped_tombstones": int(dropped),
+                "blocks_before": int(before), "blocks_after": self.n_blocks}
 
     # ------------------------------------------------------------ views
     def assign_of(self, n_rows: int):

@@ -18,6 +18,12 @@ Both re-rank the best ``refine`` candidates exactly when they keep the
 corpus. Training and encoding walk the rows in chunks: the reference
 builds an (N, ksub) score matrix per subspace and an (N, m, ksub) one to
 encode, 580 GB at 8.8M rows and m = 64.
+
+Both take writes as the reference does: rows are encoded with the frozen
+codebooks (and, for IVF-PQ, assigned to the frozen centroids) and
+appended on the device; ``PQIndex`` counts the rows its codebooks never
+saw (``stale_fraction``, ``needs_retrain``), ``IVFPQIndex`` appends into
+its block layout and compacts past ``compact_threshold`` tombstones.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ from repro_torch.core.flat import _check_snapshot
 from repro_torch.core.ivf import (BlockListLayout, assign_clusters,
                                   assign_from_buckets, build_buckets, kmeans,
                                   row_chunk)
-from repro_torch.core.mutable import GrowableRows, MutationMixin
+from repro_torch.core.mutable import GrowableRows, MutationMixin, as_ids
 from repro_torch.device import resolve_device, strict_fp32
 from repro_torch.kernels import ops as kops
 
@@ -399,12 +405,14 @@ class PQIndex(MutationMixin):
     """Flat product-quantized engine: m bytes a row, the ADC scan over all
     codes, and an exact re-rank of the best ``refine`` candidates when the
     corpus is kept (refine=0 keeps only codes and codebooks). Codes, the
-    live mask and the corpus live on ``device``. Insert, delete and
-    retraining come with ROADMAP.md Queue 1, item 5."""
+    live mask and the corpus live on ``device``. Writes encode with the
+    frozen codebooks; ``needs_retrain`` says when more than
+    ``retrain_threshold`` of the live rows were encoded after training."""
 
     def __init__(self, metric: str = "cosine", m: int = 8, ksub: int = 256,
                  kmeans_iters: int = 10, refine: int = 32, seed: int = 0,
-                 lut_dtype: str = "float32", device=None):
+                 lut_dtype: str = "float32", retrain_threshold: float = 0.25,
+                 device=None):
         if metric not in D.METRICS:
             raise ValueError(f"metric {metric!r} not in {D.METRICS}")
         if lut_dtype not in kops.ADC_LUT_DTYPES:
@@ -417,22 +425,38 @@ class PQIndex(MutationMixin):
         self.refine = refine
         self.seed = seed
         self.lut_dtype = lut_dtype
+        self.retrain_threshold = retrain_threshold
         self.device = resolve_device(device)
         self.codebooks = self.codes = self.corpus = self.corpus_sq = None
         self.valid = None
         self._codes = self._corpus = self._sq = self._valid = None
         self.d = 0
+        self.inserted_since_train = 0
         self._mut_init(0)
 
     @property
     def size(self) -> int:
         return 0 if self._valid is None else int(self._valid.data.sum())
 
+    @property
+    def shape_key(self) -> tuple:
+        return (0 if self._codes is None else self._codes.capacity,)
+
+    @property
+    def stale_fraction(self) -> float:
+        """Fraction of live rows encoded after codebook training."""
+        return self.inserted_since_train / max(self.size, 1)
+
+    @property
+    def needs_retrain(self) -> bool:
+        return self.stale_fraction > self.retrain_threshold
+
     def _init_storage(self, codes, corpus, sq, live) -> None:
         self._codes = GrowableRows.from_array(codes)
         self._valid = GrowableRows.from_array(live)
         self._corpus = None if corpus is None else GrowableRows.from_array(corpus)
         self._sq = None if sq is None else GrowableRows.from_array(sq)
+        self.inserted_since_train = 0
         self._mut_init(codes.shape[0])
         self._sync()
 
@@ -450,6 +474,54 @@ class PQIndex(MutationMixin):
                                       device=self.device))
         return self
 
+    # ---------------------------------------------------------- mutation
+    def _encode_batch(self, vectors):
+        x = torch.atleast_2d(torch.as_tensor(vectors, dtype=torch.float32,
+                                             device=self.device))
+        rows, sq = D.preprocess_corpus(x, self.metric)
+        return pq_encode(self.codebooks, rows), rows, sq
+
+    def _write_rows(self, ids, codes, rows, sq) -> None:
+        live = torch.ones_like(ids, dtype=torch.bool)
+        self._write_mirrors(ids, ((self._codes, codes), (self._corpus, rows),
+                                  (self._sq, sq), (self._valid, live)))
+
+    def insert(self, vectors, ids=None) -> torch.Tensor:
+        codes, rows, sq = self._encode_batch(vectors)
+        ids = self._take_ids(codes.shape[0], ids)
+        self._write_rows(ids, codes, rows, sq)
+        self.inserted_since_train += ids.numel()
+        self._record("inserts", ids.numel())
+        return ids
+
+    def delete(self, ids) -> int:
+        n = self._tombstone_valid(ids).numel()
+        if n:
+            self._record("deletes", n)
+        return n
+
+    def upsert(self, vectors, ids) -> torch.Tensor:
+        codes, rows, sq = self._encode_batch(vectors)
+        ids = self._check_upsert_ids(codes.shape[0], ids)
+        self._write_rows(ids, codes, rows, sq)
+        self.inserted_since_train += ids.numel()
+        self._record("upserts", ids.numel())
+        return ids
+
+    def compact(self) -> dict:
+        """Ids are addresses into the code buffer: the live mask is the
+        whole tombstone story, nothing repacks. Counted, as in the
+        reference."""
+        self._record("compactions", 1)
+        return {"dropped_tombstones": 0}
+
+    def reserve(self, extra_rows: int) -> tuple:
+        """Grow every buffer once to hold ``extra_rows`` more ids."""
+        self._reserve_mirrors(extra_rows, (self._codes, self._corpus,
+                                           self._sq, self._valid))
+        return self.shape_key
+
+    # ------------------------------------------------------------- query
     def _sync(self) -> None:
         if not self._dirty:
             return
@@ -539,14 +611,21 @@ class IVFPQIndex(MutationMixin):
     assignments and a live mask beside the layout and scores all rows
     instead of probing (dot and cosine). ``adc_stats`` counts the batches
     each grid served; the owning ``VectorDB`` installs ``sched_cache`` and
-    ``_sched_ctx``."""
+    ``_sched_ctx``.
+
+    Writes: an insert assigns, residual-encodes and appends into the
+    layout; a delete tombstones the slots; an upsert tombstones the old
+    slot and re-appends the row under its own id, maybe in another
+    cluster; past ``compact_threshold`` tombstones (None = never) a write
+    compacts the layout."""
 
     def __init__(self, metric: str = "cosine", n_clusters: int = 0,
                  nprobe: int = 8, m: int = 8, ksub: int = 256,
                  kmeans_iters: int = 10, refine: int = 32, seed: int = 0,
                  lut_dtype: str = "float32", scan_all: bool = False,
-                 block_size: int = 32, adc_mode: str = "auto",
-                 adaptive_nprobe=None, qblk=None, device=None):
+                 block_size: int = 32, compact_threshold: float = 0.3,
+                 adc_mode: str = "auto", adaptive_nprobe=None, qblk=None,
+                 device=None):
         if metric not in D.METRICS:
             raise ValueError(f"metric {metric!r} not in {D.METRICS}")
         if lut_dtype not in kops.ADC_LUT_DTYPES:
@@ -565,6 +644,7 @@ class IVFPQIndex(MutationMixin):
         self.lut_dtype = lut_dtype
         self.scan_all = scan_all
         self.block_size = block_size
+        self.compact_threshold = compact_threshold
         self.adc_mode = adc_mode
         self.adaptive_nprobe = adaptive_nprobe
         self.qblk = qblk
@@ -580,6 +660,7 @@ class IVFPQIndex(MutationMixin):
         self._sched_ctx = ()
         self.codebooks = self.centroids = None
         self.codes = self.assign = self.valid = None  # scan_all's row-major view
+        self._codes_rm = self._assign = self._valid = None
         self.codes_bm = self.bucket_ids = self.block_table = None
         self.layout = None
         self.spp = 1
@@ -593,6 +674,13 @@ class IVFPQIndex(MutationMixin):
     def size(self) -> int:
         return 0 if self.layout is None else int(self.layout.live)
 
+    @property
+    def shape_key(self) -> tuple:
+        if self.layout is None:
+            return (0,)
+        return self.layout.shape_key + (
+            0 if self._corpus is None else self._corpus.capacity,)
+
     def _finalize_layout(self, codes, assign, live=None):
         """Build the block layout (load and load_state both land here);
         keep the row-major codes, assignments and live mask only for
@@ -601,12 +689,13 @@ class IVFPQIndex(MutationMixin):
             assign, self.centroids.shape[0], blk=self.block_size,
             payload=codes, live=live, device=self.device)
         if self.scan_all:
-            self.codes = codes
-            self.assign = assign.to(torch.int32)
-            self.valid = (torch.ones(codes.shape[0], dtype=torch.bool,
-                                     device=self.device)
-                          if live is None else live)
+            self._codes_rm = GrowableRows.from_array(codes)
+            self._assign = GrowableRows.from_array(assign.to(torch.int32))
+            self._valid = GrowableRows.from_array(
+                torch.ones(codes.shape[0], dtype=torch.bool, device=self.device)
+                if live is None else live)
         else:
+            self._codes_rm = self._assign = self._valid = None
             self.codes = self.assign = self.valid = None
         self.n = codes.shape[0]
         self._mut_init(self.n)
@@ -633,6 +722,78 @@ class IVFPQIndex(MutationMixin):
         self._finalize_layout(pq_encode(self.codebooks, residuals), assign)
         return self
 
+    # ---------------------------------------------------------- mutation
+    def _encode_batch(self, vectors):
+        x = torch.atleast_2d(torch.as_tensor(vectors, dtype=torch.float32,
+                                             device=self.device))
+        rows, sq = D.preprocess_corpus(x, self.metric)
+        assign = assign_clusters(rows, self.centroids)
+        codes = pq_encode(self.codebooks, rows - self.centroids[assign])
+        return codes, assign, rows, sq
+
+    def _write_side(self, ids, assign, codes, rows, sq) -> None:
+        live = torch.ones_like(ids, dtype=torch.bool)
+        self._write_mirrors(ids, ((self._corpus, rows), (self._sq, sq),
+                                  (self._codes_rm, codes),
+                                  (self._assign, assign), (self._valid, live)))
+
+    def insert(self, vectors, ids=None) -> torch.Tensor:
+        """Assign, residual-encode, append into the layout."""
+        codes, assign, rows, sq = self._encode_batch(vectors)
+        ids = self._take_ids(codes.shape[0], ids)
+        self.layout.insert_rows(ids, assign, codes)
+        self._write_side(ids, assign, codes, rows, sq)
+        self.n = self.next_id
+        self._record("inserts", ids.numel())
+        return ids
+
+    def delete(self, ids) -> int:
+        """Tombstone rows; returns the distinct live ids among ``ids``."""
+        n = self.layout.delete_rows(ids)
+        if self._valid is not None:
+            dead = as_ids(ids, self.device)
+            dead = dead[(dead >= 0) & (dead < self._valid.n)]
+            self._valid.data[dead] = False
+        if n:
+            self._record("deletes", n)
+            self._maybe_compact()
+        return n
+
+    def upsert(self, vectors, ids) -> torch.Tensor:
+        """Re-encode existing ids: the old slot is tombstoned and the row
+        re-appended under its own id in its (maybe different) cluster."""
+        codes, assign, rows, sq = self._encode_batch(vectors)
+        ids = self._check_upsert_ids(codes.shape[0], ids)
+        self.layout.delete_rows(ids)
+        self.layout.insert_rows(ids, assign, codes)
+        self._write_side(ids, assign, codes, rows, sq)
+        self._record("upserts", ids.numel())
+        self._maybe_compact()
+        return ids
+
+    def _maybe_compact(self) -> None:
+        if (self.compact_threshold is not None
+                and self.layout.tombstone_fraction > self.compact_threshold):
+            self.compact()
+
+    def reserve(self, extra_rows: int,
+                extra_blocks_per_cluster: int = 0) -> tuple:
+        """Pre-size every buffer for a planned ingest volume: the layout's
+        rows and steps per probe, and each row buffer once to
+        ``extra_rows`` more ids. Returns the resulting shape_key."""
+        self.layout.reserve(extra_rows, extra_blocks_per_cluster)
+        self._reserve_mirrors(extra_rows, (self._corpus, self._sq,
+                                           self._codes_rm, self._assign,
+                                           self._valid))
+        return self.shape_key
+
+    def compact(self) -> dict:
+        """Repack the block lists, dropping tombstones (capacities kept)."""
+        stats = self.layout.compact()
+        self._record("compactions", 1)
+        return stats
+
+    # ------------------------------------------------------------- query
     def _sync(self) -> None:
         if not self._dirty:
             return
@@ -641,6 +802,10 @@ class IVFPQIndex(MutationMixin):
         self.bucket_ids = lay.slots
         self.block_table = lay.block_table
         self.spp = lay.steps_per_probe
+        if self.scan_all:
+            self.codes = self._codes_rm.data
+            self.assign = self._assign.data
+            self.valid = self._valid.data
         self.corpus = None if self._corpus is None else self._corpus.data
         self.corpus_sq = None if self._sq is None else self._sq.data
         self._dirty = False

@@ -8,7 +8,7 @@ length, the counterpart of the reference's Pallas TPU path. On a CPU tensor
 plain versions: the materialized ``_dense_attention`` below the config's
 ``attn_chunk_threshold``, the online-softmax ``_chunked_attention`` (the
 kernel's twin, which never holds the (Sq, Sk) scores) at and above it.
-The KV-cache decode paths and MLA come with ROADMAP.md Queue 1, item 10.
+The KV-cache decode paths and MLA come with ROADMAP.md Queue 1, item 7.
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@
 A bidirectional transformer (EncoderConfig.causal=False) with the paper's
 three pooling options (CLS / mean / max-over-time), an optional projection
 and L2 normalization. The contrastive loss that trains it comes with the
-training stack (ROADMAP.md Queue 1, item 10).
+training stack (ROADMAP.md Queue 1, item 7).
 
     model = init(cfg, torch.Generator().manual_seed(0))   # on the card
     emb = encode(model, cfg, tokens, mask)                 # (B, E) float32

@@ -7,7 +7,7 @@ dense-block forward and the pooled embedding the vector-DB tower reads).
 
 The reference scans a stack of layer parameters; here ``dense_blocks`` is
 a ``ModuleList`` walked in order. MoE blocks, the MTP head, the LM head and
-its loss, prefill and decode come with ROADMAP.md Queue 1, item 11.
+its loss, prefill and decode come with ROADMAP.md Queue 1, item 8.
 """
 from __future__ import annotations
 
@@ -44,11 +44,11 @@ class Transformer(nn.Module):
         if cfg.moe is not None:
             raise NotImplementedError(
                 "MoE blocks come with the LM stack (ROADMAP.md Queue 1, item "
-                "11); the port serves dense encoders so far")
+                "8); the port serves dense encoders so far")
         if cfg.mtp_depth:
             raise NotImplementedError(
                 "the MTP head is training-only and comes with the LM stack "
-                "(ROADMAP.md Queue 1, item 11)")
+                "(ROADMAP.md Queue 1, item 8)")
         dtype = getattr(torch, cfg.param_dtype)
         self.embed = Embed(generator, cfg.vocab_size, cfg.d_model, dtype)
         self.dense_blocks = nn.ModuleList(

@@ -886,3 +886,134 @@ def test_encoder_launches_flash_attention_on_the_card():
     cos = (got * want).sum(-1)
     assert bool((cos[:-1] >= 0.999).all()), cos
     assert bool((got[-1] == 0).all()) and bool((want[-1] == 0).all())
+
+
+# ------------------------------------------------------ mutated layouts
+def _mutated_ivf(dev, stage, metric="dot"):
+    """An ivf_pq engine on the card after writes: ``tombstoned`` (a third
+    of the rows deleted, slots in the middle of blocks), ``spilled``
+    (inserts that fill tail blocks and open new ones, upserts that move
+    rows), ``grown`` (inserts past the storage capacity: the pad block
+    moves, and past steps_per_probe), ``compacted`` (then compact)."""
+    rng = np.random.default_rng(6)
+    centres = rng.normal(size=(24, 64)).astype(np.float32)
+
+    def rows(n):
+        return centres[rng.integers(0, 24, n)] + rng.normal(
+            size=(n, 64)).astype(np.float32)
+
+    db = VectorDB("ivf_pq", metric=metric, m=16, refine=0, nprobe=6,
+                  compact_threshold=None, device=dev).load(rows(20_000))
+    lay = db.index.layout
+    cap, spp = lay.capacity, lay.steps_per_probe
+    db.delete(torch.arange(0, 20_000, 3, device=dev))
+    if stage in ("spilled", "grown", "compacted"):
+        db.insert(rows(3_000))
+        db.upsert(rows(500), torch.arange(1, 1_000, 2, device=dev))
+    if stage in ("grown", "compacted"):
+        while lay.capacity == cap or lay.steps_per_probe == spp:
+            db.insert(rows(20_000))
+            lay = db.index.layout
+    if stage == "compacted":
+        db.compact()
+    return db, rows
+
+
+@pytest.mark.parametrize("stage", ["tombstoned", "spilled", "grown",
+                                   "compacted"])
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_every_grid_on_a_mutated_layout(stage, metric):
+    """On tombstoned, spilled, grown and compacted layouts each ivf_adc
+    grid equals its plain version bit for bit, the grouped ones also the
+    per-query kernel, no deleted id comes back, and the per-query kernel
+    scores exactly the real (non-pad) steps."""
+    from repro_torch.kernels import ivf_adc as K
+    dev = _card()
+    db, rows = _mutated_ivf(dev, stage, metric)
+    q = torch.as_tensor(rows(37), device=dev)
+    args, kw = _probe_inputs(db, q)
+    kw.update(k=50, lut_dtype="float32")
+    dead = ~db.index.layout.live_mask(db.index.n)
+    for mode in ("per_query", "blocked", "run_resident"):
+        got = ops.ivf_adc_topk(*args, mode=mode, use_kernel=True, **kw)
+        _same(got, ops.ivf_adc_topk(*args, mode=mode, use_kernel=False, **kw))
+        if mode != "per_query":
+            _same(got, ops.ivf_adc_topk(*args, mode="per_query",
+                                        use_kernel=True, **kw))
+        ids = got[1][got[1] >= 0].long()
+        assert not bool(dead[ids].any()), mode
+    codes, slots, visit, luts = args
+    walked = torch.zeros(visit.shape[0], dtype=torch.int32, device=dev)
+    K._per_query_cuda(codes, slots, visit, luts, kw["coarse"], k=50,
+                      steps_per_probe=kw["steps_per_probe"],
+                      lut_dtype="float32", pad_block=kw["pad_block"],
+                      walked=walked)
+    real = (visit != kw["pad_block"]).sum(1)
+    assert torch.equal(walked.long(), real)
+
+
+def test_mutated_flat_and_pq_kernels_match_plain():
+    """flat (float32 and bf16) and pq after inserts, deletes and upserts:
+    the kernel path equals the plain path on the engines' own buffers."""
+    dev = _card()
+    rng = np.random.default_rng(8)
+    x = rng.normal(size=(9_000, 64)).astype(np.float32)
+    q = torch.as_tensor(x[:33] + 0.01, device=dev)
+    for engine, kw in (("flat", {}), ("flat", {"dtype": torch.bfloat16}),
+                       ("pq", {"m": 16})):
+        db = VectorDB(engine, metric="l2", device=dev, **kw).load(x[:8_000])
+        db.insert(x[8_000:])
+        db.delete(torch.arange(0, 9_000, 4, device=dev))
+        db.upsert(x[:100] * 0.5, torch.arange(100, 200, device=dev))
+        idx = db.index
+        idx._sync()
+        if engine == "flat":
+            kk = dict(k=20, metric="l2", corpus_sq=idx.corpus_sq,
+                      valid=idx.valid)
+            got = ops.topk_distance(idx.corpus, q.to(idx.corpus.dtype),
+                                    use_kernel=True, **kk)
+            want = ops.topk_distance(idx.corpus, q.to(idx.corpus.dtype),
+                                     use_kernel=False, **kk)
+            torch.cuda.synchronize()
+            assert bool(idx.valid[got[1].long()].all())
+            assert (got[1] == want[1]).float().mean() > 0.99
+        else:
+            from repro_torch.core.pq import adc_tables
+            luts = adc_tables(idx.codebooks, q, metric="l2")
+            got = ops.adc_topk(idx.codes, luts, k=20, valid=idx.valid,
+                               use_kernel=True)
+            _same(got, ops.adc_topk(idx.codes, luts, k=20, valid=idx.valid,
+                                    use_kernel=False))
+            assert bool(idx.valid[got[1].long()].all())
+
+
+def test_async_front_completes_through_the_copy_event(monkeypatch):
+    """On the card the batcher issues each batch's copy into pinned host
+    memory on its own stream; the completer waits on that copy's event
+    and never synchronizes the device. Results equal the pump's."""
+    import threading
+    from repro_torch.serve import AsyncQueryEngine, QueryEngine
+    dev = _card()
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(30_000, 64)).astype(np.float32)
+    db = VectorDB("ivf_pq", m=16, device=dev).load(x)
+    qs = x[:200] + 0.01 * rng.normal(size=(200, 64)).astype(np.float32)
+    pump = QueryEngine(db, max_batch=16)
+    rids = [pump.submit(q, 10) for q in qs]
+    pump.drain()
+    synced = []
+    real_sync = torch.cuda.synchronize
+
+    def sync(*a, **k):
+        synced.append(threading.current_thread().name)
+        return real_sync(*a, **k)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", sync)
+    with AsyncQueryEngine(db, max_batch=16, max_inflight=2) as eng:
+        futs = [eng.submit(q, 10) for q in qs]
+        for f, rid in zip(futs, rids):
+            s, i = f.result(timeout=60)
+            assert i.device.type == "cpu" and s.device.type == "cpu"
+            np.testing.assert_array_equal(i.numpy(), pump.result(rid)[1].numpy())
+        assert eng._copy_stream is not None
+    assert "serve-completer" not in synced

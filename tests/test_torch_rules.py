@@ -36,7 +36,8 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
 
 
 def test_import_loads_no_jax():
-    code = ("import json, sys, repro_torch, repro_torch.core.convert; "
+    code = ("import json, sys, repro_torch, repro_torch.core.convert, "
+            "repro_torch.serve; "
             "print(json.dumps([m for m in sys.modules if m.split('.')[0] "
             "in ('jax', 'jaxlib', 'repro')]))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
