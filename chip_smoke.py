@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--n ROWS] [--seed S] [--rank R] [--min-recall X]
+                          [--snapshot-dir DIR]
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. header: the card's name, power limit and top SM clock (nvidia-smi),
@@ -77,7 +78,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      their times before this design, at every query tile, by k and by L),
      launches on each engine's path, full-size batches of each kernel
      against its plain version, peak device memory and each phase's
-     seconds;
+     seconds. Filtered search on the same engines: flat, pq and ivf_pq load
+     seeded metadata on every row (``year``, an integer column of 128
+     values; ``cat``, 8 categories; ``flag``, a boolean), and five
+     predicates (one in each of the reference's selectivity buckets, <= 1,
+     <= 10, <= 50 and > 50 %, and one that allows every row) run at Q = 1,
+     32, 512, k = 10, on flat, pq, ivf_pq under each adc_mode and scan_all:
+     each bitmap's host build and upload timed apart from the query, p50 /
+     p99 of the filtered query, filter_stats with the nprobe boosts;
+     checks: no id outside its bitmap, the all-true predicate's answer
+     bit-equal to the unfiltered one, every grid equal to per_query on
+     filtered batches, each kernel on each bitmap's inputs against its
+     plain version (topk_distance within its bound, pq_adc and the three
+     ivf_adc grids at the boosted nprobe bit for bit), filtered flat against
+     a brute-force filtered top 10 (float64); filtered recall@10 against
+     filtered flat by bucket, gated at ``--min-recall`` above 10 % for
+     ivf_pq and scan_all;
   5. the text path at full width, after the engines of phase 4 are
      dropped: thistle-sbert FULL (12 layers, d_model 768, bf16, seeded
      random weights) encodes 131,072 MarcoLike passages (seq_len 64)
@@ -85,18 +101,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      Q = 1, 32, 512; load split (tokenize, encode, index), p50/p99 and QPS,
      stage times, ``flash_attention``'s time beside its bound, its plain
      version's and ``F.scaled_dot_product_attention``'s, one encoder
-     block's stage times, one encode at max_seq_len 512, and three gates: the encoder through the kernel
+     block's stage times, one encode at max_seq_len 512; hybrid search:
+     ``enable_lexical`` over the passages (its build time), ``query(...,
+     hybrid=alpha, hybrid_texts=...)`` at Q = 1, 32, 512 (alpha = 1 equal to
+     the dense ids, alpha = 0 to BM25's ranking, p50 at alpha = 0.5 with
+     BM25's share); and three gates: the encoder through the kernel
      against the same forward through the plain attention (cosine >=
      0.999 at (32, 64) and (32, 512)), 512 passages sent back as queries
      finding themselves in their top 10 (>= 99 %), and the kernel
      launched on the path;
   6. mutation and serving, after phase 5, on the phase-4 data made again
      from ``--seed``: ``VectorDB("ivf_pq")`` at the reference defaults but
-     m = 64 (its copy of the data dropped after load) takes the
-     reference's mutation mix (BENCH_mutation.json's paths): 88,418 new
-     rows of the same distribution inserted in batches of 1,024, 884,182
-     random live ids deleted in batches of 8,192, 88,418 other live ids
-     upserted with fresh vectors in batches of 1,024, then ``compact``;
+     m = 64, with phase 4's metadata columns (its copy of the data dropped
+     after load), takes the reference's mutation mix (BENCH_mutation.json's
+     paths): 88,418 new rows of the same distribution inserted in batches of
+     1,024, 884,182 random live ids deleted in batches of 8,192, 88,418
+     other live ids upserted with fresh vectors in batches of 1,024 (inserts
+     and upserts with metadata), then ``compact``;
      rows/s of each, compact seconds, the layout's capacity, blocks and
      steps_per_probe and plan_generation before and after, p50/p99 under
      every adc_mode at Q = 1, 32, 512 before the writes, at 10 %
@@ -116,11 +137,36 @@ Phases, in order; any failure raises and the script exits non-zero:
      after every 8 (interleaved_1to8; a read behind an insert finds the
      row, no read sees an id deleted before it) and 2,048 reads alone
      (ids equal ``db.query(bucketize=False)``), p50/p99, QPS,
-     queue_depth_max, plan hits and misses; then ``flat`` (float32, bf16)
-     and ``pq`` at 262,144 rows under the same mix, scaled: each kernel
-     path against its plain path on the mutated buffers and the float32
-     flat against brute force over the live rows; peak device memory;
-  7. a JSON line of the kernels, then the result line.
+     queue_depth_max, plan hits and misses; then phase 7 on that index;
+     then ``flat`` (float32, bf16) and ``pq`` at 262,144 rows under the
+     same mix, scaled: each kernel path against its plain path on the
+     mutated buffers and the float32 flat against brute force over the
+     live rows; peak device memory;
+  7. durability on phase 6's index (N = 8,841,823 plus its writes): the
+     snapshot directory's free bytes, filesystem type and the host's
+     MemTotal (below 1.2 x the snapshot's bytes free, the phase runs on a
+     262,144-row ivf_pq and says so); ``save_index(step=1, durable=True)``
+     (seconds, bytes, GB/s); a logged write mix with an fsync a record (16
+     insert batches of 1,024 with metadata, 2 delete batches of 8,192, 4
+     upsert batches of 1,024, compact), rows/s beside phase 6's, the log's
+     bytes and fsyncs; the answers at Q = 1, 32, 512 under per_query and
+     auto, a filtered batch, size, generation, the writes since the
+     snapshot, the live ids with their clusters and codes copied to the
+     host; a crash (the db dropped without a save); ``restore_index(durable
+     =True)`` into a fresh db (read, upload, rebuild and replay seconds,
+     records replayed), and everything copied must come back equal, answers
+     bit for bit (ids may swap only between exactly tied scores); the
+     interleaved_1to8 stream through ``AsyncQueryEngine(fsync_interval_ms
+     =2)`` on the restored index (QPS, p50/p99, wal_records, wal_fsyncs),
+     read-your-writes, and each write resolved only once the log's
+     synced_lsn reached its record, then a burst of 64 inserts queued at
+     once through the same front (records against fsyncs); flat
+     (float32, bf16), pq and lsh at
+     262,144 rows saved and restored, serving the saved answers bit for bit
+     (the restored lsh through ``hamming``); ``--snapshot-dir`` (the
+     system's temporary directory by default) holds a directory of its
+     own, removed at the end;
+  8. a JSON line of the kernels, then the result line.
 
 It needs one CUDA card and the repository's ``src/`` beside it, and it
 imports nothing of the JAX package.
@@ -493,9 +539,10 @@ def compare_pq(codes, luts, *, k, lut_dtype, label, valid=None,
                      ops.adc_topk(codes, luts, use_kernel=False, **kw), label)
 
 
-def probe_inputs(index, q):
-    """The ivf_adc kernels' inputs for queries q, as the engine builds them:
-    (bucket codes, bucket ids, visit, luts, coarse, steps_per_probe)."""
+def probe_inputs(index, q, nprobe=None):
+    """The ivf_adc kernels' inputs for queries q, as the engine builds them
+    (at ``nprobe``, the engine's by default): (bucket codes, bucket ids,
+    visit, luts, coarse, steps_per_probe)."""
     from repro_torch.core import distances as D
     from repro_torch.core.pq import _ivf_probe_stage
     index._sync()
@@ -505,7 +552,7 @@ def probe_inputs(index, q):
         q, metric = D.l2_normalize(q), "dot"
     visit, luts, coarse, _ = _ivf_probe_stage(
         index.codebooks, index.centroids, q, index.block_table, metric=metric,
-        nprobe=index.nprobe, steps_per_probe=index.spp,
+        nprobe=nprobe or index.nprobe, steps_per_probe=index.spp,
         pad_block=index.bucket_ids.shape[0] - 1)
     return index.codes_bm, index.bucket_ids, visit, luts, coarse, index.spp
 
@@ -1096,15 +1143,21 @@ def phase_main(n: int, seed: int, device, rank: int, min_recall: float,
     log(f"  data made on the card: {time.perf_counter() - t0:.2f} s")
     kernels, launches, recalls = [], {}, {}
     t0 = time.perf_counter()
-    truth = main_flat(corpus, queries, device, kernels, launches)
+    meta = seeded_meta(n, seed)
+    log(f"  metadata made on the host (numpy, from --seed): "
+        f"{time.perf_counter() - t0:.2f} s; columns year (int, 0..127), cat "
+        f"(8 categories), flag (bool, 70 % true)")
+    t0 = time.perf_counter()
+    truth, ftruth = main_flat(corpus, queries, device, kernels, launches, meta)
     log(f"  [flat: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
     recalls["pq"] = main_pq(corpus, queries, truth, device, kernels, launches,
-                            rates["lookups"])
+                            rates["lookups"], meta, ftruth)
     log(f"  [pq: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
     recalls["ivf_pq"] = main_ivf(corpus, queries, truth, device, kernels,
-                                 launches, rates["lookups"], seed)
+                                 launches, rates["lookups"], seed, meta,
+                                 ftruth, min_recall)
     log(f"  [ivf_pq: {time.perf_counter() - t0:.1f} s]")
     peak = torch.cuda.max_memory_allocated()
     log(f"  peak device memory through ivf_pq: {peak / 1e9:.2f} GB")
@@ -1181,21 +1234,40 @@ def by_q(times) -> dict:
             for Q, t in times.items()}
 
 
-def main_flat(corpus, queries, device, kernels, launches):
-    """flat, the exact ground truth: serve, time topk_distance; then the
-    same engine with a bf16 corpus (the f32 one dropped first): serve,
-    recall against the f32 truth, time. Returns the f32 truth."""
+def main_flat(corpus, queries, device, kernels, launches, meta):
+    """flat, the exact ground truth: serve, filtered queries (the kernel on
+    each bitmap against its plain version and brute force), time
+    topk_distance; then the same engine with a bf16 corpus (the f32 one
+    dropped first): serve, recall against the f32 truth, time. Returns
+    (the f32 truth, the filtered truths by predicate), at Q = 512."""
     import torch
     from repro_torch import VectorDB
+    from repro_torch.core import distances as D
     from repro_torch.kernels import ops
     t0 = time.perf_counter()
-    flat = VectorDB("flat", metric="cosine", device=device).load(corpus)
+    flat = VectorDB("flat", metric="cosine", device=device).load(corpus,
+                                                                meta=meta)
     torch.cuda.synchronize()
-    log(f"  flat load: {time.perf_counter() - t0:.2f} s")
+    log(f"  flat load: {time.perf_counter() - t0:.2f} s (with the metadata "
+        f"columns {sorted(meta)})")
     res, counts = serve_and_count(flat, queries, "flat")
-    launches["topk_distance"] = counts["topk_distance"]
     truth = res[max(BATCHES)][1]
+    maps = bitmaps(flat, device)
+    f_launch = {}
+    fres = counted(f_launch, serve_filtered, flat, queries, "flat", maps, res)
+    ftruth = {name: r[max(BATCHES)][1] for name, r in fres.items()}
+    launches["topk_distance"] = counts["topk_distance"] + f_launch.get(
+        "topk_distance", 0)
     fc = flat.index.corpus
+    qn = D.l2_normalize(queries[:32])
+    f_err = 0.0
+    for name, (pred, allowed) in maps.items():
+        valid = ops.and_allowed(flat.index.valid, allowed, fc.shape[0])
+        f_err = max(f_err, compare_topk(
+            fc, qn, "dot", 10, f"topk_distance filtered {name} Q=32",
+            valid=valid))
+        brute_filtered(fc, qn, valid, fres[name][32],
+                       f"flat filtered {name} Q=32")
     times = time_topk(fc, queries, "float32")
     ms, lib_ms = times[32][0], times[32][2]
     log(f"  topk_distance float32 Q=32: kernel {ms:.3f} ms against "
@@ -1213,7 +1285,9 @@ def main_flat(corpus, queries, device, kernels, launches):
         f"library_ms: torch.matmul + torch.topk (Q = 512 in 4 chunks of "
         f"128 queries)")
     entry["by_q"] = by_q(times)
-    del flat, fc, res
+    entry["filtered"] = {"launches": f_launch.get("topk_distance", 0),
+                         "max_abs_err": f_err}
+    del flat, fc, res, fres, maps
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1246,7 +1320,7 @@ def main_flat(corpus, queries, device, kernels, launches):
     del flat, fc, res
     ops.reset_launch_counts()
     torch.cuda.empty_cache()
-    return truth
+    return truth, ftruth
 
 
 def pq_bound(codes, luts, valid, k: int, lookups_per_s: float) -> tuple:
@@ -1262,8 +1336,9 @@ def pq_bound(codes, luts, valid, k: int, lookups_per_s: float) -> tuple:
 
 
 def main_pq(corpus, queries, truth, device, kernels, launches,
-            lookups_per_s: float) -> float:
-    """pq, the flat PQ engine: serve, recall, time pq_adc."""
+            lookups_per_s: float, meta, ftruth) -> float:
+    """pq, the flat PQ engine: serve, recall, filtered queries (pq_adc on
+    each bitmap against its plain version), time pq_adc."""
     import torch
     from repro_torch import VectorDB
     from repro_torch.kernels import ops
@@ -1272,17 +1347,28 @@ def main_pq(corpus, queries, truth, device, kernels, launches,
                                             pq_adc_plain)
     t0 = time.perf_counter()
     db = VectorDB("pq", metric="cosine", m=M_SUBSPACES,
-                  device=device).load(corpus)
+                  device=device).load(corpus, meta=meta)
     torch.cuda.synchronize()
     log(f"  pq load: {time.perf_counter() - t0:.2f} s (codes "
         f"{db.index.memory_bytes() / 1e9:.3f} GB with the live mask and "
         f"codebooks)")
     res, counts = serve_and_count(db, queries, "pq")
-    launches["pq_adc"] = counts["pq_adc"]
     recall = recall_at_10(res[max(BATCHES)][1], truth)
     log(f"  recall@10 of pq against flat: {recall:.4f} "
         f"({truth.shape[0]} queries)")
     k = db.index.refine
+    maps = bitmaps(db, device)
+    f_launch = {}
+    fres = counted(f_launch, serve_filtered, db, queries, "pq", maps, res)
+    filtered_recalls(fres, ftruth, "pq")
+    launches["pq_adc"] = counts["pq_adc"] + f_launch.get("pq_adc", 0)
+    f_err = 0.0
+    for name, (pred, allowed) in maps.items():
+        codes, luts, valid = pq_inputs(db.index, queries[:32])
+        f_err = max(f_err, compare_pq(
+            codes, luts, k=k, lut_dtype="float32",
+            valid=ops.and_allowed(valid, allowed, codes.shape[0]),
+            label=f"pq_adc filtered {name} Q=32"))
     by_q = {}
     for Q in BATCHES:
         codes, luts, valid = pq_inputs(db.index, queries[:Q])
@@ -1323,10 +1409,12 @@ def main_pq(corpus, queries, truth, device, kernels, launches,
         f"Q=32 N={codes.shape[0]} m={codes.shape[1]} k={k}; library_ms "
         f"null: no single PyTorch call gathers and sums table entries")
     entry["by_q"] = by_q
+    entry["filtered"] = {"launches": f_launch.get("pq_adc", 0),
+                         "max_abs_err": f_err}
     kernels.append(entry)
     log(f"  pq_adc Q=32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
         f"{bound[0]:.3f} ms ({bound[1]}), no single library call")
-    del db, codes, luts, valid, bias, res
+    del db, codes, luts, valid, bias, res, fres, maps
     ops.reset_launch_counts()
     torch.cuda.empty_cache()
     return recall
@@ -1350,10 +1438,13 @@ def hot_queries(corpus, seed: int, device):
 
 
 def main_ivf(corpus, queries, truth, device, kernels, launches,
-             lookups_per_s: float, seed: int) -> float:
-    """ivf_pq, trained once, served under every grid; scan_all at Q = 32;
-    the three ivf_adc kernels timed on the phase's queries and on the hot
-    set."""
+             lookups_per_s: float, seed: int, meta, ftruth,
+             min_recall: float) -> float:
+    """ivf_pq, trained once, served under every grid, unfiltered and
+    filtered (each grid on each bitmap against its plain version, at the
+    boosted nprobe); scan_all at Q = 32, and filtered; the three ivf_adc
+    kernels timed on the phase's queries and on the hot set."""
+    import numpy as np
     import torch
     from repro_torch import VectorDB
     from repro_torch.kernels import ivf_adc as K
@@ -1361,7 +1452,7 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
     from repro_torch.kernels.autotune import LEDGER
     t0 = time.perf_counter()
     db = VectorDB("ivf_pq", metric="cosine", m=M_SUBSPACES,
-                  device=device).load(corpus)
+                  device=device).load(corpus, meta=meta)
     torch.cuda.synchronize()
     idx = db.index
     log(f"  ivf_pq load: {time.perf_counter() - t0:.2f} s "
@@ -1389,6 +1480,25 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
     recall = recall_at_10(results["per_query"][max(BATCHES)][1], truth)
     log(f"  recall@10 of ivf_pq against flat: {recall:.4f} "
         f"({truth.shape[0]} queries)")
+    maps = bitmaps(db, device)
+    f_launch, fres = {}, {}
+    for mode in ("auto", "per_query") + GROUPED:
+        idx.adc_mode = mode
+        fres[mode] = counted(f_launch, serve_filtered, db, queries,
+                             f"ivf_pq {mode}", maps, results[mode])
+        filtered_recalls(fres[mode], ftruth, f"ivf_pq {mode}", min_recall)
+    for mode in ("auto",) + GROUPED:
+        for name in maps:
+            for Q in BATCHES:
+                if not same_result(fres[mode][name][Q],
+                                   fres["per_query"][name][Q]):
+                    raise AssertionError(f"ivf_pq {mode} where {name} Q={Q} "
+                                         "differs from per_query")
+    log("  ivf_pq filtered: auto, blocked and run_resident equal per_query "
+        f"bit for bit for every predicate at Q = {BATCHES}; launches "
+        f"{f_launch}")
+    for name in ("ivf_adc",) + tuple(f"ivf_adc_{m}" for m in GROUPED):
+        launches[name] += f_launch.get(name, 0)
     idx.adc_mode = "per_query"
     ivf_breakdown(idx, queries)
 
@@ -1456,6 +1566,24 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
                                           compare_grouped(
                 *args[:5], mode=mode, qblk=8, **kw,
                 label=f"ivf_adc_{mode} full size Q={Q}"))
+    f_errs = dict.fromkeys(grids, 0.0)
+    for name, (pred, allowed) in maps.items():
+        sel = float(allowed.float().mean())
+        boost = int(np.clip(np.round(1.0 / max(sel, 1e-9)), 1, 4))
+        nprobe = min(idx.nprobe * boost, idx.centroids.shape[0])
+        codes, ids, visit, luts, coarse, spp = probe_inputs(
+            idx, queries[:32], nprobe=nprobe)
+        masked = ops.mask_allowed_ids(ids, allowed)
+        kw = dict(k=k, spp=spp, lut_dtype="float32")
+        f_errs["ivf_adc"] = max(f_errs["ivf_adc"], compare_ivf(
+            codes, masked, visit, luts, coarse, **kw,
+            label=f"ivf_adc filtered {name} Q=32 nprobe={nprobe}"))
+        for mode in GROUPED:
+            f_errs[f"ivf_adc_{mode}"] = max(
+                f_errs[f"ivf_adc_{mode}"], compare_grouped(
+                    codes, masked, visit, luts, coarse, mode=mode, qblk=8,
+                    **kw, label=f"ivf_adc_{mode} filtered {name} Q=32 "
+                                f"nprobe={nprobe}"))
     hot_set(idx, corpus, seed, device, grids, lookups_per_s)
     for name, (ms, plain_ms, b, shape) in timed.items():
         kernels.append(kernel_entry(
@@ -1469,13 +1597,16 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
         kernels[-1]["by_q"] = {str(Q): {"ms": t[0], "bound_ms": t[1][0],
                                         "bound_by": t[1][1]}
                                for Q, t in by_q[name].items()}
+        kernels[-1]["filtered"] = {"launches": f_launch.get(name, 0),
+                                   "max_abs_err": f_errs[name]}
         log(f"  {name} Q=32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"bound {b[0]:.3f} ms ({b[1]}), no single library call")
 
     # scan_all from the same trained state (the corpus tensor is shared)
     t0 = time.perf_counter()
     sdb = VectorDB("ivf_pq", metric="cosine", m=M_SUBSPACES, scan_all=True,
-                   device=device).load_state(idx.state_dict())
+                   device=device).load_state(
+        dict(idx.state_dict(), **db.metastore.state_leaves()))
     torch.cuda.synchronize()
     log(f"  ivf_pq scan_all load_state: {time.perf_counter() - t0:.2f} s")
     q32 = queries[:32]
@@ -1495,7 +1626,23 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
     compare_pq(codes, luts, k=k, lut_dtype="float32", valid=live,
                extra=assign, label=f"pq_adc scan_all full size W="
                                    f"{luts.shape[2]} Q=32")
-    del sdb, db, idx, codes, luts, assign, live
+    sres = {Q: sdb.query(queries[:Q], k=10) for Q in BATCHES}
+    s_launch = {}
+    sfres = counted(s_launch, serve_filtered, sdb, queries, "ivf_pq scan_all",
+                    maps, sres)
+    filtered_recalls(sfres, ftruth, "ivf_pq scan_all", min_recall)
+    s_err = 0.0
+    for name, (pred, allowed) in maps.items():
+        s_err = max(s_err, compare_pq(
+            codes, luts, k=k, lut_dtype="float32",
+            valid=ops.and_allowed(live, allowed, codes.shape[0]),
+            extra=assign, label=f"pq_adc scan_all filtered {name} Q=32"))
+    pq_entry = next(e for e in kernels if e["name"] == "pq_adc")
+    pq_entry["launches"] += s_launch.get("pq_adc", 0)
+    pq_entry["filtered"]["launches"] += s_launch.get("pq_adc", 0)
+    pq_entry["filtered"]["max_abs_err"] = max(
+        pq_entry["filtered"]["max_abs_err"], s_err)
+    del sdb, db, idx, codes, luts, assign, live, fres, sfres, maps
     torch.cuda.empty_cache()
     return recall
 
@@ -1953,6 +2100,7 @@ def phase_text(seed: int, device) -> dict:
                   == torch.arange(max(BATCHES))).float().mean())
     log(f"  MarcoLike query -> its passage, top-1 over {max(BATCHES)} queries: "
         f"{top1:.4f} (random weights; printed, not gated)")
+    hybrid = phase_hybrid(db, enc, queries)
 
     # stage split at each Q (CUDA events, stage by stage)
     for Q in BATCHES:
@@ -2014,14 +2162,88 @@ def phase_text(seed: int, device) -> dict:
     main = timed[(TEXT_BATCH, TEXT_SEQ)]
     del db, model, enc
     torch.cuda.empty_cache()
-    return kernel_entry(
+    return dict(hybrid_launches=hybrid.get("flash_attention", 0),
+                **kernel_entry(
         "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:70", counts["flash_attention"],
         max(t["err"] for t in timed.values()), main["ms"], main["plain_ms"],
         main["bound"], main["lib_ms"],
         f"B={TEXT_BATCH} S={TEXT_SEQ} H=12 dh=64 bf16 non-causal with the "
         f"passages' key-padding mask (a load_texts batch); library_ms: "
-        f"F.scaled_dot_product_attention with the same boolean mask")
+        f"F.scaled_dot_product_attention with the same boolean mask"))
+
+
+HYBRID_REPS = {1: 10, 32: 6, 512: 2}
+
+
+def bm25_ranked(ids, lex_s, lex_i) -> bool:
+    """Whether a hybrid answer at alpha = 0 ranks as BM25 does: down to
+    BM25's lowest score (which normalizes to 0 and ties the dense-only
+    rows), each rank holds an id whose BM25 score is BM25's at that rank
+    (ids may swap between equal BM25 scores)."""
+    ok = lex_i >= 0
+    if not ok.any():
+        return True
+    top = int((lex_s[ok] > lex_s[ok].min()).sum())
+    score = dict(zip(lex_i[ok].tolist(), lex_s[ok].tolist()))
+    return all(score.get(int(i)) == float(lex_s[j])
+               for j, i in enumerate(ids[:top]))
+
+
+def phase_hybrid(db, enc, queries) -> dict:
+    """Phase 5's hybrid search: ``enable_lexical`` over the loaded passages
+    (its build time), then ``query(emb, hybrid=alpha, hybrid_texts=...)``
+    at Q = 1, 32, 512 on the encoder's embeddings of the query texts. At
+    alpha = 1 the ids equal the dense-only ids; at alpha = 0 BM25's ranking
+    (``BM25Index.score``) comes first, down to its lowest score, which
+    normalizes to 0 and ties the dense-only rows (the merge keeps those
+    first); p50 at alpha = 0.5, encode included, with BM25's share
+    (tokenize and score, host). Returns the launches of the timed path."""
+    import torch
+    t0 = time.perf_counter()
+    lex = db.enable_lexical()
+    log(f"  enable_lexical over {lex.n_docs} passages: "
+        f"{time.perf_counter() - t0:.2f} s (host: tokenize, the postings of "
+        f"{len(lex.postings)} tokens)")
+    path = {}
+    for Q in BATCHES:
+        texts = queries[:Q]
+        emb = enc(texts)
+        dense = db.query(emb, k=10)[1]
+        if not torch.equal(db.query(emb, k=10, hybrid=1.0,
+                                    hybrid_texts=texts)[1], dense):
+            raise AssertionError(f"hybrid alpha=1 Q={Q}: ids differ from the "
+                                 "dense-only ids")
+        lex_s, lex_i = lex.score(lex.tokenize(texts), k=10)
+        h0 = db.query(emb, k=10, hybrid=0.0,
+                      hybrid_texts=texts)[1].cpu().numpy()
+        for r in range(Q):
+            if not bm25_ranked(h0[r], lex_s[r], lex_i[r]):
+                raise AssertionError(f"hybrid alpha=0 Q={Q} row {r}: ids "
+                                     "differ from BM25's")
+
+        def one():
+            return db.query(enc(texts), k=10, hybrid=0.5, hybrid_texts=texts)
+
+        counted(path, one)
+        torch.cuda.synchronize()
+        times, bm25 = [], []
+        for _ in range(HYBRID_REPS[Q]):
+            t1 = time.perf_counter()
+            counted(path, one)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            lex.score(lex.tokenize(texts), k=10)
+            bm25.append(time.perf_counter() - t2)
+            times.append(t2 - t1)
+        p50, b50 = percentile(times, 50), percentile(bm25, 50)
+        log(f"  hybrid alpha=0.5 Q={Q}: p50 {p50 * 1e3:.3f} ms, p99 "
+            f"{percentile(times, 99) * 1e3:.3f} ms (n={len(times)}, encode "
+            f"included); BM25 tokenize and score (host) p50 {b50 * 1e3:.3f} "
+            f"ms, {b50 / p50:.1%} of it; alpha=1 ids equal the dense ids, "
+            f"alpha=0 ids BM25's")
+    log(f"  filter_stats after the hybrid queries: {db.filter_stats}")
+    return path
 
 
 # ------------------------------------------------ phase 6: writes, serving
@@ -2051,10 +2273,11 @@ def counted(acc: dict, fn, *args, **kw):
 
 
 def apply_writes(db, kind: str, total: int, batch: int, vectors=None,
-                 ids=None, label: str = "") -> list:
-    """Apply ``total`` rows of one write kind in batches; logs rows/s (host
-    clock around the batches, ending in a synchronize). Returns the
-    writes' results."""
+                 ids=None, label: str = "", meta=None, rates=None) -> list:
+    """Apply ``total`` rows of one write kind in batches (inserts and
+    upserts with their slices of the ``meta`` columns, when given); logs
+    rows/s (host clock around the batches, ending in a synchronize), also
+    into ``rates`` by kind. Returns the writes' results."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2062,39 +2285,47 @@ def apply_writes(db, kind: str, total: int, batch: int, vectors=None,
     for a in range(0, total, batch):
         b = min(total, a + batch)
         if kind == "insert":
-            outs.append(db.insert(vectors[a:b]))
+            outs.append(db.insert(vectors[a:b], meta=meta_slice(meta, a, b)))
         elif kind == "delete":
             outs.append(db.delete(ids[a:b]))
         else:
-            outs.append(db.upsert(vectors[a:b], ids[a:b]))
+            outs.append(db.upsert(vectors[a:b], ids[a:b],
+                                  meta=meta_slice(meta, a, b)))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    if rates is not None:
+        rates[kind] = total / secs
     log(f"  {label}{kind} {total} rows in batches of {batch}: {secs:.3f} s, "
         f"{total / secs:.1f} rows/s (host clock, synced)")
     return outs
 
 
-def write_mix(db, n: int, seed: int, device, rank: int, label: str = ""):
+def write_mix(db, n: int, seed: int, device, rank: int, label: str = "",
+              meta: bool = False, rates=None):
     """The reference's mutation mix (BENCH_mutation.json's paths) scaled to
     n rows: inserts of 1 % new rows, deletes of 10 % random loaded ids,
     upserts of 1 % other loaded ids with fresh vectors (so the inserted
-    rows stay as written). Returns (inserted ids, their vectors, upserted
+    rows stay as written); with ``meta``, inserts and upserts carry
+    ``seeded_meta`` columns. Returns (inserted ids, their vectors, upserted
     ids, their vectors, deleted ids)."""
     import torch
     n_ins, n_del, n_ups = n // 100, n // 10, n // 100
     ins_vecs = new_rows(n_ins, n, seed, 1, device, rank)
-    ins_ids = torch.cat(apply_writes(db, "insert", n_ins, MUT_BATCH["insert"],
-                                     vectors=ins_vecs, label=label))
+    ins_ids = torch.cat(apply_writes(
+        db, "insert", n_ins, MUT_BATCH["insert"], vectors=ins_vecs,
+        label=label, meta=seeded_meta(n_ins, seed, 1) if meta else None,
+        rates=rates))
     gen = torch.Generator(device=device).manual_seed(seed + 3)
     perm = torch.randperm(n, generator=gen, device=device)  # loaded rows
     dead, ups_ids = perm[:n_del], perm[n_del:n_del + n_ups]
     deleted = sum(apply_writes(db, "delete", n_del, MUT_BATCH["delete"],
-                               ids=dead, label=label))
+                               ids=dead, label=label, rates=rates))
     if deleted != n_del:
         raise AssertionError(f"{label}deleted {deleted} of {n_del} live ids")
     ups_vecs = new_rows(n_ups, n, seed, 2, device, rank)
     apply_writes(db, "upsert", n_ups, MUT_BATCH["upsert"], vectors=ups_vecs,
-                 ids=ups_ids, label=label)
+                 ids=ups_ids, label=label, rates=rates,
+                 meta=seeded_meta(n_ups, seed, 2) if meta else None)
     want = n + n_ins - n_del
     if db.index.size != want or db.n != want:
         raise AssertionError(f"{label}size {db.index.size} after the writes, "
@@ -2429,10 +2660,13 @@ def phase_serving(db, queries, n: int, seed: int, device, rank: int) -> None:
 
 
 def phase_mutation(n: int, seed: int, device, rank: int, rates: dict,
-                   min_recall: float, p4_recall: float) -> dict:
-    """Phase 6: writes on ivf_pq at full size, both serving fronts on the
-    mutated index, then writes on flat (float32, bf16) and pq at mid size.
-    Returns {kernel name: {launches, ...}} for the kernels line."""
+                   min_recall: float, p4_recall: float,
+                   snap_root: str) -> tuple:
+    """Phase 6: writes on ivf_pq at full size (with metadata), both
+    serving fronts on the mutated index, then phase 7 (durability) on that
+    index, then writes on flat (float32, bf16) and pq at mid size. Returns
+    ({kernel name: {launches, ...}} of phase 6, {kernel name: launches} of
+    phase 7) for the kernels line."""
     import torch
     from repro_torch import VectorDB
     from repro_torch.core import distances as D
@@ -2446,7 +2680,7 @@ def phase_mutation(n: int, seed: int, device, rank: int, rates: dict,
     t0 = time.perf_counter()
     corpus, queries = make_dataset(n, max(BATCHES), seed, device, rank)
     db = VectorDB("ivf_pq", metric="cosine", m=M_SUBSPACES,
-                  device=device).load(corpus)
+                  device=device).load(corpus, meta=seeded_meta(n, seed))
     torch.cuda.synchronize()
     del corpus  # the engine keeps its own normalized copy
     torch.cuda.empty_cache()
@@ -2462,8 +2696,10 @@ def phase_mutation(n: int, seed: int, device, rank: int, rates: dict,
     baseline = self_found(db, idx._corpus.data[orig], orig,
                           "loaded rows (the baseline)")
 
+    p6_rates = {}
     ins_ids, ins_vecs, ups_ids, ups_vecs, _ = counted(
-        path, write_mix, db, n, seed, device, rank)
+        path, write_mix, db, n, seed, device, rank, meta=True,
+        rates=p6_rates)
     dead = ~idx.layout.live_mask(idx.n)
     log(f"  after the writes: {layout_facts(idx)}; plan_generation "
         f"{db.plan_generation}; device memory in use "
@@ -2523,14 +2759,21 @@ def phase_mutation(n: int, seed: int, device, rank: int, rates: dict,
             out[name].update({f"bound_ms_q{Q}": t[1][0]
                               for Q, t in times[name].items()})
     log(f"  peak device memory in the phase: "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    del db, idx, queries, truth, before, after, ins_vecs, ups_vecs
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (PR 20's run D: "
+        f"60.44 GB); in use after the writes and serving "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    holder = [db]  # phase 7 takes the only reference: its crash frees it
+    del db, idx, truth, before, after, ins_vecs, ups_vecs, dead
+    torch.cuda.empty_cache()
+    dur = phase_durability(holder, queries, n, seed, device, rank, snap_root,
+                           p6_rates)
+    del queries
     torch.cuda.empty_cache()
     mid = mutation_mid(seed, device, rank)
     for name, c in mid.items():
         out.setdefault(name, {"launches": 0})
         out[name]["mid_launches"] = c
-    return out
+    return out, dur
 
 
 def mutation_mid(seed: int, device, rank: int) -> dict:
@@ -2607,6 +2850,547 @@ def brute_force(corpus, queries, ins_vecs, ups_ids, ups_vecs, dead_ids,
         f"agree {float((~diff).float().mean()):.4f} (bound: all but "
         f"near-ties), max |dscore| {float((s.double() - ref_s).abs().max()):.3e}")
 
+
+# ------------------------------------- phase 4: filtered and hybrid search
+FILTER_REPS = {1: 5, 32: 4, 512: 2}
+CATS8 = tuple(f"c{i}" for i in range(8))
+GATED_BUCKETS = ("<=50%", ">50%", "all")  # recall gated above 10 %
+
+
+def seeded_meta(n: int, seed: int, salt: int = 0) -> dict:
+    """Metadata of n rows, made from ``seed`` with numpy: a categorical
+    column of 8 values (``cat``), an integer column for ranges (``year``,
+    uniform over 0..127) and a boolean one (``flag``, true 70 % of the
+    time)."""
+    import numpy as np
+    rng = np.random.default_rng(seed * 1000 + 21 + salt)
+    return {"year": rng.integers(0, 128, n),
+            "cat": np.asarray(CATS8)[rng.integers(0, 8, n)],
+            "flag": rng.random(n) < 0.7}
+
+
+def meta_slice(meta, a: int, b: int):
+    return None if meta is None else {k: v[a:b] for k, v in meta.items()}
+
+
+def predicates() -> list:
+    """One predicate in each of the reference's selectivity buckets (by
+    the columns' distributions: 0.8 %, 9.4 %, 37.5 % and 61.3 % of the
+    rows), and one that allows every row."""
+    from repro_torch.search import And, Eq, In, Not, Range
+    return [("<=1%", Eq("year", 5)), ("<=10%", Range("year", hi=11)),
+            ("<=50%", In("cat", ["c0", "c1", "c2"])),
+            (">50%", And(Eq("flag", True), Not(Eq("cat", "c7")))),
+            ("all", Range("year", lo=0))]
+
+
+def bitmaps(db, device) -> dict:
+    """Each predicate's bitmap as a filtered query builds it (host numpy
+    over the id space, ``metastore.mask``) and its upload to the card,
+    timed apart from any query (host clock; the upload ends in a
+    synchronize): {label: (predicate, bitmap on the card)}."""
+    import torch
+    out = {}
+    n_ids = int(getattr(db.index, "next_id", db.n) or db.n)
+    for label, pred in predicates():
+        t0 = time.perf_counter()
+        host = db.metastore.mask(pred, n_ids)
+        t1 = time.perf_counter()
+        dev = torch.as_tensor(host, device=device)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        out[label] = (pred, dev)
+        log(f"  bitmap {label} {pred!r}: selectivity {float(host.mean()):.4f},"
+            f" host build {(t1 - t0) * 1e3:.3f} ms, upload "
+            f"{(t2 - t1) * 1e3:.3f} ms ({host.nbytes / 1e6:.1f} MB)")
+    return out
+
+
+def serve_filtered(db, queries, label: str, maps: dict, unfiltered: dict):
+    """Every predicate at each Q of BATCHES (k = 10), one batch repeated
+    FILTER_REPS times: p50/p99 of ``db.query(where=...)`` on the host clock
+    ending in a synchronize (the query builds its bitmap on the host and
+    uploads it each call). Fails on an id outside the bitmap, and unless
+    the all-true predicate's answer equals ``unfiltered`` ({Q: result})
+    bit for bit. Returns {label: {Q: (scores, ids)}}."""
+    import torch
+    out = {}
+    for name, (pred, allowed) in maps.items():
+        out[name], parts = {}, []
+        for Q in BATCHES:
+            q = queries[:Q]
+            db.query(q, k=10, where=pred)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(FILTER_REPS[Q]):
+                t0 = time.perf_counter()
+                s, i = db.query(q, k=10, where=pred)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            out[name][Q] = (s, i)
+            if s.shape != (Q, 10) or not bool(torch.isfinite(s[:, 0]).all()):
+                raise AssertionError(f"{label} {name} Q={Q}: bad result")
+            got = i[i >= 0].long()
+            if not bool(allowed[got].all()):
+                raise AssertionError(f"{label} {name} Q={Q}: an id outside "
+                                     "the bitmap")
+            if name == "all" and not same_result((s, i), unfiltered[Q]):
+                raise AssertionError(f"{label} all-true Q={Q}: differs from "
+                                     "the unfiltered answer")
+            parts.append(f"Q={Q} p50 {percentile(times, 50) * 1e3:.3f} / p99 "
+                         f"{percentile(times, 99) * 1e3:.3f} ms")
+        log(f"  {label} where {name}: " + ", ".join(parts)
+            + f" (n={FILTER_REPS}); ids inside the bitmap")
+    log(f"  {label}: the all-true predicate equals the unfiltered answer bit "
+        f"for bit at Q = {BATCHES}; filter_stats {db.filter_stats}")
+    return out
+
+
+def filtered_recalls(res: dict, truth: dict, label: str,
+                     gate=None) -> dict:
+    """recall@10 at Q = 512 of each predicate's answer against the
+    filtered flat's; with ``gate``, fails below it in GATED_BUCKETS."""
+    out = {name: recall_at_10(res[name][max(BATCHES)][1], truth[name])
+           for name in res}
+    log(f"  {label} filtered recall@10 against filtered flat: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out.items())
+        + (f" (gated at {gate} in {GATED_BUCKETS})" if gate is not None
+           else " (printed, not gated)"))
+    if gate is not None:
+        for name in GATED_BUCKETS:
+            if out[name] < gate:
+                raise AssertionError(f"{label} filtered recall@10 {name} "
+                                     f"{out[name]:.4f} below {gate}")
+    return out
+
+
+def brute_filtered(corpus, q, allowed, got, label: str,
+                   chunk: int = 1 << 19) -> None:
+    """A filtered flat answer against brute force: float64 scores of every
+    allowed row, a chunk of rows at a time, the exact top 10 (equal scores
+    to the lower id); scores within compare_topk's bound, ids equal but
+    for near-ties."""
+    import torch
+    rows = torch.nonzero(allowed)[:, 0]
+    qd = q.double()
+    best_s = best_i = None
+    for a in range(0, rows.numel(), chunk):
+        r = rows[a:a + chunk]
+        sc = qd @ corpus[r].double().T
+        if best_s is not None:
+            sc = torch.cat([best_s, sc], dim=1)
+            r_all = torch.cat([best_i, r[None].expand(q.shape[0], -1)], dim=1)
+        else:
+            r_all = r[None].expand(q.shape[0], -1)
+        s, pos = torch.sort(sc, dim=1, descending=True, stable=True)
+        best_s, best_i = s[:, :10], torch.gather(r_all, 1, pos[:, :10])
+    s, i = got
+    tol = topk_tolerance(corpus, q, False)[:, None]
+    if not bool(((s.double() - best_s).abs() <= tol).all()):
+        raise AssertionError(f"{label}: scores differ from brute force beyond "
+                             "compare_topk's bound")
+    diff = i.long() != best_i
+    rr, cc = torch.nonzero(diff, as_tuple=True)
+    exact = (qd[rr] * corpus[i[rr, cc].long()].double()).sum(1)
+    if not bool(((exact - best_s[rr, cc]).abs() <= 2 * tol[rr, 0]).all()):
+        raise AssertionError(f"{label}: ids differ from brute force beyond "
+                             "near-ties")
+    log(f"  {label}: against brute force over the allowed rows (float64): "
+        f"ids agree {float((~diff).float().mean()):.4f}, max |dscore| "
+        f"{float((s.double() - best_s).abs().max()):.3e}")
+
+
+# ------------------------------------------ phase 7: durability at full size
+SNAP_FACTOR = 1.2        # free space needed over the snapshot's bytes
+DUR_BATCHES = {"insert": (16, 1024), "delete": (2, 8192), "upsert": (4, 1024)}
+
+
+def fs_facts(path: str) -> tuple:
+    """(free bytes, filesystem type, mount point) of ``path``; the type from
+    /proc/mounts, the longest mount point that holds the path."""
+    import os
+    st = os.statvfs(path)
+    real = os.path.realpath(path)
+    best = ("?", "")
+    try:
+        with open("/proc/mounts") as fh:
+            lines = fh.readlines()
+    except OSError:  # no mount table: the type stays unknown
+        lines = []
+    for line in lines:
+        parts = line.split()
+        if len(parts) < 3:
+            continue
+        mnt = parts[1]
+        inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+        if inside and len(mnt) >= len(best[1]):
+            best = (parts[2], mnt)
+    return st.f_bavail * st.f_frsize, best[0], best[1]
+
+
+def mem_total_bytes() -> int:
+    """The host's MemTotal (0 where /proc/meminfo cannot be read)."""
+    try:
+        with open("/proc/meminfo") as fh:
+            for line in fh:
+                if line.startswith("MemTotal:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def snapshot_bytes(db) -> int:
+    """Bytes the snapshot of ``db`` holds: its state's tensors and the
+    metadata leaves."""
+    import torch
+    total = sum(v.numel() * v.element_size()
+                for v in db.index.state_dict().values()
+                if isinstance(v, torch.Tensor))
+    return total + sum(a.nbytes for a in db.metastore.state_leaves().values())
+
+
+def dir_bytes(path: str) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def same_answers(got, want, label: str) -> int:
+    """A restored engine's answer against the pre-crash one (on the host):
+    bit for bit, but that ids may swap where the scores at those ranks tie
+    exactly (a near tie); any other difference is a real one and fails.
+    Returns the near-tie swaps."""
+    import torch
+    (s0, i0), (s1, i1) = (x.cpu() for x in want), (x.cpu() for x in got)
+    same_s = (s0 == s1) | (torch.isneginf(s0) & torch.isneginf(s1))
+    diff = i0 != i1
+    if not bool(same_s.all()):
+        raise AssertionError(f"{label}: real difference (scores differ at "
+                             f"{int((~same_s).sum())} ranks)")
+    tie = torch.zeros_like(diff)
+    tie[:, 1:] |= s0[:, 1:] == s0[:, :-1]
+    tie[:, :-1] |= s0[:, :-1] == s0[:, 1:]
+    if bool((diff & ~tie).any()):
+        raise AssertionError(f"{label}: real difference (ids differ outside "
+                             "ties)")
+    return int(diff.sum())
+
+
+def phase_durability(holder: list, queries, n: int, seed: int, device,
+                     rank: int, snap_root: str, p6_rates: dict) -> dict:
+    """Phase 7: durability on phase 6's index (``holder`` hands over the
+    only reference to it): snapshot, a logged write mix, a simulated crash
+    and a durable restore that must serve the pre-crash answers, group
+    commit through the async front, and snapshots of flat, pq and lsh at
+    MID_ROWS. Returns the launches of its path."""
+    import gc
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch import VectorDB
+    t_phase = time.perf_counter()
+    db = holder.pop()
+    torch.cuda.reset_peak_memory_stats()
+    free, fstype, mnt = fs_facts(snap_root)
+    need = snapshot_bytes(db)
+    log(f"phase 7: durability, ivf_pq N={db.n} live rows ({db.index.n} ids), "
+        f"snapshot directory {snap_root} on {mnt} ({fstype}), free "
+        f"{free / 1e9:.2f} GB, the snapshot {need / 1e9:.2f} GB, host "
+        f"MemTotal {mem_total_bytes() / 1e9:.2f} GB")
+    if fstype in ("tmpfs", "ramfs"):
+        log("  the snapshot directory is in memory: its fsync numbers are "
+            "not a disk's")
+    if free < SNAP_FACTOR * need:
+        log(f"  CUT: free space below {SNAP_FACTOR} x the snapshot: phase 7 "
+            f"runs on an ivf_pq of {MID_ROWS} rows")
+        del db
+        gc.collect()
+        torch.cuda.empty_cache()
+        n = MID_ROWS
+        corpus, queries = make_dataset(n, max(BATCHES), seed, device, rank)
+        db = VectorDB("ivf_pq", metric="cosine", m=M_SUBSPACES,
+                      device=device).load(corpus, meta=seeded_meta(n, seed))
+        del corpus
+    path = {}
+    work = tempfile.mkdtemp(prefix="thistle_snapshot_", dir=snap_root)
+    box = [db]  # dur_core takes the only reference: its crash frees it
+    del db
+    try:
+        dur_core(box, queries, n, seed, device, rank, work, p6_rates, path)
+        dur_mid(seed, device, rank, work, path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  launches on the phase's path (restored queries, serving, "
+        f"restored mid-size engines): {path}")
+    for name in ("ivf_adc", "topk_distance", "pq_adc", "hamming"):
+        if path.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched in phase 7")
+    log(f"  peak device memory in phase 7: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (PR 20's phase "
+        f"6: 60.44 GB)")
+    log(f"[phase 7: {time.perf_counter() - t_phase:.1f} s]")
+    return path
+
+
+def dur_core(box, queries, n, seed, device, rank, work, p6_rates, path):
+    """Phase 7, steps 2-6, on the full-size (or cut) ivf_pq, handed over
+    as the only element of ``box``."""
+    import gc
+    import os
+    import torch
+    from repro_torch import VectorDB
+    from repro_torch.serve import AsyncQueryEngine
+    db = box.pop()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db.save_index(work, step=1, durable=True)
+    secs = time.perf_counter() - t0
+    nbytes = dir_bytes(os.path.join(work, "step_00000001"))
+    log(f"  save_index(step=1, durable=True): {secs:.2f} s, {nbytes / 1e9:.3f} "
+        f"GB, {nbytes / secs / 1e9:.3f} GB/s (device to host a chunk at a "
+        f"time, each file fsync'd)")
+    at_snap = dict(db.mutation_stats)
+
+    idx = db.index
+    n_ins = DUR_BATCHES["insert"][0] * DUR_BATCHES["insert"][1]
+    n_del = DUR_BATCHES["delete"][0] * DUR_BATCHES["delete"][1]
+    n_ups = DUR_BATCHES["upsert"][0] * DUR_BATCHES["upsert"][1]
+    ins = new_rows(n_ins, n, seed, 11, device, rank)
+    ups = new_rows(n_ups, n, seed, 12, device, rank)
+    live = torch.nonzero(idx.layout.live_mask(idx.n))[:, 0]
+    gen = torch.Generator(device=device).manual_seed(seed + 13)
+    pick = live[torch.randperm(live.numel(), generator=gen,
+                               device=device)[:n_del + n_ups]]
+    rates = {}
+    apply_writes(db, "insert", n_ins, DUR_BATCHES["insert"][1], vectors=ins,
+                 meta=seeded_meta(n_ins, seed, 11), label="logged ",
+                 rates=rates)
+    apply_writes(db, "delete", n_del, DUR_BATCHES["delete"][1],
+                 ids=pick[:n_del], label="logged ", rates=rates)
+    apply_writes(db, "upsert", n_ups, DUR_BATCHES["upsert"][1], vectors=ups,
+                 ids=pick[n_del:], meta=seeded_meta(n_ups, seed, 12),
+                 label="logged ", rates=rates)
+    t0 = time.perf_counter()
+    db.compact()
+    torch.cuda.synchronize()
+    ws = db.wal_stats
+    log(f"  logged compact {time.perf_counter() - t0:.3f} s; rows/s with "
+        f"an fsync a record against phase 6 without a log: "
+        + ", ".join(f"{k} {rates[k]:.1f} against {p6_rates.get(k, 0):.1f}"
+                    for k in rates)
+        + f"; WAL {ws['records']} records, {ws['bytes']} bytes, "
+        f"{ws['fsyncs']} fsyncs")
+
+    want = {}
+    for mode in ("per_query", "auto"):
+        idx.adc_mode = mode
+        for Q in BATCHES:
+            s, i = db.query(queries[:Q], k=10)
+            want[(mode, Q)] = (s.cpu(), i.cpu())
+    idx.adc_mode = "auto"
+    fpred = predicates()[1][1]
+    want["filtered"] = tuple(x.cpu() for x in db.query(queries[:32], k=10,
+                                                       where=fpred))
+    lay = idx.layout
+    live = lay.live_mask(idx.n)
+    facts = {"size": idx.size, "generation": db.generation,
+             "stats": {k: v - at_snap[k] for k, v in db.mutation_stats.items()},
+             "ids": torch.nonzero(live)[:, 0].cpu(),
+             "clusters": lay.assign_of(idx.n)[live].cpu(),
+             "codes": lay.gather_payload(idx.n)[live].cpu()}
+    log(f"  copied to the host: answers at Q = {BATCHES} under per_query and "
+        f"auto, a filtered batch, size {facts['size']}, generation "
+        f"{facts['generation']}, writes since the snapshot {facts['stats']}, "
+        f"{facts['ids'].numel()} live ids with their clusters and codes")
+    import weakref
+    engine_ref = weakref.ref(idx)
+    db.wal._f.close()  # the crash: no sync, no save, no close
+    del db, idx, lay, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    if engine_ref() is not None:
+        raise AssertionError("the engine outlived the crash: a reference to "
+                             "it is still held")
+    log(f"  crash: the db dropped without a save; device memory in use "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back = VectorDB("ivf_pq", metric="cosine", m=M_SUBSPACES,
+                    device=device).restore_index(work, durable=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rs = back.restore_stats
+    log(f"  restore_index(durable=True): {secs:.2f} s = read {rs['read_s']:.2f}"
+        f" s + upload {rs['upload_s']:.2f} s + engine rebuild "
+        f"{rs['load_s'] - rs['read_s'] - rs['upload_s']:.2f} s + replay "
+        f"{rs['replay_s']:.2f} s of {rs['replayed']} records; "
+        f"{rs['bytes'] / 1e9:.3f} GB read, "
+        f"{rs['bytes'] / max(rs['read_s'], 1e-9) / 1e9:.3f} GB/s")
+    idx = back.index
+    lay = idx.layout
+    live = lay.live_mask(idx.n)
+    got = {"size": idx.size, "generation": back.generation,
+           "stats": dict(back.mutation_stats),
+           "ids": torch.nonzero(live)[:, 0].cpu(),
+           "clusters": lay.assign_of(idx.n)[live].cpu(),
+           "codes": lay.gather_payload(idx.n)[live].cpu()}
+    for key in ("size", "generation", "stats"):
+        if got[key] != facts[key]:
+            raise AssertionError(f"restored {key} {got[key]}, before the "
+                                 f"crash {facts[key]}")
+    for key in ("ids", "clusters", "codes"):
+        if not torch.equal(got[key], facts[key]):
+            raise AssertionError(f"restored live {key} differ from the "
+                                 "pre-crash ones")
+    log("  restored size, generation, writes since the snapshot, live ids "
+        "and each live id's cluster and codes equal the pre-crash ones")
+    swaps = 0
+    for mode in ("per_query", "auto"):
+        idx.adc_mode = mode
+        for Q in BATCHES:
+            swaps += same_answers(counted(path, back.query, queries[:Q],
+                                          k=10),
+                                  want[(mode, Q)], f"restored {mode} Q={Q}")
+    idx.adc_mode = "auto"
+    swaps += same_answers(counted(path, back.query, queries[:32], k=10,
+                                  where=fpred),
+                          want["filtered"], "restored filtered Q=32")
+    log(f"  restored answers at Q = {BATCHES} under per_query and auto, and "
+        f"the filtered batch: equal to the pre-crash ones bit for bit "
+        f"({swaps} id swaps between exactly tied scores; no real "
+        "difference)")
+
+    ops_ = stream_script(back, queries, n, seed, 8, device, rank)
+    base = back.wal.last_lsn
+    acks = []
+
+    def serve():
+        """The stream queued through the async front with group commit;
+        each write's future records, as it resolves, its record's lsn and
+        the log's synced_lsn."""
+        eng = AsyncQueryEngine(back, max_batch=SERVE_BATCH, max_wait_ms=2.0,
+                               max_queue=4096, start=False,
+                               fsync_interval_ms=2.0)
+        with eng:
+            t0 = time.perf_counter()
+            futs, j = [], 0
+            for op in ops_:
+                if op[0] == "read":
+                    futs.append(eng.submit(op[1], 10))
+                    continue
+                j += 1
+                f = eng.submit_write(op[1], op[2], op[3])
+                f.add_done_callback(lambda _f, lsn=base + j: acks.append(
+                    (lsn, back.wal.synced_lsn)))
+                futs.append(f)
+            eng.start()
+            results = [f.result(timeout=600) for f in futs]
+            secs = time.perf_counter() - t0
+        return results, eng.latency_stats(), secs, j
+
+    plans = sum(back.plan_stats.values())
+    results, stats, secs, j = counted(path, serve)
+    if len(acks) != j or any(synced < lsn for lsn, synced in acks):
+        raise AssertionError("a write resolved before the fsync that covers "
+                             "its record")
+    log_front("AsyncQueryEngine fsync_interval_ms=2 on the restored index "
+              "interleaved_1to8", stats, secs,
+              sum(back.plan_stats.values()) - plans, SERVE_READS)
+    log(f"  group commit: wal_records {stats['wal_records']}, wal_fsyncs "
+        f"{stats['wal_fsyncs']}, durable_pending {stats['durable_pending']}; "
+        f"every one of the {j} writes resolved after synced_lsn reached its "
+        f"record")
+    check_stream(ops_, results, "restored interleaved_1to8 (group commit)")
+    write_burst(back, n, seed, device, rank, path)
+    back.wal.close()
+
+
+BURST_WRITES, BURST_ROWS = 64, 64
+
+
+def write_burst(db, n, seed, device, rank, path) -> None:
+    """Group commit where writes come closer than its window: BURST_WRITES
+    inserts of BURST_ROWS rows queued at once through the async front at
+    ``fsync_interval_ms = 2``; each resolves only once synced_lsn reached
+    its record. Prints the records against the fsyncs."""
+    from repro_torch.serve import AsyncQueryEngine
+    rows = new_rows(BURST_WRITES * BURST_ROWS, n, seed, 9, device, rank).cpu()
+    base, acks = db.wal.last_lsn, []
+    before = dict(db.wal_stats)
+
+    def burst():
+        eng = AsyncQueryEngine(db, max_queue=4096, start=False,
+                               fsync_interval_ms=2.0)
+        with eng:
+            t0 = time.perf_counter()
+            for j in range(BURST_WRITES):
+                f = eng.submit_write("insert",
+                                     rows[j * BURST_ROWS:(j + 1) * BURST_ROWS])
+                f.add_done_callback(lambda _f, lsn=base + j + 1: acks.append(
+                    (lsn, db.wal.synced_lsn)))
+            eng.start()
+            eng.drain(timeout=600)
+            return time.perf_counter() - t0
+
+    secs = counted(path, burst)
+    after = db.wal_stats
+    if len(acks) != BURST_WRITES or any(s < lsn for lsn, s in acks):
+        raise AssertionError("a burst write resolved before the fsync that "
+                             "covers its record")
+    log(f"  write burst ({BURST_WRITES} inserts of {BURST_ROWS} rows queued "
+        f"at once, fsync_interval_ms=2): {secs:.3f} s, "
+        f"{after['records'] - before['records']} records, "
+        f"{after['fsyncs'] - before['fsyncs']} fsyncs; every ack after its "
+        f"record's fsync")
+
+
+def dur_mid(seed: int, device, rank: int, work: str, path: dict) -> None:
+    """Phase 7, step 7: flat (float32, bf16), pq and lsh at MID_ROWS save
+    and restore, and the restored engines serve the saved ones' answers
+    bit for bit (and filtered ones, but lsh, which refuses filters)."""
+    import os
+    import torch
+    from repro_torch import VectorDB
+    corpus, queries = make_dataset(MID_ROWS, 512, seed + 2, device, rank)
+    meta = seeded_meta(MID_ROWS, seed, 3)
+    q = queries[:32]
+    fpred = predicates()[2][1]
+    for engine, kw in (("flat", {}), ("flat", {"dtype": torch.bfloat16}),
+                       ("pq", {"m": M_SUBSPACES}), ("lsh", {})):
+        label = f"{engine}{' bf16' if kw.get('dtype') else ''} N={MID_ROWS}"
+        db = VectorDB(engine, metric="cosine", device=device, **kw).load(
+            corpus, meta=meta)
+        d = os.path.join(work, label.replace(" ", "_").replace("=", ""))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        db.save_index(d, 0)
+        t1 = time.perf_counter()
+        back = VectorDB(engine, metric="cosine", device=device,
+                        **kw).restore_index(d)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        want = db.query(q, k=10)
+        got = counted(path, back.query, q, k=10)
+        if not same_result(got, want):
+            raise AssertionError(f"{label}: the restored engine's answer "
+                                 "differs")
+        if engine != "lsh":
+            if not same_result(counted(path, back.query, q, k=10,
+                                       where=fpred),
+                               db.query(q, k=10, where=fpred)):
+                raise AssertionError(f"{label}: the restored filtered answer "
+                                     "differs")
+        log(f"  {label}: save {t1 - t0:.3f} s, restore {t2 - t1:.3f} s "
+            f"({dir_bytes(d) / 1e9:.3f} GB); restored answers equal bit for "
+            f"bit{'' if engine == 'lsh' else ', filtered ones too'}")
+        del db, back
+        torch.cuda.empty_cache()
+    del corpus, queries
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=MARCO_PASSAGES,
@@ -2617,7 +3401,12 @@ def main(argv=None) -> int:
                          "unit centres plus isotropic noise")
     ap.add_argument("--min-recall", type=float, default=0.5,
                     help="fail below this recall@10 of ivf_pq or lsh against "
-                         "flat (pq's is printed, not gated)")
+                         "flat (pq's is printed, not gated), and of ivf_pq "
+                         "filtered in the buckets above 10 %%")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="where phase 7 writes its snapshots (a directory "
+                         "of its own inside, removed after); the system's "
+                         "temporary directory by default")
     args = ap.parse_args(argv)
 
     import torch
@@ -2650,12 +3439,16 @@ def main(argv=None) -> int:
     kernels.append(phase_text(args.seed, device))
     log(f"[phase 5: {time.perf_counter() - t0:.1f} s]")
     t0 = time.perf_counter()
-    mutated = phase_mutation(args.n, args.seed, device, args.rank, rates,
-                             args.min_recall, recalls["ivf_pq"])
+    import tempfile
+    mutated, durable = phase_mutation(
+        args.n, args.seed, device, args.rank, rates, args.min_recall,
+        recalls["ivf_pq"], args.snapshot_dir or tempfile.gettempdir())
     for entry in kernels:
         if entry["name"] in mutated:
             entry["mutation_phase"] = mutated[entry["name"]]
-    log(f"[phase 6: {time.perf_counter() - t0:.1f} s]")
+        entry["durability_phase"] = {"launches": durable.get(entry["name"],
+                                                             0)}
+    log(f"[phases 6 and 7: {time.perf_counter() - t0:.1f} s]")
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

@@ -8,7 +8,8 @@ What crosses is the trained state itself: the numpy leaves of the
 reference's ``PQIndex.state_dict()`` or ``IVFPQIndex.state_dict()`` (or
 its flat corpus, or its ``LSHIndex``'s planes, codes, corpus and
 corpus_sq, an engine with no state_dict), or the npz leaves of a
-``save_index`` snapshot, become what the port's ``load_state`` takes;
+``save_index`` snapshot, become what the port's ``load_state`` takes
+(``VectorDB.load_state`` also reads a snapshot's metadata leaves);
 an ``IVFPQIndex(scan_all=True)`` keeps the state's row-major codes
 beside the layout it rebuilds. Nothing
 here imports the reference package.
@@ -18,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.search.meta import STATE_PREFIX
+
 
 def from_reference_state(state: dict) -> dict:
     """{leaf name: array-like} -> {leaf name: torch.Tensor, int or str}.
@@ -26,12 +29,16 @@ def from_reference_state(state: dict) -> dict:
     generation) ``int``, array leaves CPU tensors of the same dtype (a
     copy, since the reference's arrays are read-only), except uint32 (LSH
     signature words), which become int32 tensors of the same bits;
-    ``load_state`` moves them to the engine's device.
+    ``load_state`` moves them to the engine's device. The metadata leaves
+    of a snapshot (``metastore__*``, host numpy on both sides) pass through
+    as numpy copies.
     """
     out = {}
     for key, value in state.items():
         arr = np.asarray(value)
-        if arr.dtype.kind in "US":
+        if key.startswith(STATE_PREFIX):
+            out[key] = arr.copy()
+        elif arr.dtype.kind in "US":
             out[key] = str(arr)
         elif arr.ndim == 0:
             out[key] = arr.item()

@@ -159,13 +159,16 @@ class FlatIndex(MutationMixin):
         self.valid[self._valid.n:] = False
         self._dirty = False
 
-    def query(self, q, k: int = 10):
+    def query(self, q, k: int = 10, *, allowed=None):
+        """``allowed`` (the predicate bitmap over the id space) ANDs into
+        the live mask: a filtered-out row is knocked out like a
+        tombstone."""
         self._sync()
         q = torch.atleast_2d(torch.as_tensor(q, dtype=torch.float32,
                                              device=self.device))
+        valid = kops.and_allowed(self.valid, allowed, self.valid.shape[0])
         return flat_search(self.corpus, q.to(self.dtype), metric=self.metric,
-                           k=k,
-                           corpus_sq=self.corpus_sq, valid=self.valid)
+                           k=k, corpus_sq=self.corpus_sq, valid=valid)
 
     # ------------------------------------------------------- persistence
     def state_dict(self) -> dict:

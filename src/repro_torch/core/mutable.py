@@ -109,8 +109,10 @@ def as_ids(ids, device) -> torch.Tensor:
 
 class MutationMixin:
     """Bookkeeping shared by every mutable engine: counters, generation,
-    the id space, the dirty flag that re-points query-side tensors after a
-    write, and id validation. Engines set ``self.device``."""
+    the id space, id validation, and the re-pointing of the query-side
+    tensors at the end of each write (``_sync``), so that a buffer a write
+    reallocated is freed by that write and not held until the next query.
+    Engines set ``self.device``."""
 
     def _mut_init(self, n: int = 0) -> None:
         self.mutation_stats = {"inserts": 0, "deletes": 0, "upserts": 0,
@@ -123,6 +125,7 @@ class MutationMixin:
         self.mutation_stats[kind] += int(n)
         self.generation += 1
         self._dirty = True
+        self._sync()
 
     def _write_mirrors(self, ids, pairs) -> None:
         """Write rows into each (GrowableRows, values) pair at the given
@@ -142,6 +145,7 @@ class MutationMixin:
             if g is not None:
                 g.reserve(self.next_id + int(extra_rows), exact=True)
         self._dirty = True
+        self._sync()
 
     def _tombstone_valid(self, ids) -> torch.Tensor:
         """Tombstone ids in the engine's ``_valid`` live mask; returns the

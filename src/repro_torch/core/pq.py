@@ -208,23 +208,24 @@ def _pad_to_k(s, ids, k: int):
 
 
 def pq_search(codebooks, codes, corpus, q, *, metric: str, k: int,
-              refine: int = 0, corpus_sq=None, valid=None,
+              refine: int = 0, corpus_sq=None, valid=None, allowed=None,
               lut_dtype: str = "float32"):
     """Flat ADC search, with an exact re-rank of the best ``refine``.
 
     Tables on q, then ``kops.adc_topk`` (the ``pq_adc`` kernel on the
     card), then ``_exact_rerank``. ``valid`` masks dead rows out of the
-    scan; ``corpus`` is read only when refine > 0. Returns (scores (Q, k),
+    scan, and ``allowed`` (the predicate bitmap) ANDs into it; ``corpus``
+    is read only when refine > 0. Returns (scores (Q, k),
     ids (Q, k)) with -inf / -1 where fewer than k rows are live.
     """
     N = codes.shape[0]
     luts = adc_tables(codebooks, q, metric=metric)
     if not refine:
-        s, i = kops.adc_topk(codes, luts, k=k, valid=valid,
+        s, i = kops.adc_topk(codes, luts, k=k, valid=valid, allowed=allowed,
                              lut_dtype=lut_dtype)
         return D.mask_invalid_ids(s, i)
     R = min(max(refine, k), N)
-    s, cand = kops.adc_topk(codes, luts, k=R, valid=valid,
+    s, cand = kops.adc_topk(codes, luts, k=R, valid=valid, allowed=allowed,
                             lut_dtype=lut_dtype)
     _, cand = D.mask_invalid_ids(s, cand)
     return _exact_rerank(corpus, corpus_sq, cand, q, metric=metric, k=k)
@@ -341,7 +342,7 @@ def ivf_pq_search(codebooks, centroids, block_lists, corpus, q, *,
                   qblk=None, adaptive_nprobe=None, adc_stats=None,
                   autotune=None, sched_cache=None, sched_key=(),
                   scan_all: bool = False, codes=None, assign=None,
-                  valid=None):
+                  valid=None, allowed=None):
     """IVF-ADC: probe nprobe coarse buckets, ADC-score their residual
     codes, re-rank the best ``refine`` exactly.
 
@@ -363,8 +364,10 @@ def ivf_pq_search(codebooks, centroids, block_lists, corpus, q, *,
 
     ``scan_all=True`` scores all N row-major ``codes`` instead, with the
     coarse term folded in through each row's ``assign`` (dot only;
-    ``valid`` masks dead rows). Returns (scores (Q, k), ids (Q, k)); pad
-    slots are -inf / -1.
+    ``valid`` masks dead rows). ``allowed`` (the predicate bitmap over the
+    id space) ANDs into ``valid`` on that path and rewrites the bucket ids
+    on the bucket path (``kops.ivf_adc_topk``). Returns (scores (Q, k),
+    ids (Q, k)); pad slots are -inf / -1.
     """
     q = q.float()
     if scan_all:
@@ -375,8 +378,10 @@ def ivf_pq_search(codebooks, centroids, block_lists, corpus, q, *,
             raise ValueError("scan_all needs row-major codes and assignments "
                              "(IVFPQIndex keeps them with scan_all=True)")
         return _ivf_scan_all(codebooks, codes, centroids, corpus, corpus_sq,
-                             assign, valid, q, metric=metric, k=k,
-                             refine=refine, lut_dtype=lut_dtype)
+                             assign,
+                             kops.and_allowed(valid, allowed, codes.shape[0]),
+                             q, metric=metric, k=k, refine=refine,
+                             lut_dtype=lut_dtype)
     bucket_codes, bucket_ids, block_table = block_lists
     spp = steps_per_probe
     blk = bucket_codes.shape[1]
@@ -391,7 +396,7 @@ def ivf_pq_search(codebooks, centroids, block_lists, corpus, q, *,
                                lut_dtype=lut_dtype, mode=adc_mode, qblk=qblk,
                                pad_block=pad_block, stats=adc_stats,
                                autotune=autotune, sched_cache=sched_cache,
-                               sched_key=sched_key)
+                               sched_key=sched_key, allowed=allowed)
     if adc_stats is not None:
         adc_stats["eff_nprobe"] = (float(eff.float().mean())
                                    if adaptive_nprobe is not None
@@ -532,7 +537,8 @@ class PQIndex(MutationMixin):
         self.corpus_sq = None if self._sq is None else self._sq.data
         self._dirty = False
 
-    def query(self, q, k: int = 10):
+    def query(self, q, k: int = 10, *, allowed=None):
+        """``allowed``: the predicate bitmap over the id space."""
         self._sync()
         q = torch.atleast_2d(torch.as_tensor(q, dtype=torch.float32,
                                              device=self.device))
@@ -543,7 +549,8 @@ class PQIndex(MutationMixin):
         return pq_search(self.codebooks, self.codes, self.corpus, q,
                          metric=metric, k=min(k, max(self.size, 1)),
                          refine=self.refine, corpus_sq=self.corpus_sq,
-                         valid=self.valid, lut_dtype=self.lut_dtype)
+                         valid=self.valid, allowed=allowed,
+                         lut_dtype=self.lut_dtype)
 
     # ------------------------------------------------------- persistence
     def state_dict(self) -> dict:
@@ -810,7 +817,10 @@ class IVFPQIndex(MutationMixin):
         self.corpus_sq = None if self._sq is None else self._sq.data
         self._dirty = False
 
-    def query(self, q, k: int = 10):
+    def query(self, q, k: int = 10, *, allowed=None, nprobe_boost: int = 1):
+        """``allowed``: the predicate bitmap over the id space;
+        ``nprobe_boost`` multiplies nprobe for this batch (a selective
+        filter probes more lists, ``VectorDB._filter_bitmap``)."""
         self._sync()
         q = torch.atleast_2d(torch.as_tensor(q, dtype=torch.float32,
                                              device=self.device))
@@ -818,7 +828,8 @@ class IVFPQIndex(MutationMixin):
         if metric == "cosine":
             q = D.l2_normalize(q)
             metric = "dot"
-        nprobe = min(self.nprobe, self.centroids.shape[0])
+        nprobe = min(self.nprobe * max(1, int(nprobe_boost)),
+                     self.centroids.shape[0])
         batch_stats = None if self.scan_all else {}
         out = ivf_pq_search(
             self.codebooks, self.centroids,
@@ -830,7 +841,8 @@ class IVFPQIndex(MutationMixin):
             adaptive_nprobe=self.adaptive_nprobe, adc_stats=batch_stats,
             sched_cache=self.sched_cache,
             sched_key=self._sched_ctx + (nprobe,), scan_all=self.scan_all,
-            codes=self.codes, assign=self.assign, valid=self.valid)
+            codes=self.codes, assign=self.assign, valid=self.valid,
+            allowed=allowed)
         if batch_stats:
             st = self.adc_stats
             st[batch_stats["mode"]] += 1

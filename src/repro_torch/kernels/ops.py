@@ -65,6 +65,35 @@ def normalize_knockouts(s, i):
     return torch.where(bad, -torch.inf, s), torch.where(bad, -1, i)
 
 
+def and_allowed(valid, allowed, n: int):
+    """``valid`` AND the predicate bitmap ``allowed`` over n rows (either
+    may be None): a filtered-out row is knocked out like a tombstone. The
+    bitmap covers the id space, which can trail or pass a buffer's
+    capacity: it is cut, or padded with False, to n."""
+    if allowed is None:
+        return valid
+    a = allowed.bool()[:n]
+    if a.shape[0] < n:
+        a = torch.cat([a, a.new_zeros(n - a.shape[0])])
+    return a if valid is None else valid & a
+
+
+def mask_allowed_ids(bucket_ids, allowed):
+    """Retarget the slots whose id fails the predicate bitmap at the -1 pad
+    sentinel. bucket_ids: int32 global ids (-1 = pad or tombstone);
+    allowed: (n,) bool over the id space (ids >= n read as disallowed).
+
+    A filtered batch rewrites the data the kernels read, not the grids,
+    schedules or visit tables: a slot a predicate rejects reads like a
+    tombstone, and an all-true bitmap returns the input bit for bit."""
+    n = allowed.shape[0]
+    if n == 0:
+        return torch.full_like(bucket_ids, -1)
+    safe = bucket_ids.long().clamp(0, n - 1)
+    ok = (bucket_ids >= 0) & (bucket_ids < n) & allowed.bool()[safe]
+    return torch.where(ok, bucket_ids, torch.full_like(bucket_ids, -1))
+
+
 def topk_distance(corpus, q, *, k: int, metric: str = "dot", corpus_sq=None,
                   valid=None, use_kernel=None):
     """Fused exact top-k. corpus: (N, d) float32 or bf16; q: (Q, d), cast
@@ -113,12 +142,14 @@ def pq_adc(codes, luts, *, k: int, valid=None, extra_codes=None,
 
 
 def adc_topk(codes, luts, *, k: int, valid=None, extra_codes=None,
-             lut_dtype: str = "float32", use_kernel=None):
+             lut_dtype: str = "float32", use_kernel=None, allowed=None):
     """PQ ADC top-k, the flat compressed hot path: ``pq_adc`` with
     knocked-out and unfilled slots normalized to (-inf, -1), the sentinel
-    every engine reads."""
+    every engine reads. ``allowed`` (the predicate bitmap over the id
+    space) ANDs into ``valid``."""
     if lut_dtype not in ADC_LUT_DTYPES:
         raise ValueError(f"lut_dtype {lut_dtype!r} not in {ADC_LUT_DTYPES}")
+    valid = and_allowed(valid, allowed, codes.shape[0])
     s, i = pq_adc(codes, luts, k=k, valid=valid, extra_codes=extra_codes,
                   lut_dtype=lut_dtype, use_kernel=use_kernel)
     return normalize_knockouts(s, i)
@@ -163,7 +194,7 @@ def ivf_adc_topk(bucket_codes, bucket_ids, visit, luts, *, k: int,
                  coarse=None, steps_per_probe: int = 1, use_kernel=None,
                  lut_dtype: str = "float32", mode: str = "auto", qblk=None,
                  pad_block=None, stats=None, autotune=None,
-                 sched_cache=None, sched_key=()):
+                 sched_cache=None, sched_key=(), allowed=None):
     """Bucket-resident IVF-ADC top-k, the IVF-PQ hot path. Work scales
     with the probed candidate count, not N.
 
@@ -194,6 +225,11 @@ def ivf_adc_topk(bucket_codes, bucket_ids, visit, luts, *, k: int,
     decision: 'mode', 'sharing', 'pairs', 'blocks', 'groups', 'qblk',
     'probe', 'crossover'.
 
+    ``allowed`` (a (n,) bool bitmap over the id space, the predicate's)
+    rewrites ``bucket_ids`` through ``mask_allowed_ids`` before any grid
+    runs: filtered-out slots become the -1 every grid already knocks out,
+    and the visit table, schedule and schedule cache are untouched.
+
     Returns (scores (Q, k) f32, ids (Q, k) int32) with knocked-out and
     unfilled slots as (-inf, -1), the same from every grid.
     """
@@ -201,6 +237,8 @@ def ivf_adc_topk(bucket_codes, bucket_ids, visit, luts, *, k: int,
         raise ValueError(f"lut_dtype {lut_dtype!r} not in {ADC_LUT_DTYPES}")
     if mode not in ADC_MODES:
         raise ValueError(f"mode {mode!r} not in {ADC_MODES}")
+    if allowed is not None:
+        bucket_ids = mask_allowed_ids(bucket_ids, allowed)
     Q, T = visit.shape
     if coarse is None:
         coarse = torch.zeros((Q, T // steps_per_probe), dtype=torch.float32,

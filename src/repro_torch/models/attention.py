@@ -36,7 +36,7 @@ class Attention(nn.Module):
         if cfg.mla is not None:
             raise NotImplementedError(
                 "MLA attention comes with the decode paths (ROADMAP.md Queue "
-                "1, item 10); the port serves GQA encoders so far")
+                "1, item 7); the port serves GQA encoders so far")
         d, h, dh, kv = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.n_kv_heads
         self.wq = dense_init(generator, d, (h, dh), dtype)
         self.wk = dense_init(generator, d, (kv, dh), dtype)

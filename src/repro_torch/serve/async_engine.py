@@ -48,12 +48,17 @@ kernels of every batch already dispatched, and the results of those
 batches are tensors of their own: a write never changes a dispatched
 batch's answer.
 
+Group commit: on a DB with a write-ahead log, a write's future resolves
+only once the fsync that covers its record is done. ``fsync_interval_ms``
+sets the log's policy (0: an fsync a record; > 0: appends within the
+window share one fsync); the batcher holds the acks of records not yet
+fsync'd in ``_wal_pending`` and flushes at the window's deadline, also
+while it waits for work (``_get_job``), and at shutdown. A DB without a
+log refuses ``fsync_interval_ms``.
+
 ``latency_stats`` adds the gauges ``queue_depth``, ``queue_depth_max``,
-``rejected`` and ``inflight`` to the shared summary. The write-ahead log's
-group commit (the reference's ``fsync_interval_ms`` and held acks) comes
-with durability, ROADMAP.md Queue 1 item 3; until then
-``fsync_interval_ms`` is refused, as the reference refuses it for a DB
-without a log.
+``rejected``, ``inflight`` and ``durable_pending`` (acks held for an
+fsync) to the shared summary.
 """
 from __future__ import annotations
 
@@ -167,9 +172,16 @@ class AsyncQueryEngine:
                  fsync_interval_ms: Optional[float] = None):
         if overflow not in ("block", "reject"):
             raise ValueError(f"overflow {overflow!r} not in (block, reject)")
-        if fsync_interval_ms is not None and getattr(db, "wal", None) is None:
-            raise ValueError("fsync_interval_ms needs a durable DB with a "
-                             "write-ahead log (ROADMAP.md Queue 1, item 3)")
+        if fsync_interval_ms is not None:
+            wal = getattr(db, "wal", None)
+            if wal is None:
+                raise ValueError("fsync_interval_ms needs a durable DB with a "
+                                 "write-ahead log (save_index or "
+                                 "restore_index with durable=True first)")
+            wal.fsync_interval_ms = float(fsync_interval_ms)
+        self._wal_pending: List[WriteRequest] = []  # applied, awaiting fsync
+        self._wal_deadline = 0.0     # batcher's, armed on the first held ack
+        self._durable_pending = 0    # len(_wal_pending), under _lock
         self.db = db
         self.encoder = encoder  # tokens -> embeddings; None = raw vectors
         self.max_batch = max_batch
@@ -354,8 +366,55 @@ class AsyncQueryEngine:
         w.t_done = time.perf_counter()
         with self._lock:
             self.writes_applied += 1
+        wal = getattr(self.db, "wal", None)
+        if wal is not None and wal.synced_lsn < wal.last_lsn:
+            # the record is written but not fsync'd: hold the ack until the
+            # flush that makes it durable
+            if not self._wal_pending:
+                self._wal_deadline = (time.perf_counter()
+                                      + max(wal.fsync_interval_ms, 0.0) * 1e-3)
+            self._wal_pending.append(w)
+            with self._lock:
+                self._durable_pending += 1
+            return
         w.future.set_result(w.result)
         self._resolve_one()
+
+    def _flush_wal(self) -> None:
+        """fsync the log and release every ack held for it (the batcher
+        thread only, like every DB access)."""
+        if not self._wal_pending:
+            return
+        self.db.wal.sync()
+        held, self._wal_pending = self._wal_pending, []
+        with self._lock:
+            self._durable_pending -= len(held)
+        for w in held:
+            w.future.set_result(w.result)
+        self._resolve_one(len(held))
+
+    def _get_job(self, timeout: Optional[float]):
+        """Pop the next queued job, flushing the group-commit window when
+        its deadline passes while the batcher waits (held acks must not
+        stall behind an idle queue). Raises queue.Empty only once the
+        caller's timeout is spent."""
+        deadline = (None if timeout is None
+                    else time.perf_counter() + timeout)
+        while True:
+            t = (None if deadline is None
+                 else max(deadline - time.perf_counter(), 0.0))
+            if self._wal_pending:
+                rem = max(self._wal_deadline - time.perf_counter(), 0.0)
+                t = rem if t is None else min(t, rem)
+            try:
+                return self._requests.get(t)
+            except queue.Empty:
+                if (self._wal_pending
+                        and time.perf_counter() >= self._wal_deadline):
+                    self._flush_wal()
+                if (deadline is not None
+                        and time.perf_counter() >= deadline):
+                    raise
 
     def _copy_to_host(self, scores, ids):
         """Issue the batch's copy to pinned host memory on the batcher's
@@ -416,7 +475,7 @@ class AsyncQueryEngine:
         pending = self._pending  # batcher-local backlog, bulk-refilled
         done = False
         while not done:
-            job = pending.popleft() if pending else self._requests.get(None)
+            job = pending.popleft() if pending else self._get_job(None)
             if job is _SENTINEL:
                 break
             if self._discard.is_set():
@@ -446,7 +505,7 @@ class AsyncQueryEngine:
                     if remaining <= 0:
                         break
                     try:
-                        nxt = self._requests.get(remaining)
+                        nxt = self._get_job(remaining)
                     except queue.Empty:
                         break
                 if nxt is _SENTINEL:
@@ -467,6 +526,7 @@ class AsyncQueryEngine:
                 else:
                     self._apply_write(closer)
         self._sweep_after_sentinel()
+        self._flush_wal()  # no ack outlives shutdown without its fsync
         self._inflight.put(_SENTINEL)
 
     def _sweep_after_sentinel(self) -> None:
@@ -542,8 +602,9 @@ class AsyncQueryEngine:
     # ---------------------------------------------------------------- stats
     def latency_stats(self) -> dict:
         """The shared summary (``QueryEngine.latency_stats``) and the
-        gauges ``queue_depth`` (now), ``queue_depth_max``, ``rejected`` and
-        ``inflight`` (batches dispatched, not yet on the host).
+        gauges ``queue_depth`` (now), ``queue_depth_max``, ``rejected``,
+        ``inflight`` (batches dispatched, not yet on the host) and
+        ``durable_pending`` (write acks held for an fsync).
         Thread-safe; callable while serving."""
         with self._lock:
             lats = list(self.latencies_ms)
@@ -551,7 +612,8 @@ class AsyncQueryEngine:
                      + len(self._pending),
                      "queue_depth_max": self.queue_depth_max,
                      "rejected": self.rejected,
-                     "inflight": self._inflight.qsize()}
+                     "inflight": self._inflight.qsize(),
+                     "durable_pending": self._durable_pending}
             writes = self.writes_applied
         if not lats and not writes and not self.rejected:
             return {}

@@ -23,7 +23,8 @@ the reads between two writes still batch together.
 A batch's results come back to the host in one copy (scores and ids, both
 32-bit, packed into one tensor), the counterpart of the reference's one
 ``jax.device_get``. ``latency_stats`` reports enqueue-to-result p50/p99
-with the DB's plan-ledger, mutation and ADC-dispatch counters.
+with the DB's plan-ledger, mutation, write-ahead-log, ADC-dispatch and
+filter counters.
 """
 from __future__ import annotations
 
@@ -44,8 +45,8 @@ class Request:
     rid: int
     query: object  # (d,) embedding (tensor or array), or token ids
     k: int = 10
-    where: Optional[object] = None   # predicate (ROADMAP.md Queue 1, item 4)
-    hybrid: Optional[float] = None   # BM25 fusion alpha (same item)
+    where: Optional[object] = None   # a search.meta predicate
+    hybrid: Optional[float] = None   # BM25 fusion alpha
     text: Optional[str] = None       # raw query text for the lexical side
     t_enqueue: float = 0.0
     result: Optional[tuple] = None
@@ -148,8 +149,9 @@ def to_host(scores: torch.Tensor, ids: torch.Tensor) -> tuple:
 def summarize_latencies(latencies_ms, writes_applied: int, db,
                         extra: Optional[dict] = None) -> Dict[str, float]:
     """The one ``latency_stats`` body: enqueue-to-result percentiles, the
-    DB's plan-ledger, mutation and ADC-dispatch counters, and the async
-    front's gauges in ``extra``."""
+    DB's plan-ledger, mutation, write-ahead-log (``wal_*``: records
+    against fsyncs is the group commit's amortization), ADC-dispatch and
+    filter counters, and the async front's gauges in ``extra``."""
     if not latencies_ms and not writes_applied and not extra:
         return {}
     stats = {"engine": getattr(db, "engine_name", "?")}
@@ -165,6 +167,9 @@ def summarize_latencies(latencies_ms, writes_applied: int, db,
     muts = getattr(db, "mutation_stats", None)
     if muts is not None:
         stats.update({f"write_{k}": int(v) for k, v in muts.items()})
+    wal = getattr(db, "wal_stats", None)
+    if wal is not None:
+        stats.update({f"wal_{k}": int(v) for k, v in wal.items()})
     adc = getattr(db, "adc_stats", None)
     if adc is not None and adc.get("batches"):
         b = adc["batches"]
@@ -179,6 +184,14 @@ def summarize_latencies(latencies_ms, writes_applied: int, db,
             stats["adc_sched_cache_misses"] = int(adc["sched_cache_misses"])
         stats["adc_sharing_factor"] = float(adc["sharing_sum"] / b)
         stats["adc_effective_nprobe"] = float(adc["eff_nprobe_sum"] / b)
+    flt = getattr(db, "filter_stats", None)
+    if flt is not None:
+        stats["filtered_batches"] = int(flt["filtered_batches"])
+        stats["filter_bitmap_ms"] = float(flt["bitmap_build_ms"])
+        stats["hybrid_merges"] = int(flt["hybrid_merges"])
+        stats["filter_nprobe_boosts"] = int(flt["nprobe_boosts"])
+        for kk, v in flt["selectivity_hist"].items():
+            stats[f"filter_sel_{kk}"] = int(v)
     if extra:
         stats.update(extra)
     return stats

@@ -165,11 +165,16 @@ def test_state_for_another_metric_is_refused(data):
         VectorDB("flat", metric="l2", device="cpu").load_state(state)
 
 
-@pytest.mark.parametrize("kw", [dict(where=object()), dict(hybrid=0.5)])
-def test_filtered_and_hybrid_are_not_ported_yet(data, kw):
+@pytest.mark.parametrize("kw,err,match", [
+    (dict(where=object()), TypeError, "Predicate"),
+    (dict(hybrid=0.5), RuntimeError, "enable_lexical")])
+def test_filtered_and_hybrid_are_not_ported_yet(data, kw, err, match):
+    """Filtered and hybrid search landed (tests/test_torch_filtered.py);
+    what a query still refuses is a malformed predicate and a hybrid query
+    before ``enable_lexical``."""
     corpus, q = data
     db = VectorDB("flat", device="cpu").load(corpus)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(err, match=match):
         db.query(q, k=3, **kw)
 
 

@@ -1017,3 +1017,90 @@ def test_async_front_completes_through_the_copy_event(monkeypatch):
             np.testing.assert_array_equal(i.numpy(), pump.result(rid)[1].numpy())
         assert eng._copy_stream is not None
     assert "serve-completer" not in synced
+
+
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_every_kernel_on_filtered_inputs(metric):
+    """A predicate bitmap reaches each kernel as inputs it already takes:
+    ``topk_distance`` and ``pq_adc`` through the live mask AND the bitmap,
+    the three ivf_adc grids through bucket ids the bitmap rewrote to -1.
+    Each kernel equals its plain version on those inputs (the ADC grids
+    and pq_adc bit for bit, topk_distance within 2 d 2^-24 of the scale),
+    and no id outside the bitmap comes back."""
+    from repro_torch.core.pq import adc_tables
+    dev = _card()
+    db, rows = _mutated_ivf(dev, "spilled", metric)
+    n = db.index.next_id
+    g = torch.Generator(device=dev).manual_seed(3)
+    allowed = torch.rand(n, generator=g, device=dev) < 0.1
+    q = torch.as_tensor(rows(33), device=dev)
+    args, kw = _probe_inputs(db, q)
+    kw.update(k=32, lut_dtype="float32")
+    for mode in ("per_query", "blocked", "run_resident"):
+        got = ops.ivf_adc_topk(*args, mode=mode, use_kernel=True,
+                               allowed=allowed, **kw)
+        _same(got, ops.ivf_adc_topk(*args, mode=mode, use_kernel=False,
+                                    allowed=allowed, **kw))
+        ids = got[1][got[1] >= 0].long()
+        assert bool(allowed[ids].all()), mode
+    corpus = torch.as_tensor(rows(20_000), device=dev)
+    fa = torch.rand(20_000, generator=g, device=dev) < 0.05
+    live = torch.rand(20_000, generator=g, device=dev) >= 0.1
+    kk = dict(k=20, metric=metric)
+    got = ops.topk_distance(corpus, q, valid=ops.and_allowed(live, fa, 20_000),
+                            use_kernel=True, **kk)
+    want = ops.topk_distance(corpus, q, valid=ops.and_allowed(live, fa, 20_000),
+                             use_kernel=False, **kk)
+    torch.cuda.synchronize()
+    assert bool((fa & live)[got[1].long()].all())
+    scale = (torch.linalg.vector_norm(q, dim=1)[:, None]
+             * torch.linalg.vector_norm(corpus, dim=1).max())
+    assert bool(((got[0] - want[0]).abs()
+                 <= 2 * 2 * 64 * 2.0 ** -24 * scale + 1e-6).all())
+    assert (got[1] == want[1]).float().mean() > 0.99
+    codes = torch.randint(0, 256, (20_000, 16), generator=g, device=dev,
+                          dtype=torch.uint8)
+    cb = torch.randn(16, 256, 4, generator=g, device=dev)
+    luts = adc_tables(cb, q, metric=metric)
+    got = ops.adc_topk(codes, luts, k=20, valid=live, allowed=fa,
+                       use_kernel=True)
+    _same(got, ops.adc_topk(codes, luts, k=20, valid=live, allowed=fa,
+                            use_kernel=False))
+    assert bool((fa & live)[got[1][got[1] >= 0].long()].all())
+
+
+def test_restored_engines_serve_on_the_card(tmp_path):
+    """A snapshot written on the card restores onto the card leaf by leaf
+    (flat float32 and bf16, pq, ivf_pq with its metadata, lsh) and serves
+    the saved engine's answers bit for bit, through the kernels; a durable
+    ivf_pq replays its log's tail."""
+    from repro_torch.search import Eq
+    dev = _card()
+    rng = np.random.default_rng(12)
+    x = rng.normal(size=(20_000, 64)).astype(np.float32)
+    q = torch.as_tensor(x[:17] + 0.01, device=dev)
+    meta = {"tag": (np.arange(20_000) % 10)}
+    for i, (engine, kw) in enumerate((
+            ("flat", {}), ("flat", {"dtype": torch.bfloat16}),
+            ("pq", {"m": 16}), ("ivf_pq", {"m": 16}), ("lsh", {}))):
+        d = str(tmp_path / f"e{i}")
+        db = VectorDB(engine, device=dev, **kw).load(x, meta=meta)
+        durable = engine == "ivf_pq"
+        db.save_index(d, 0, durable=durable)
+        if durable:
+            db.insert(x[:50] * 0.5, meta={"tag": [3] * 50})
+            db.delete(torch.arange(0, 400, 7, device=dev))
+        back = VectorDB(engine, device=dev, **kw).restore_index(
+            d, durable=durable)
+        ops.reset_launch_counts()
+        s0, i0 = db.query(q, k=10)
+        s1, i1 = back.query(q, k=10)
+        assert sum(ops.launch_counts().values()) >= 2
+        assert torch.equal(i0, i1) and torch.equal(s0, s1), engine
+        if engine != "lsh":
+            f0 = db.query(q, k=10, where=Eq("tag", 3))
+            f1 = back.query(q, k=10, where=Eq("tag", 3))
+            assert torch.equal(f0[1], f1[1]), engine
+        if durable:
+            db.wal.close()
+            back.wal.close()

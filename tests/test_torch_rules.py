@@ -1,9 +1,10 @@
 """Rules the port keeps, checked on the CPU.
 
-1. Importing ``repro_torch`` loads neither JAX nor the JAX package.
+1. Importing ``repro_torch`` (its serving, checkpoint, WAL, fault and
+   search modules too) loads neither JAX, ml_dtypes nor the JAX package.
 2. No module of ``src/repro_torch``, not ``chip_smoke.py`` and neither
-   ``tools/ivf_dispatch.py`` nor ``tools/ivf_kernels.py`` imports ``jax``
-   or ``repro``.
+   ``tools/ivf_dispatch.py`` nor ``tools/ivf_kernels.py`` imports ``jax``,
+   ``ml_dtypes`` or ``repro``.
 3. Entry points run on the card: ``VectorDB()`` without a device raises
    when there is none.
 4. Kernel dispatch follows the tensor: ``use_kernel=True`` on a CPU tensor
@@ -37,9 +38,10 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
 
 def test_import_loads_no_jax():
     code = ("import json, sys, repro_torch, repro_torch.core.convert, "
-            "repro_torch.serve; "
+            "repro_torch.serve, repro_torch.checkpoint, repro_torch.core.wal, "
+            "repro_torch.ft, repro_torch.search; "
             "print(json.dumps([m for m in sys.modules if m.split('.')[0] "
-            "in ('jax', 'jaxlib', 'repro')]))")
+            "in ('jax', 'jaxlib', 'repro', 'ml_dtypes')]))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=120,
@@ -58,7 +60,7 @@ def _imports(path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
 def test_port_file_imports_no_jax(path):
     bad = [m for m in _imports(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes")]
     assert not bad, f"{path} imports {bad}"
 
 
