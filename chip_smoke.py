@@ -166,7 +166,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the restored lsh through ``hamming``); ``--snapshot-dir`` (the
      system's temporary directory by default) holds a directory of its
      own, removed at the end;
-  8. a JSON line of the kernels, then the result line.
+  8. the remaining engines at full size, one at a time, on the phase-4
+     data made again, against the float32 ``flat`` truth at Q = 1, 32,
+     512 (ids kept, the engine dropped): ``VectorDB("ivf")`` (C = 2973,
+     nprobe 8; the data's copy dropped after load) with its bucket facts,
+     p50/p99 and QPS, recall@10 (gated at ``--min-recall`` at Q = 512), 8
+     queries against a float64 brute force over the probed buckets, the
+     five predicates at Q = 32 (ids inside the bitmap, all-true equal to
+     no filter), then 8 insert batches of 1,024 rows, a delete batch of
+     8,192 and an upsert batch of 1,024 (rows/s), ``compact``, every
+     written id in its assigned cluster's bucket row, written rows found
+     in their own top 10 at the loaded rows' rate less 0.02, no deleted
+     id in an answer; ``VectorDB("int8")`` (recall gated; the kernel path
+     against its plain path at Q = 32 within ``topk_tolerance``; 8 queries
+     against a float64 ``(q . c_q) * scale``; the scan's times and split;
+     the five predicates at Q = 32); ``VectorDB("graph")``: the build at
+     262,144 rows through the kernel against the plain build (forward
+     slots equal but for near-ties, the table at 99.9 % or more), the full
+     build's split (host draws, chunk loop, symmetrize) and launches,
+     p50/p99, recall (printed), the entry scan kernel against plain and
+     beam search through the kernel against ``use_kernel=False`` (rows
+     with equal seeds bit-equal); load seconds, GB held and peak memory
+     of each; ``topk_distance``'s launches on the phase's path;
+  9. a JSON line of the kernels, then the result line.
 
 It needs one CUDA card and the repository's ``src/`` beside it, and it
 imports nothing of the JAX package.
@@ -1696,7 +1718,7 @@ def ivf_breakdown(idx, queries) -> None:
     events, stage by stage): probe stage (centroid scores, top-nprobe,
     visit table, tables), the ivf_adc scan, the exact re-rank."""
     from repro_torch.core import distances as D
-    from repro_torch.core.pq import _exact_rerank, _ivf_probe_stage
+    from repro_torch.core.pq import _ivf_probe_stage
     from repro_torch.kernels import ops
     for Q in BATCHES:
         q = D.l2_normalize(queries[:Q].float())
@@ -1713,7 +1735,7 @@ def ivf_breakdown(idx, queries) -> None:
                                    k=idx.refine, coarse=coarse,
                                    steps_per_probe=idx.spp, mode="per_query",
                                    pad_block=kw["pad_block"])
-        rerank = gpu_ms(lambda: _exact_rerank(idx.corpus, idx.corpus_sq, cand,
+        rerank = gpu_ms(lambda: D.rerank_topk(idx.corpus, idx.corpus_sq, cand,
                                               q, metric="dot", k=10), 5)
         log(f"  ivf_pq stages Q={Q}: probe stage {probe:.3f} ms, ivf_adc "
             f"{scan:.3f} ms, re-rank {rerank:.3f} ms (device ms, CUDA events)")
@@ -1830,7 +1852,7 @@ def lsh_breakdown(idx, queries) -> None:
     stage by stage): query signatures, the hamming shortlist, the exact
     re-rank."""
     from repro_torch.core import distances as D
-    from repro_torch.core.lsh import rerank, sign_codes
+    from repro_torch.core.lsh import sign_codes
     from repro_torch.kernels import ops
     L = min(idx.shortlist, idx.codes.shape[1])
     for Q in BATCHES:
@@ -1839,8 +1861,8 @@ def lsh_breakdown(idx, queries) -> None:
         qc = sign_codes(q, idx.planes)
         short = gpu_ms(lambda: ops.hamming_shortlist(qc, idx.codes, L), 5)
         _, cand = ops.hamming_shortlist(qc, idx.codes, L)
-        rr = gpu_ms(lambda: rerank(idx.corpus, cand, q, metric="dot", k=10),
-                    5)
+        rr = gpu_ms(lambda: D.rerank_topk(idx.corpus, None, cand, q,
+                                          metric="dot", k=10), 5)
         log(f"  lsh stages Q={Q}: signatures {sig:.3f} ms, hamming_shortlist "
             f"{short:.3f} ms, re-rank {rr:.3f} ms (device ms, CUDA events)")
 
@@ -2906,8 +2928,9 @@ def bitmaps(db, device) -> dict:
     return out
 
 
-def serve_filtered(db, queries, label: str, maps: dict, unfiltered: dict):
-    """Every predicate at each Q of BATCHES (k = 10), one batch repeated
+def serve_filtered(db, queries, label: str, maps: dict, unfiltered: dict,
+                   batches=BATCHES):
+    """Every predicate at each Q of ``batches`` (k = 10), one batch repeated
     FILTER_REPS times: p50/p99 of ``db.query(where=...)`` on the host clock
     ending in a synchronize (the query builds its bitmap on the host and
     uploads it each call). Fails on an id outside the bitmap, and unless
@@ -2917,7 +2940,7 @@ def serve_filtered(db, queries, label: str, maps: dict, unfiltered: dict):
     out = {}
     for name, (pred, allowed) in maps.items():
         out[name], parts = {}, []
-        for Q in BATCHES:
+        for Q in batches:
             q = queries[:Q]
             db.query(q, k=10, where=pred)
             torch.cuda.synchronize()
@@ -2942,7 +2965,7 @@ def serve_filtered(db, queries, label: str, maps: dict, unfiltered: dict):
         log(f"  {label} where {name}: " + ", ".join(parts)
             + f" (n={FILTER_REPS}); ids inside the bitmap")
     log(f"  {label}: the all-true predicate equals the unfiltered answer bit "
-        f"for bit at Q = {BATCHES}; filter_stats {db.filter_stats}")
+        f"for bit at Q = {batches}; filter_stats {db.filter_stats}")
     return out
 
 
@@ -3391,6 +3414,482 @@ def dur_mid(seed: int, device, rank: int, work: str, path: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------ phase 8: the remaining engines
+P8_WRITES = {"insert": (8, 1024), "delete": (1, 8192), "upsert": (1, 1024)}
+P8_SELF = 4096           # loaded and inserted rows sent back as queries (all
+                         # 1,024 upserted rows go back too)
+P8_SELF_FLOOR = 0.99     # ivf scores exactly and probes each row's own
+                         # cluster first: loaded rows find themselves at
+                         # this rate or above, and the margin rests on it
+P8_SELF_MARGIN = 0.02    # written rows found at least as often as loaded
+                         # ones less this: at a rate of 0.99, 5 standard
+                         # deviations of the difference of two rates over
+                         # 4,096 and 1,024 rows (the upserted rows) are
+                         # 5 * sqrt(0.99 * 0.01 * (1/4096 + 1/1024)) = 0.0174,
+                         # and over 4,096 a side 0.0110
+P8_BRUTE = 8             # queries held against a float64 brute force
+P8_FILTER_Q = (32,)      # the filtered batches' size
+GRAPH_MID = 262_144      # rows of the graph build's kernel-against-plain
+
+
+def p8_engine_facts(db, label: str, t_load: float, before: int) -> None:
+    import torch
+    torch.cuda.synchronize()
+    log(f"  {label} load {t_load:.2f} s; the engine holds "
+        f"{db.index.memory_bytes() / 1e9:.3f} GB on the card "
+        f"(memory_bytes); in use {torch.cuda.memory_allocated() / 1e9:.2f} "
+        f"GB ({(torch.cuda.memory_allocated() - before) / 1e9:.2f} GB more "
+        f"than before the load), peak so far "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def p8_recalls(res: dict, truth: dict, label: str, gate=None) -> dict:
+    """recall@10 at each Q against the float32 flat truth; with ``gate``,
+    fails below it at Q = 512 (the smaller batches are its first rows:
+    one query is no estimate)."""
+    out = {Q: recall_at_10(res[Q][1], truth[Q]) for Q in BATCHES}
+    top = max(BATCHES)
+    log(f"  {label} recall@10 against float32 flat: "
+        + ", ".join(f"Q={Q} {r:.4f}" for Q, r in out.items())
+        + (f" (gated at {gate} at Q={top})" if gate is not None else
+           " (printed, not gated)"))
+    if gate is not None and out[top] < gate:
+        raise AssertionError(f"{label} recall@10 {out[top]:.4f} below {gate}")
+    return out
+
+
+def near_ties_only(exact, want, tol, label: str) -> None:
+    """Where an engine's id differs from a reference answer's at a rank,
+    the engine's row must score (exactly, float64) within 2 tol of the
+    reference's score at that rank."""
+    if not bool(((exact - want).abs() <= 2 * tol + 1e-12).all()):
+        raise AssertionError(f"{label}: ids differ beyond near-ties")
+
+
+def ivf_brute(idx, q, got, label: str) -> None:
+    """ivf's answers against a float64 brute force over the buckets the
+    engine probes (the probe recomputed as the engine computes it): scores
+    within compare_topk's bound, ids equal but for near-ties."""
+    import torch
+    from repro_torch.core import distances as D
+    qn = D.l2_normalize(q.float())
+    probe = D.topk_scores(D.pairwise_scores(qn, idx.centroids, "dot"),
+                          idx.nprobe)[1]
+    s_got, i_got = got
+    tol = topk_tolerance(idx.corpus, qn, False)
+    agree = 0
+    for r in range(q.shape[0]):
+        ids = idx.buckets[probe[r]].reshape(-1)
+        ids = ids[ids >= 0].long()
+        sc = idx.corpus[ids].double() @ qn[r].double()
+        s, pos = torch.sort(sc, descending=True, stable=True)
+        s, want = s[:10], ids[pos[:10]]
+        if not bool(((s_got[r].double() - s).abs() <= tol[r]).all()):
+            raise AssertionError(f"{label} row {r}: scores differ from the "
+                                 "float64 brute force beyond the bound")
+        diff = i_got[r].long() != want
+        exact = idx.corpus[i_got[r][diff].long()].double() @ qn[r].double()
+        near_ties_only(exact, s[diff], float(tol[r]), f"{label} row {r}")
+        agree += int((~diff).sum())
+    log(f"  {label}: {q.shape[0]} queries against a float64 brute force over "
+        f"the probed buckets: ids agree {agree / (10 * q.shape[0]):.4f} (the "
+        f"rest near-ties), scores within {float(tol.max()):.3e}")
+
+
+def ivf_rows_in_buckets(idx, ids, vecs, what: str) -> None:
+    """Every written id sits in one slot of the bucket row of the cluster
+    its row is assigned to (the engine's encode, in its write batches)."""
+    import torch
+    pos = idx._pos[ids.long()]
+    if not bool((pos >= 0).all()):
+        raise AssertionError(f"a {what} id is missing from the buckets")
+    assign = torch.cat([idx._encode_batch(vecs[a:a + 1024])[2]
+                        for a in range(0, vecs.shape[0], 1024)])
+    if not (torch.equal(idx.buckets.view(-1)[pos].long(), ids.long())
+            and torch.equal(torch.div(pos, idx.cap, rounding_mode="floor"),
+                            assign)):
+        raise AssertionError(f"a {what} id sits outside its cluster's "
+                             "bucket row")
+    log(f"  all {ids.numel()} {what} ids sit in their assigned cluster's "
+        "bucket row")
+
+
+def p8_ivf(box, queries, truth, meta, n, seed, device, rank, min_recall,
+           launches) -> dict:
+    """ivf: load (the data's copy dropped after), serve, recall (gated),
+    the float64 brute force over probed buckets, filtered batches, then
+    the writes (rows/s; ids in their clusters' buckets; no deleted id
+    back; written rows found as often as loaded ones), then compact."""
+    import torch
+    from repro_torch import VectorDB
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    db = VectorDB("ivf", metric="cosine", device=device).load(box.pop(),
+                                                            meta=meta)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    torch.cuda.empty_cache()  # the data's copy went with the box
+    idx = db.index
+    fill = idx._fill
+    log(f"  ivf: C = {idx.centroids.shape[0]}, nprobe {idx.nprobe}, bucket "
+        f"capacity {idx.cap} (fills: max {int(fill.max())}, mean "
+        f"{float(fill.float().mean()):.1f}, min {int(fill.min())}; the "
+        f"table {idx.buckets.numel() * 4 / 1e6:.1f} MB)")
+    p8_engine_facts(db, "ivf", t_load, before)
+    res, counts = serve_and_count(db, queries, "ivf")
+    for name, c in counts.items():
+        launches[name] = launches.get(name, 0) + c
+    out = {"load_s": t_load, "recall": p8_recalls(res, truth, "ivf",
+                                                  min_recall)}
+    ivf_brute(idx, queries[:P8_BRUTE], tuple(x[:P8_BRUTE] for x in res[32]),
+              "ivf")
+    maps = bitmaps(db, device)
+    serve_filtered(db, queries, "ivf", maps, res, batches=P8_FILTER_Q)
+
+    rates = {}
+    n_ins = P8_WRITES["insert"][0] * P8_WRITES["insert"][1]
+    ins_vecs = new_rows(n_ins, n, seed, 11, device, rank)
+    ins_ids = torch.cat(apply_writes(db, "insert", n_ins,
+                                     P8_WRITES["insert"][1], vectors=ins_vecs,
+                                     label="ivf ", rates=rates))
+    gen = torch.Generator(device=device).manual_seed(seed + 13)
+    perm = torch.randperm(n, generator=gen, device=device)
+    n_del, n_ups = P8_WRITES["delete"][1], P8_WRITES["upsert"][1]
+    dead, ups_ids = perm[:n_del], perm[n_del:n_del + n_ups]
+    kept = perm[n_del + n_ups:n_del + n_ups + P8_SELF]
+    deleted = sum(apply_writes(db, "delete", n_del, n_del, ids=dead,
+                               label="ivf ", rates=rates))
+    if deleted != n_del:
+        raise AssertionError(f"ivf deleted {deleted} of {n_del} live ids")
+    ups_vecs = new_rows(n_ups, n, seed, 12, device, rank)
+    apply_writes(db, "upsert", n_ups, n_ups, vectors=ups_vecs, ids=ups_ids,
+                 label="ivf ", rates=rates)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = db.compact()
+    torch.cuda.synchronize()
+    log(f"  ivf compact: {time.perf_counter() - t0:.3f} s, {stats}; bucket "
+        f"capacity {idx.cap}, corpus rows {idx._corpus.capacity}")
+    if db.n != n + n_ins - n_del or idx.size != db.n:
+        raise AssertionError(f"ivf size {idx.size} after the writes, "
+                             f"expected {n + n_ins - n_del}")
+    for ids, vecs, what in ((ins_ids, ins_vecs, "inserted"),
+                            (ups_ids, ups_vecs, "upserted")):
+        ivf_rows_in_buckets(idx, ids, vecs, what)
+    dead_mask = torch.zeros(idx.next_id, dtype=torch.bool, device=device)
+    dead_mask[dead] = True
+    base = self_found(db, idx.corpus[kept], kept, "ivf loaded rows (the "
+                      "baseline)")
+    if base < P8_SELF_FLOOR:
+        raise AssertionError(f"ivf loaded rows found in their own top 10 "
+                             f"{base:.4f} < {P8_SELF_FLOOR}")
+    for ids, vecs, what in ((ins_ids, ins_vecs, "inserted"),
+                            (ups_ids, ups_vecs, "upserted")):
+        rate = self_found(db, vecs[:P8_SELF], ids[:P8_SELF],
+                          f"ivf {what} rows")
+        if rate < base - P8_SELF_MARGIN:
+            raise AssertionError(f"ivf {what} rows found in their own top 10 "
+                                 f"{rate:.4f}, loaded rows {base:.4f}")
+    after = serve_batches(db, queries, "ivf after the writes and compact")
+    for Q in BATCHES:
+        no_dead_ids(after[Q][1], dead_mask, f"ivf after the writes Q={Q}")
+    log("  ivf: no deleted id in any answer after the writes")
+    out.update(rates=rates, self_found=base)
+    log(f"  peak device memory in ivf: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return out
+
+
+def int8_norm_max(codes, scales, chunk: int = 1 << 20) -> float:
+    """The largest norm of the dequantized rows, a chunk at a time."""
+    import torch
+    from repro_torch.core.quant import dequantize_rows
+    return max(float(torch.linalg.vector_norm(
+        dequantize_rows(codes[a:a + chunk], scales[a:a + chunk]), dim=1).max())
+        for a in range(0, codes.shape[0], chunk))
+
+
+def int8_checks(idx, queries, got) -> dict:
+    """int8's kernel path against its plain path at full size, Q = 32
+    (scores within topk_tolerance, ids but for near-ties), its answers
+    for P8_BRUTE queries against a float64 brute force of (q . c_q) *
+    scale (within twice the bound: the port scales the rows before the
+    product), and the two paths' times with the scan's split."""
+    import torch
+    from repro_torch.core import distances as D
+    from repro_torch.core.quant import dequantize_rows, scan_rows
+    from repro_torch.kernels import ops
+    q = queries[:32]
+    qn = D.l2_normalize(q.float())
+    c_max = int8_norm_max(idx.codes, idx.scales)
+    tol = (2 * DIM * 2.0 ** -24 * torch.linalg.vector_norm(qn, dim=1)
+           * c_max)[:, None]
+    ks, ki = idx.query(q, k=10, use_kernel=True)
+    ps, pi = idx.query(q, k=10, use_kernel=False)
+    torch.cuda.synchronize()
+    err = (ks - ps).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"int8 kernel path: score error "
+                             f"{float(err.max())} above {float(tol.max())}")
+    diff = ki != pi
+    r, c = torch.nonzero(diff, as_tuple=True)
+    i = ki[r, c].long()
+    rows = dequantize_rows(idx.codes[i], idx.scales[i]).double()
+    near_ties_only((rows * qn[r].double()).sum(1), ps[r, c].double(),
+                   tol[r, 0].double(), "int8 kernel path against plain")
+    log(f"  int8 kernel path against its plain path, full size Q=32: ids "
+        f"agree {float((~diff).float().mean()):.4f} (the rest near-ties), "
+        f"max |dscore| {float(err.max()):.3e} (bound {float(tol.max()):.3e})")
+    # float64 brute force of (q . c_q) * scale
+    qb = qn[:P8_BRUTE].double()
+    best_s = best_i = None
+    N = idx.codes.shape[0]
+    for a in range(0, N, 1 << 18):
+        b = min(N, a + (1 << 18))
+        sc = (qb @ idx.codes[a:b].double().T) * idx.scales[a:b].double()
+        ids = torch.arange(a, b, device=sc.device)[None].expand_as(sc)
+        if best_s is not None:
+            sc, ids = torch.cat([best_s, sc], 1), torch.cat([best_i, ids], 1)
+        s, pos = torch.sort(sc, dim=1, descending=True, stable=True)
+        best_s, best_i = s[:, :10], torch.gather(ids, 1, pos[:, :10])
+    s_got, i_got = (x[:P8_BRUTE] for x in got)
+    t2 = 2 * tol[:P8_BRUTE]
+    if not bool(((s_got.double() - best_s).abs() <= t2).all()):
+        raise AssertionError("int8 scores differ from the float64 (q . c_q) "
+                             "* scale beyond twice the bound")
+    diff = i_got.long() != best_i
+    r, c = torch.nonzero(diff, as_tuple=True)
+    i = i_got[r, c].long()
+    exact = (idx.codes[i].double() * qb[r]).sum(1) * idx.scales[i].double()
+    near_ties_only(exact, best_s[r, c], t2[r, 0].double(),
+                   "int8 against the float64 brute force")
+    log(f"  int8 against a float64 brute force of (q . c_q) * scale, "
+        f"{P8_BRUTE} queries: ids agree {float((~diff).float().mean()):.4f} "
+        f"(the rest near-ties), max |dscore| "
+        f"{float((s_got.double() - best_s).abs().max()):.3e} (bound "
+        f"{float(t2.max()):.3e})")
+    # times: the whole scan on each path, and one chunk's two steps
+    ms = {Q: gpu_ms(lambda: idx.query(queries[:Q], k=10), 3)
+          for Q in BATCHES}
+    plain_ms = gpu_ms(lambda: idx.query(q, k=10, use_kernel=False), 1)
+    rows_c = scan_rows(DIM)
+    chunk = dequantize_rows(idx.codes[:rows_c], idx.scales[:rows_c])
+    deq_ms = gpu_ms(lambda: dequantize_rows(idx.codes[:rows_c],
+                                            idx.scales[:rows_c]), 5)
+    top_ms = gpu_ms(lambda: ops.topk_distance(chunk, qn, k=10), 5)
+    n_chunks = -(-N // rows_c)
+    log(f"  int8 scan times (CUDA events): the kernel path "
+        + ", ".join(f"Q={Q} {t:.3f} ms" for Q, t in ms.items())
+        + f"; the plain path Q=32 {plain_ms:.3f} ms; one chunk of {rows_c} "
+        f"rows ({n_chunks} a batch): dequantize {deq_ms:.3f} ms, "
+        f"topk_distance Q=32 {top_ms:.3f} ms")
+    del chunk
+    return {"ms": ms, "plain_ms_q32": plain_ms, "chunk_rows": rows_c,
+            "chunks": n_chunks, "dequantize_ms": deq_ms,
+            "chunk_topk_ms_q32": top_ms}
+
+
+def p8_int8(corpus, queries, truth, meta, min_recall, launches) -> dict:
+    """int8: load, serve (topk_distance must launch), recall (gated), the
+    kernel path against plain and a float64 brute force, filtered
+    batches."""
+    import torch
+    from repro_torch import VectorDB
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    db = VectorDB("int8", metric="cosine", device=corpus.device).load(
+        corpus, meta=meta)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    p8_engine_facts(db, "int8", t_load, before)
+    res, counts = serve_and_count(db, queries, "int8")
+    if counts["topk_distance"] <= 0:
+        raise AssertionError("topk_distance never launched on the int8 path")
+    f_launch = dict(counts)
+    out = {"load_s": t_load, "recall": p8_recalls(res, truth, "int8",
+                                                  min_recall)}
+    out.update(int8_checks(db.index, queries, res[32]))
+    maps = bitmaps(db, corpus.device)
+    counted(f_launch, serve_filtered, db, queries, "int8", maps, res,
+            batches=P8_FILTER_Q)
+    for name, c in f_launch.items():
+        launches[name] = launches.get(name, 0) + c
+    out["launches"] = f_launch["topk_distance"]
+    log(f"  int8: topk_distance launches on its path (batches and filtered "
+        f"batches): {f_launch['topk_distance']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return out
+
+
+def graph_mid(corpus, seed: int) -> dict:
+    """The graph build at GRAPH_MID rows through the kernel and through
+    the plain version, both from the same numpy draws: the forward slots
+    (those symmetrize never rewrites) equal but for near-ties, and the
+    tables equal at 99.9 % of entries or more; each build's split."""
+    import torch
+    from repro_torch.core import distances as D
+    from repro_torch.core.graph import build_knn_graph
+    sub = D.l2_normalize(corpus[:GRAPH_MID])
+    kw = dict(degree=16, metric="dot", max_candidates=16384, seed=seed)
+    splits = {}
+    tables = {}
+    for name, use in (("kernel", True), ("plain", False)):
+        st = {}
+        t0 = time.perf_counter()
+        tables[name] = build_knn_graph(sub, use_kernel=use, stats=st, **kw)
+        torch.cuda.synchronize()
+        st["wall_s"] = time.perf_counter() - t0
+        splits[name] = st
+        log(f"  graph build at {GRAPH_MID} rows, {name}: {st['wall_s']:.2f} s "
+            f"(host draws {st['draw_s']:.2f} s, chunk loop {st['scan_s']:.2f}"
+            f" s, of it {st['device_s']:.2f} s device spans, symmetrize "
+            f"{st['symmetrize_s']:.3f} s, {st['chunks']} chunks)")
+    got, want = tables["kernel"], tables["plain"]
+    fwd = 16 - 16 // 4
+    diff = got[:, :fwd] != want[:, :fwd]
+    r, c = torch.nonzero(diff, as_tuple=True)
+    # the two builds drew the same samples: a forward slot that differs
+    # holds a row the plain build scored within the bound of its own pick
+    s_got = (sub[got[r, c].long()].double() * sub[r].double()).sum(1)
+    s_want = (sub[want[r, c].long()].double() * sub[r].double()).sum(1)
+    tol = 2 * DIM * 2.0 ** -24 * 1.0  # unit rows
+    near_ties_only(s_got, s_want, tol, "graph build kernel against plain")
+    same = float((got == want).float().mean())
+    log(f"  graph build kernel against plain at {GRAPH_MID} rows: forward "
+        f"slots equal at {float((~diff).float().mean()):.6f} (the rest "
+        f"near-ties within {2 * tol:.2e}), whole table {same:.6f}")
+    if same < 0.999:
+        raise AssertionError(f"graph tables agree at {same:.6f} < 0.999")
+    return {"mid_tables_equal": same, "mid_splits": splits}
+
+
+def p8_graph(box, queries, truth, seed, launches) -> dict:
+    """graph: the build at GRAPH_MID rows kernel against plain, the full
+    build (its split and launches), serve, recall (printed), and beam
+    search through the kernel against use_kernel=False on the same
+    table."""
+    import torch
+    from repro_torch import VectorDB
+    from repro_torch.core import distances as D
+    from repro_torch.kernels import ops
+    out = graph_mid(box[0], seed)
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    db = VectorDB("graph", metric="cosine", device=box[0].device).load(
+        box.pop())
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    build = ops.launch_counts()["topk_distance"]
+    torch.cuda.empty_cache()
+    idx = db.index
+    st = idx.build_stats
+    if build <= 0:
+        raise AssertionError("topk_distance never launched in the graph build")
+    log(f"  graph build at full size: {t_load:.2f} s (host draws "
+        f"{st['draw_s']:.2f} s, chunk loop {st['scan_s']:.2f} s, of it "
+        f"{st['device_s']:.2f} s the chunks' device spans by CUDA events, "
+        f"symmetrize {st['symmetrize_s']:.3f} s, {st['chunks']} chunks of "
+        f"1024 rows against 16384 sampled rows each); topk_distance "
+        f"launches {build}; entry rows {idx.entry[0].shape[0]} "
+        f"({idx.entry[0].numel() * 4 / 1e6:.1f} MB)")
+    p8_engine_facts(db, "graph", t_load, before)
+    res, counts = serve_and_count(db, queries, "graph")
+    if counts["topk_distance"] <= 0:
+        raise AssertionError("topk_distance never launched in the graph's "
+                             "entry scan")
+    launches["topk_distance"] = (launches.get("topk_distance", 0) + build
+                                 + counts["topk_distance"])
+    out.update(load_s=t_load, build=dict(st), build_launches=build,
+               launches=build + counts["topk_distance"],
+               recall=p8_recalls(res, truth, "graph"))
+    # beam search: the kernel's entry scan against the plain one
+    for Q in (32, 512):
+        q = queries[:Q]
+        qn = D.l2_normalize(q.float())
+        rows, _ = idx.entry
+        compare_topk(rows, qn, "dot", idx.n_entry,
+                     f"graph entry scan Q={Q}")
+        ke = ops.topk_distance(rows, qn, k=idx.n_entry, use_kernel=True)[1]
+        pe = ops.topk_distance(rows, qn, k=idx.n_entry, use_kernel=False)[1]
+        kern = idx.query(q, k=10, use_kernel=True)
+        plain = idx.query(q, k=10, use_kernel=False)
+        torch.cuda.synchronize()
+        seeds = (ke == pe).all(1)
+        same = ((kern[0] == plain[0]).all(1) & (kern[1] == plain[1]).all(1))
+        if bool((seeds & ~same).any()):
+            raise AssertionError(f"graph Q={Q}: equal seeds, different beams")
+        log(f"  graph beam search Q={Q} through the kernel against "
+            f"use_kernel=False: {int(same.sum())} of {Q} rows bit-equal; "
+            f"{int((~seeds).sum())} rows seeded differently (near-ties of "
+            f"the entry scan)")
+        ent_ms = gpu_ms(lambda: ops.topk_distance(rows, qn, k=idx.n_entry),
+                        5)
+        ent_plain = gpu_ms(lambda: ops.topk_distance(
+            rows, qn, k=idx.n_entry, use_kernel=False), 2)
+        log(f"  graph entry scan Q={Q}: kernel {ent_ms:.3f} ms, plain "
+            f"{ent_plain:.3f} ms ({rows.shape[0]} rows)")
+        out[f"entry_ms_q{Q}"], out[f"entry_plain_ms_q{Q}"] = ent_ms, ent_plain
+    log(f"  peak device memory in graph: "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return out
+
+
+def phase_engines(n: int, seed: int, device, rank: int,
+                  min_recall: float) -> dict:
+    """Phase 8: ivf, int8 and graph at full size, one engine at a time, on
+    the phase-4 data made again, against the float32 flat truth (ids
+    only). Returns {"launches": topk_distance launches on the phase's
+    path, engine: its numbers}."""
+    import torch
+    from repro_torch import VectorDB
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"phase 8: the remaining engines (ivf, int8, graph), N={n}, d={DIM},"
+        f" cosine; device memory in use at the start "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    corpus, queries = make_dataset(n, max(BATCHES), seed, device, rank)
+    flat = VectorDB("flat", metric="cosine", device=device).load(corpus)
+    truth = {Q: flat.query(queries[:Q], k=10)[1] for Q in BATCHES}
+    torch.cuda.synchronize()
+    del flat
+    torch.cuda.empty_cache()
+    meta = seeded_meta(n, seed)
+    log(f"  the phase-4 data made again, the float32 flat truth at Q = "
+        f"{BATCHES} (ids kept, the engine dropped) and the metadata: "
+        f"{time.perf_counter() - t0:.2f} s")
+    launches, out = {}, {}
+    t0 = time.perf_counter()
+    box = [corpus]
+    del corpus
+    out["ivf"] = p8_ivf(box, queries, truth, meta, n, seed, device, rank,
+                        min_recall, launches)
+    torch.cuda.empty_cache()
+    log(f"  [ivf: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    corpus, _ = make_dataset(n, max(BATCHES), seed, device, rank)
+    out["int8"] = p8_int8(corpus, queries, truth, meta, min_recall, launches)
+    torch.cuda.empty_cache()
+    log(f"  [int8: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    box = [corpus]
+    del corpus
+    out["graph"] = p8_graph(box, queries, truth, seed, launches)
+    torch.cuda.empty_cache()
+    log(f"  [graph: {time.perf_counter() - t0:.1f} s]")
+    out["launches"] = launches.get("topk_distance", 0)
+    log(f"  launches on phase 8's path (int8 batches and filtered batches, "
+        f"the graph build and entry scans; not the comparisons): {launches}")
+    if out["launches"] <= 0:
+        raise AssertionError("topk_distance never launched in phase 8")
+    log(f"[phase 8: {time.perf_counter() - t_phase:.1f} s]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=MARCO_PASSAGES,
@@ -3400,9 +3899,10 @@ def main(argv=None) -> int:
                     help="rank of the subspace the centres share; 0 gives "
                          "unit centres plus isotropic noise")
     ap.add_argument("--min-recall", type=float, default=0.5,
-                    help="fail below this recall@10 of ivf_pq or lsh against "
-                         "flat (pq's is printed, not gated), and of ivf_pq "
-                         "filtered in the buckets above 10 %%")
+                    help="fail below this recall@10 of ivf_pq, lsh, ivf or "
+                         "int8 against flat (pq's and graph's are printed, "
+                         "not gated), and of ivf_pq filtered in the buckets "
+                         "above 10 %%")
     ap.add_argument("--snapshot-dir", default=None,
                     help="where phase 7 writes its snapshots (a directory "
                          "of its own inside, removed after); the system's "
@@ -3449,6 +3949,12 @@ def main(argv=None) -> int:
         entry["durability_phase"] = {"launches": durable.get(entry["name"],
                                                              0)}
     log(f"[phases 6 and 7: {time.perf_counter() - t0:.1f} s]")
+    engines = phase_engines(args.n, args.seed, device, args.rank,
+                            args.min_recall)
+    for entry in kernels:
+        if entry["name"] == "topk_distance":
+            entry["launches"] += engines["launches"]
+            entry["engines_phase"] = engines
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

@@ -5,14 +5,17 @@ engine's (``from_reference_state``) and a model's parameters
 K-means in the reference draws from ``jax.random`` and in the port from a
 ``torch.Generator``, so the two train different centroids from one seed.
 What crosses is the trained state itself: the numpy leaves of the
-reference's ``PQIndex.state_dict()`` or ``IVFPQIndex.state_dict()`` (or
-its flat corpus, or its ``LSHIndex``'s planes, codes, corpus and
-corpus_sq, an engine with no state_dict), or the npz leaves of a
-``save_index`` snapshot, become what the port's ``load_state`` takes
-(``VectorDB.load_state`` also reads a snapshot's metadata leaves);
-an ``IVFPQIndex(scan_all=True)`` keeps the state's row-major codes
-beside the layout it rebuilds. Nothing
-here imports the reference package.
+reference's ``PQIndex.state_dict()`` or ``IVFPQIndex.state_dict()``, or
+the npz leaves of a ``save_index`` snapshot, become what the port's
+``load_state`` takes (``VectorDB.load_state`` also reads a snapshot's
+metadata leaves); an ``IVFPQIndex(scan_all=True)`` keeps the state's
+row-major codes beside the layout it rebuilds. The reference's engines
+without a ``state_dict`` cross as a dict of their attributes: ``flat``
+its corpus, live mask and corpus_sq; ``lsh`` its planes, codes, corpus
+and corpus_sq; ``ivf`` its centroids, buckets, fill, corpus and
+corpus_sq; ``int8`` its codes, scales and corpus_sq; ``graph`` its
+neighbors, corpus and corpus_sq. Nothing here imports the reference
+package.
 """
 from __future__ import annotations
 

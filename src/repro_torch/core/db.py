@@ -1,14 +1,15 @@
 """VectorDB: Thistle's load/query trait as the deployment API (port of
 ``repro.core.db``, the single-host path).
 
-    db = VectorDB(engine="flat|pq|ivf_pq|lsh", metric="cosine|l2|dot")
+    db = VectorDB(engine="flat|ivf|graph|lsh|int8|pq|ivf_pq",
+                  metric="cosine|l2|dot")
     db.load(vectors, meta=None)        # meta: the columns filters read
     scores, ids = db.query(q, k=10, where=None, hybrid=None)
     db.load_texts(texts, encoder)      # encoder(list[str]) -> (B, d)
     scores, ids, hits = db.query_texts(texts, encoder, k=10)
-    ids = db.insert(new_vectors, meta=None)   # writes: flat, pq, ivf_pq
+    ids = db.insert(new_vectors, meta=None)   # writes: flat, ivf, pq, ivf_pq
     db.delete(ids); db.upsert(vs, ids); db.compact(); db.reserve(n)
-    db.save_index(dir, step, durable=True)    # snapshot + write-ahead log
+    db.save_index(dir, step, durable=True)    # flat, lsh, pq, ivf_pq
     db.restore_index(dir, durable=True)       # latest valid step + replay
 
 The front canonicalizes each batch to the ``PLAN_BUCKETS`` ladder and
@@ -41,9 +42,11 @@ import torch
 from repro_torch import checkpoint as ckpt
 from repro_torch.core import distances as D
 from repro_torch.core.flat import FlatIndex
-from repro_torch.core.ivf import ScheduleCache
+from repro_torch.core.graph import GraphIndex
+from repro_torch.core.ivf import IVFIndex, ScheduleCache
 from repro_torch.core.lsh import LSHIndex
 from repro_torch.core.pq import IVFPQIndex, PQIndex
+from repro_torch.core.quant import Int8FlatIndex
 from repro_torch.core.wal import WriteAheadLog
 from repro_torch.device import resolve_device
 from repro_torch.ft.faults import crashpoint
@@ -52,12 +55,13 @@ from repro_torch.search.meta import MetadataStore, Predicate, filter_hash
 
 ENGINES: Dict[str, Type] = {
     "flat": FlatIndex,      # paper: Iterative (exact); the recall oracle
+    "ivf": IVFIndex,        # paper: HNSW adaptation (a), coarse quantizer
+    "graph": GraphIndex,    # paper: HNSW adaptation (b), graph beam search
+    "lsh": LSHIndex,        # paper: LSH; Hamming shortlist + exact re-rank
+    "int8": Int8FlatIndex,  # exact over an int8 corpus (a byte a dimension)
     "pq": PQIndex,          # product-quantized ADC scan (m bytes a row)
     "ivf_pq": IVFPQIndex,   # IVF buckets of PQ residuals + exact re-rank
-    "lsh": LSHIndex,        # paper: LSH; Hamming shortlist + exact re-rank
 }
-# the reference's other engines, still to port
-PENDING_ENGINES = ("ivf", "int8", "graph")
 
 # plan bucket ladder: batches pad up to the next bucket
 PLAN_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
@@ -151,17 +155,15 @@ class VectorDB(_PlanLedger, _WriteFront):
     callers serialize access (the serving fronts run both on one
     thread)."""
 
-    # engines whose query ANDs the predicate bitmap into its validity; the
-    # reference's list also has ivf and int8 (ROADMAP.md Queue 1, item 5).
-    # lsh's candidates come from hash probes, so a mask after the fact
-    # would return fewer than k rows under a selective filter: it refuses.
-    FILTERABLE = ("flat", "pq", "ivf_pq")
+    # engines whose query ANDs the predicate bitmap into its validity (or
+    # rewrites the rejected bucket slots to the pad sentinel). lsh's and
+    # graph's candidates come from hash probes and beam walks, so a mask
+    # after the fact would return fewer than k rows under a selective
+    # filter: they refuse, as in the reference.
+    FILTERABLE = ("flat", "int8", "ivf", "pq", "ivf_pq")
 
     def __init__(self, engine: str = "flat", metric: str = "cosine",
                  device=None, **engine_kwargs):
-        if engine in PENDING_ENGINES:
-            raise NotImplementedError(
-                f"engine {engine!r} comes with ROADMAP.md Queue 1, item 5")
         if engine not in ENGINES:
             raise KeyError(f"unknown engine {engine!r}; have {sorted(ENGINES)}")
         if metric not in D.METRICS:
@@ -370,15 +372,15 @@ class VectorDB(_PlanLedger, _WriteFront):
 
     def _filter_bitmap(self, where: Predicate):
         """Predicate -> (host bitmap over the id space, engine kwargs: the
-        bitmap on the engine's device, and for ivf_pq the nprobe boost).
+        bitmap on the engine's device, and for ivf and ivf_pq the nprobe
+        boost).
         Probing about 1/selectivity times more lists holds the count of
         candidates that pass the filter roughly steady; the boost is
         clamped to 4, as in the reference."""
         if self.engine_name not in self.FILTERABLE:
             raise NotImplementedError(
                 f"engine {self.engine_name!r} does not support filtered "
-                f"queries (have {self.FILTERABLE}; ivf and int8 come with "
-                "ROADMAP.md Queue 1, item 5)")
+                f"queries (have {self.FILTERABLE})")
         if not isinstance(where, Predicate):
             raise TypeError(f"where= takes a search.meta Predicate, got "
                             f"{type(where).__name__}")
@@ -394,7 +396,7 @@ class VectorDB(_PlanLedger, _WriteFront):
              else "<=50%" if sel <= 0.50 else ">50%"] += 1
         extra = {"allowed": torch.as_tensor(allowed, device=self.device)}
         boost = 1
-        if self.engine_name == "ivf_pq":
+        if self.engine_name in ("ivf", "ivf_pq"):
             boost = int(np.clip(np.round(1.0 / max(sel, 1e-9)), 1, 4))
             extra["nprobe_boost"] = boost
             if boost > 1:
@@ -595,7 +597,8 @@ class VectorDB(_PlanLedger, _WriteFront):
         tensors (``upload_s``) and in all until the engine serves
         (``load_s``), the bytes read, and the records replayed and their
         seconds."""
-        if getattr(self.index, "load_state", None) is None:
+        if (getattr(self.index, "state_dict", None) is None
+                or getattr(self.index, "load_state", None) is None):
             raise NotImplementedError(
                 f"engine {self.engine_name!r} does not support persistence")
         steps = [step] if step is not None else ckpt.valid_steps(directory)[::-1]
@@ -663,7 +666,8 @@ class VectorDB(_PlanLedger, _WriteFront):
     def filter_stats(self) -> Optional[dict]:
         """Filtered and hybrid query telemetry: filtered batches, the
         bitmaps' host build ms summed, the selectivity histogram, hybrid
-        merges and ivf_pq's nprobe boosts; None before any such query."""
+        merges and ivf's and ivf_pq's nprobe boosts; None before any such
+        query."""
         fs = self._filter_stats
         if not (fs["filtered_batches"] or fs["hybrid_merges"]):
             return None

@@ -58,6 +58,46 @@ def topk_scores(scores: torch.Tensor, k: int):
     return s[:, :k], pos[:, :k]
 
 
+@strict_fp32()
+def score_rows(corpus, corpus_sq, ids, q, metric: str):
+    """Exact scores of the candidate rows ``ids`` (Q, L) for q (Q, d), in
+    float32 (bf16 rows: products of the bf16 values summed in float32);
+    metric dot or l2 (cosine = dot on normalized rows). Id -1 is a pad and
+    scores -inf. ``corpus_sq`` (|c|^2, l2 only) is recomputed from the
+    rows when None."""
+    valid = ids >= 0
+    safe = ids.clamp(min=0).long()
+    vecs = corpus[safe].float()                                 # (Q, L, d)
+    qf = q.float()
+    dots = torch.einsum("qd,qld->ql", qf, vecs)
+    if metric == "dot":
+        scores = dots
+    else:
+        sq = (corpus_sq[safe] if corpus_sq is not None
+              else torch.sum(torch.square(vecs), -1))
+        scores = -(torch.sum(torch.square(qf), -1)[:, None] - 2.0 * dots + sq)
+    return torch.where(valid, scores, -torch.inf)
+
+
+def rerank_topk(corpus, corpus_sq, ids, q, *, metric: str, k: int):
+    """Exact top-k over the candidate rows ``ids`` (Q, L) (-1 = pad):
+    (scores (Q, k), ids (Q, k)), best first, ties to the lower candidate
+    position; slots past the live candidates are (-inf, -1)."""
+    scores = score_rows(corpus, corpus_sq, ids, q, metric)
+    s, pos = topk_scores(scores, min(k, ids.shape[1]))
+    return pad_to_k(*mask_invalid_ids(s, torch.gather(ids, 1, pos)), k)
+
+
+def pad_to_k(scores, ids, k: int):
+    """Pad (Q, kk) top-k results to k columns with (-inf, -1)."""
+    kk = scores.shape[-1]
+    if kk < k:
+        scores = torch.nn.functional.pad(scores, (0, k - kk),
+                                         value=-torch.inf)
+        ids = torch.nn.functional.pad(ids, (0, k - kk), value=-1)
+    return scores, ids
+
+
 def mask_invalid_ids(scores, ids):
     """Normalize knocked-out top-k slots (-inf scores) to id -1."""
     return scores, torch.where(torch.isneginf(scores), -1, ids)

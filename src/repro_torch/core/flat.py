@@ -43,15 +43,17 @@ def corpus_dtype(dtype) -> torch.dtype:
 
 
 def flat_search(corpus, q, *, metric: str = "cosine", k: int = 10,
-                corpus_sq=None, valid=None):
+                corpus_sq=None, valid=None, use_kernel=None):
     """Exact top-k. corpus: (N, d), q: (Q, d) -> (scores (Q,k), ids (Q,k)),
-    knocked-out and unfilled slots as (-inf, -1)."""
+    knocked-out and unfilled slots as (-inf, -1). ``use_kernel`` goes to
+    ``kops.topk_distance`` (False: the plain version on either device)."""
     k = min(k, corpus.shape[0])
     if metric == "cosine":
         q = D.l2_normalize(q)
         metric = "dot"  # corpus rows were normalized at load time
     s, i = kops.topk_distance(corpus, q, k=k, metric=metric,
-                              corpus_sq=corpus_sq, valid=valid)
+                              corpus_sq=corpus_sq, valid=valid,
+                              use_kernel=use_kernel)
     return kops.normalize_knockouts(s, i)
 
 

@@ -1,6 +1,5 @@
-"""IVF coarse quantizer, the block-aligned inverted lists and the grouped
-grids' block schedule (port of ``repro.core.ivf``, the parts the IVF-PQ
-engine uses: load, query and writes).
+"""IVF: the k-means coarse quantizer, the plain IVF engine and the
+inverted lists of the IVF-PQ engine (port of ``repro.core.ivf``).
 
 ``kmeans`` and ``assign_clusters`` score rows against centroids in row
 chunks: the reference builds the whole (N, C) score matrix, which at
@@ -8,20 +7,33 @@ chunks: the reference builds the whole (N, C) score matrix, which at
 layout construction are vectorized where the reference loops per row in
 Python. Everything runs on the device of its inputs.
 
+``IVFIndex`` (the paper's first HNSW adaptation) probes the nprobe
+nearest centroids and scores their buckets' rows exactly. Its bucket
+table and row positions are device tensors, and its writes are batched
+device operations with the reference's slot order. ``ivf_search`` does
+not gather the (Q, nprobe x cap) padded candidates the reference does:
+it drops pad and tombstone slots first (in order, so ties still go to
+the lower position) and gathers a chunk of queries at a time under
+``GATHER_BYTES``.
+
 Sums in k-means go through ``index_add_``, which on the card adds with
 atomics in no fixed order, so trained centroids can differ in the last
 bits from run to run. Training is held to recall, not to bits.
 """
 from __future__ import annotations
 
+import math
 from collections import OrderedDict
 
 import torch
 
-from repro_torch.core.mutable import as_ids, row_capacity
-from repro_torch.device import strict_fp32
+from repro_torch.core import distances as D
+from repro_torch.core.mutable import (GrowableRows, MutationMixin, as_ids,
+                                      row_capacity)
+from repro_torch.device import resolve_device, strict_fp32
 
 SCORE_BUDGET = 1 << 28  # score-matrix entries a chunk may hold (1 GiB f32)
+GATHER_BYTES = 1 << 30  # float32 candidate rows a query chunk may gather
 
 
 def row_chunk(n_cols: int) -> int:
@@ -594,3 +606,296 @@ class BlockListLayout:
         if self.codes is not None:
             total += self.codes.numel()
         return int(total)
+
+
+# ------------------------------------------------------------ IVF engine
+@strict_fp32()
+def ivf_search(corpus, centroids, buckets, q, *, metric: str, k: int,
+               nprobe: int, corpus_sq=None):
+    """corpus: (N, d); centroids: (C, d); buckets: (C, cap) int32 ids (-1 =
+    pad or tombstone); q: (Q, d) -> (scores (Q, k), ids (Q, k)), unfilled
+    slots (-inf, -1).
+
+    Probes the nprobe closest centroids and scores only their buckets'
+    rows, in float32 (bf16 rows: products of the bf16 values summed in
+    float32). Each query's live slots are packed to the front in probe and
+    slot order before the gather, so ids and ties are the reference's,
+    which scores every slot of the probed rows and knocks the pads out.
+    Queries go in chunks whose gathered rows fit ``GATHER_BYTES``, taken
+    in order of their live slot count.
+    """
+    Q = q.shape[0]
+    C, cap = buckets.shape
+    if metric == "cosine":
+        q = D.l2_normalize(q)
+        metric = "dot"
+    c_scores = D.pairwise_scores(q, centroids,
+                                 metric if metric == "dot" else "l2")
+    probe = D.topk_scores(c_scores, nprobe)[1]                  # (Q, nprobe)
+    width = nprobe * cap
+    dev = q.device
+    out_s = torch.full((Q, k), -torch.inf, dtype=torch.float32, device=dev)
+    out_i = torch.full((Q, k), -1, dtype=torch.int32, device=dev)
+    # queries in order of their live candidate count, so that a chunk pads
+    # its rows to a count near its own (one host sync for the counts)
+    per_q = (buckets >= 0).sum(1)[probe].sum(1)
+    order = torch.sort(per_q, stable=True).indices
+    counts = per_q[order].tolist()
+    row_bytes = corpus.shape[1] * 4
+    a = 0
+    while a < Q:
+        b = a + 1
+        while b < Q and (b + 1 - a) * counts[b] * row_bytes <= GATHER_BYTES:
+            b += 1
+        L, sel, a = counts[b - 1], order[a:b], b
+        if L == 0:
+            continue
+        qc = q[sel]
+        n = qc.shape[0]
+        cand = buckets[probe[sel]].reshape(n, width)
+        ok = cand >= 0
+        # live slots to the front, in order; the rest into a dropped column
+        dest = torch.where(ok, torch.cumsum(ok, 1) - 1, L)
+        rows = torch.full((n, L + 1), -1, dtype=torch.int32, device=dev)
+        rows.scatter_(1, dest, cand)
+        out_s[sel], out_i[sel] = D.rerank_topk(
+            corpus, corpus_sq, rows[:, :L], qc, metric=metric, k=k)
+    return out_s, out_i
+
+
+class IVFIndex(MutationMixin):
+    """k-means coarse quantizer + probed exact scoring (the paper's HNSW
+    adaptation (a)).
+
+    Writes follow the reference: inserts assign against the frozen
+    centroids and append to the cluster's bucket row in batch order (the
+    bucket capacity doubles while a fill would pass it); deletes tombstone
+    the slot to the -1 pad sentinel; upserts tombstone the old slot and
+    append; ``compact`` repacks each bucket row's live slots to the front
+    and keeps the capacity. The corpus is id-indexed and grows by an
+    eighth (``core.mutable``); ``_pos`` maps an id to its flat slot
+    (cluster * cap + slot), -1 for an id not held.
+    """
+
+    def __init__(self, metric: str = "cosine", n_clusters: int = 0,
+                 nprobe: int = 8, kmeans_iters: int = 10, seed: int = 0,
+                 dtype=torch.float32, device=None):
+        from repro_torch.core.flat import corpus_dtype  # flat -> ops -> ivf
+        if metric not in D.METRICS:
+            raise ValueError(f"metric {metric!r} not in {D.METRICS}")
+        self.metric = metric
+        self.n_clusters = n_clusters  # 0 => sqrt(N) at load time
+        self.nprobe = nprobe
+        self.kmeans_iters = kmeans_iters
+        self.seed = seed
+        self.dtype = corpus_dtype(dtype)
+        self.device = resolve_device(device)
+        self.corpus = self.centroids = self.buckets = self.corpus_sq = None
+        self.cap = 0
+        self._corpus = self._sq = None
+        self._buckets = self._pos = None
+        self._fill = None  # (C,) slots used in each bucket row, tombstones too
+        self._mut_init(0)
+
+    @property
+    def size(self) -> int:
+        return 0 if self._pos is None else int((self._pos >= 0).sum())
+
+    @property
+    def shape_key(self) -> tuple:
+        return (0 if self._corpus is None else self._corpus.capacity,
+                self.cap)
+
+    def load(self, vectors):
+        x = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
+        N = x.shape[0]
+        C = min(self.n_clusters or max(1, int(math.sqrt(N))), N)
+        corpus, sq = D.preprocess_corpus(x, self.metric)
+        del x
+        # cluster in the search geometry: cosine clusters unit vectors
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        cent = kmeans(corpus, n_clusters=C, iters=self.kmeans_iters,
+                      generator=gen)
+        if self.metric == "cosine":
+            cent = D.l2_normalize(cent)
+        assign = assign_clusters(corpus, cent)
+        buckets, cap = build_buckets(assign, C)
+        table = torch.full((C, row_capacity(cap, minimum=1)), -1,
+                           dtype=torch.int32, device=self.device)
+        table[:, :cap] = buckets
+        self.centroids = cent.to(self.dtype)
+        self._init_storage(corpus.to(self.dtype), sq, table,
+                           torch.bincount(assign, minlength=C), N)
+        return self
+
+    def _init_storage(self, corpus, sq, table, fill, n_ids: int) -> None:
+        """Adopt the corpus, |c|^2, the bucket table and its fills; the
+        positions come from the table."""
+        self._corpus = GrowableRows.from_array(corpus)
+        self._sq = None if sq is None else GrowableRows.from_array(sq)
+        self._buckets = table
+        self.cap = table.shape[1]
+        self._fill = fill.long()
+        self._pos = torch.full((n_ids,), -1, dtype=torch.int64,
+                               device=self.device)
+        flat = table.reshape(-1)
+        held = torch.nonzero(flat >= 0)[:, 0]
+        self._pos[flat[held].long()] = held
+        self._mut_init(n_ids)
+        self._sync()
+
+    def load_state(self, state) -> "IVFIndex":
+        """Serve a trained state: centroids, the (C, cap) bucket table, its
+        fills, the corpus rows over the id space (normalized for cosine;
+        cast to the engine's dtype) and corpus_sq for l2; ``generation``
+        where given. The reference's engine has no ``state_dict``: a caller
+        builds the dict from its attributes and passes it through
+        ``core.convert.from_reference_state``."""
+        from repro_torch.core.flat import _check_snapshot
+        _check_snapshot(state, "ivf", self.metric)
+        dev = self.device
+        self.centroids = torch.as_tensor(state["centroids"],
+                                         device=dev).to(self.dtype)
+        corpus = torch.as_tensor(state["corpus"], device=dev).to(self.dtype)
+        sq = state.get("corpus_sq")
+        self._init_storage(
+            corpus,
+            None if sq is None else torch.as_tensor(sq, dtype=torch.float32,
+                                                    device=dev),
+            torch.as_tensor(state["buckets"], device=dev).to(torch.int32),
+            torch.as_tensor(state["fill"], device=dev),
+            corpus.shape[0])
+        self.generation = int(state.get("generation", 0))
+        return self
+
+    # ---------------------------------------------------------- mutation
+    def _encode_batch(self, vectors):
+        x = torch.atleast_2d(torch.as_tensor(vectors, dtype=torch.float32,
+                                             device=self.device))
+        rows, sq = D.preprocess_corpus(x, self.metric)
+        return rows, sq, assign_clusters(rows, self.centroids.float())
+
+    def _append(self, ids, clusters) -> None:
+        """Put each id into the next slot of its cluster's bucket row, in
+        batch order, doubling the capacity while a fill would pass it
+        (the reference doubles at the put that finds its row full)."""
+        n = ids.numel()
+        if not n:
+            return
+        dev = ids.device
+        C = self._buckets.shape[0]
+        counts = torch.bincount(clusters, minlength=C)
+        new_fill = self._fill + counts
+        most, top_id = torch.stack([new_fill.max(), ids.max()]).tolist()
+        cap = self.cap
+        while cap < most:
+            cap *= 2
+        if cap != self.cap:
+            grown = torch.full((C, cap), -1, dtype=torch.int32, device=dev)
+            grown[:, :self.cap] = self._buckets
+            held = self._pos >= 0
+            p = self._pos[held]
+            self._pos[held] = (torch.div(p, self.cap, rounding_mode="floor")
+                               * cap + p % self.cap)
+            self._buckets, self.cap = grown, cap
+        if top_id >= self._pos.numel():
+            have = self._pos.numel()
+            grown = torch.full((max(top_id + 1, have + have // 8),), -1,
+                               dtype=torch.int64, device=dev)
+            grown[:have] = self._pos
+            self._pos = grown
+        order = torch.sort(clusters, stable=True).indices
+        c_s = clusters[order]
+        rank = torch.arange(n, device=dev) - (torch.cumsum(counts, 0)
+                                              - counts)[c_s]
+        flat = c_s * cap + self._fill[c_s] + rank
+        self._buckets.view(-1)[flat] = ids[order].to(torch.int32)
+        self._pos[ids[order]] = flat
+        self._fill = new_fill
+
+    def insert(self, vectors, ids=None) -> torch.Tensor:
+        rows, sq, assign = self._encode_batch(vectors)
+        ids = self._take_ids(rows.shape[0], ids)
+        self._write_mirrors(ids, ((self._corpus, rows), (self._sq, sq)))
+        self._append(ids, assign)
+        self._record("inserts", ids.numel())
+        return ids
+
+    def delete(self, ids) -> int:
+        """Tombstone rows; returns the distinct live ids among ``ids`` (an
+        id given twice counts once, as in the reference)."""
+        ids = as_ids(ids, self.device)
+        ids = torch.unique(ids[(ids >= 0) & (ids < self._pos.numel())])
+        pos = self._pos[ids]
+        held = pos >= 0
+        ids, pos = ids[held], pos[held]
+        self._buckets.view(-1)[pos] = -1
+        self._pos[ids] = -1
+        n = ids.numel()
+        if n:
+            self._record("deletes", n)
+        return n
+
+    def upsert(self, vectors, ids) -> torch.Tensor:
+        rows, sq, assign = self._encode_batch(vectors)
+        ids = self._check_upsert_ids(rows.shape[0], ids)
+        self._write_mirrors(ids, ((self._corpus, rows), (self._sq, sq)))
+        old = self._pos[ids]
+        self._buckets.view(-1)[old[old >= 0]] = -1
+        self._append(ids, assign)
+        self._record("upserts", ids.numel())
+        return ids
+
+    def compact(self) -> dict:
+        """Repack each bucket row's live slots to the front, in order
+        (tombstone holes stop occupying probe positions); the capacity is
+        kept."""
+        C, cap = self._buckets.shape
+        live = self._buckets >= 0
+        kept = live.sum(1)
+        dropped = int((self._fill - kept).sum())
+        slot = torch.cumsum(live, 1) - 1
+        cl = torch.arange(C, device=self.device)[:, None].expand(C, cap)
+        ids = self._buckets[live].long()
+        flat = cl[live] * cap + slot[live]
+        self._buckets.fill_(-1)
+        self._buckets.view(-1)[flat] = ids.to(torch.int32)
+        self._pos[ids] = flat
+        self._fill = kept
+        self._record("compactions", 1)
+        return {"dropped_tombstones": dropped}
+
+    # ------------------------------------------------------------- query
+    def _sync(self) -> None:
+        if not self._dirty:
+            return
+        self.corpus = self._corpus.data
+        self.corpus_sq = None if self._sq is None else self._sq.data
+        self.buckets = self._buckets
+        self._dirty = False
+
+    def query(self, q, k: int = 10, *, allowed=None, nprobe_boost: int = 1):
+        """``allowed`` (the predicate bitmap) rewrites the slots it rejects
+        to the pad sentinel; ``nprobe_boost`` multiplies nprobe (capped at
+        the cluster count). Queries are cast to the corpus's dtype before
+        they are normalized, as the reference casts them."""
+        from repro_torch.kernels import ops as kops  # ops imports this module
+        self._sync()
+        q = torch.atleast_2d(torch.as_tensor(q, dtype=torch.float32,
+                                             device=self.device))
+        nprobe = min(self.nprobe * max(1, int(nprobe_boost)),
+                     self.centroids.shape[0])
+        buckets = self.buckets
+        if allowed is not None:
+            buckets = kops.mask_allowed_ids(buckets, allowed)
+        return ivf_search(self.corpus, self.centroids, buckets,
+                          q.to(self.dtype), metric=self.metric, k=k,
+                          nprobe=nprobe, corpus_sq=self.corpus_sq)
+
+    def memory_bytes(self) -> int:
+        """The engine's device bytes: corpus buffer, |c|^2 for l2,
+        centroids, bucket table and positions."""
+        parts = [self._corpus.data, self.centroids, self._buckets, self._pos,
+                 None if self._sq is None else self._sq.data]
+        return int(sum(t.numel() * t.element_size() for t in parts
+                       if t is not None))

@@ -69,30 +69,6 @@ def hamming_distance(q_codes, c_codes):
     return kops.hamming(q_codes, c_codes, use_kernel=False)
 
 
-@strict_fp32()
-def rerank(corpus, cand, q, *, metric: str, k: int, corpus_sq=None):
-    """Exact scores of the (Q, L) candidate rows ``cand``, best k first;
-    metric in {dot, l2} (cosine = dot on normalized rows). With fewer than
-    k candidates the tail is (-inf, -1)."""
-    rows = cand.long()
-    vecs = corpus[rows].float()                                    # (Q, L, d)
-    qf = q.float()
-    dots = torch.einsum("qd,qld->ql", qf, vecs)
-    if metric == "dot":
-        scores = dots
-    else:
-        sq = (corpus_sq[rows] if corpus_sq is not None
-              else torch.sum(torch.square(vecs), -1))
-        scores = -(torch.sum(torch.square(qf), -1)[:, None] - 2.0 * dots + sq)
-    kk = min(k, cand.shape[1])
-    s, pos = D.topk_scores(scores, kk)
-    ids = torch.gather(cand, 1, pos)
-    if kk < k:
-        s = F.pad(s, (0, k - kk), value=-torch.inf)
-        ids = F.pad(ids, (0, k - kk), value=-1)
-    return s, ids
-
-
 def lsh_search(corpus, c_codes, planes, q, *, metric: str, k: int,
                shortlist: int, corpus_sq=None, use_kernel=None):
     """Hamming shortlist, then exact re-rank. Returns (scores (Q, k) f32,
@@ -106,7 +82,7 @@ def lsh_search(corpus, c_codes, planes, q, *, metric: str, k: int,
     _, cand = kops.hamming_shortlist(q_codes, c_codes,
                                      min(shortlist, corpus.shape[0]),
                                      use_kernel=use_kernel)
-    return rerank(corpus, cand, q, metric=metric, k=k, corpus_sq=corpus_sq)
+    return D.rerank_topk(corpus, corpus_sq, cand, q, metric=metric, k=k)
 
 
 class LSHIndex:

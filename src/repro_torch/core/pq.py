@@ -178,42 +178,13 @@ def pq_topk(luts, codes, *, k: int, tile: int = 4096, valid=None):
     return s, i.to(torch.int32)
 
 
-@strict_fp32()
-def _exact_rerank(corpus, corpus_sq, cand, q, *, metric: str, k: int):
-    """Re-score the candidates exactly and re-sort. cand: (Q, R) ids
-    (-1 = pad). Returns (scores (Q, k), ids (Q, k))."""
-    valid = cand >= 0
-    safe = torch.where(valid, cand, 0).long()
-    vecs = corpus[safe].float()                                     # (Q, R, d)
-    dots = torch.bmm(vecs, q.float()[:, :, None])[..., 0]
-    if metric == "dot":
-        scores = dots
-    else:
-        sq = (corpus_sq[safe] if corpus_sq is not None
-              else torch.sum(torch.square(vecs), -1))
-        q_sq = torch.sum(torch.square(q.float()), -1)
-        scores = -(q_sq[:, None] - 2.0 * dots + sq)
-    scores = torch.where(valid, scores, -torch.inf)
-    s, pos = D.topk_scores(scores, min(k, scores.shape[-1]))
-    ids = torch.gather(cand, 1, pos)
-    return _pad_to_k(*D.mask_invalid_ids(s, ids), k)
-
-
-def _pad_to_k(s, ids, k: int):
-    kk = s.shape[-1]
-    if kk < k:
-        s = F.pad(s, (0, k - kk), value=-torch.inf)
-        ids = F.pad(ids, (0, k - kk), value=-1)
-    return s, ids
-
-
 def pq_search(codebooks, codes, corpus, q, *, metric: str, k: int,
               refine: int = 0, corpus_sq=None, valid=None, allowed=None,
               lut_dtype: str = "float32"):
     """Flat ADC search, with an exact re-rank of the best ``refine``.
 
     Tables on q, then ``kops.adc_topk`` (the ``pq_adc`` kernel on the
-    card), then ``_exact_rerank``. ``valid`` masks dead rows out of the
+    card), then ``D.rerank_topk``. ``valid`` masks dead rows out of the
     scan, and ``allowed`` (the predicate bitmap) ANDs into it; ``corpus``
     is read only when refine > 0. Returns (scores (Q, k),
     ids (Q, k)) with -inf / -1 where fewer than k rows are live.
@@ -228,7 +199,7 @@ def pq_search(codebooks, codes, corpus, q, *, metric: str, k: int,
     s, cand = kops.adc_topk(codes, luts, k=R, valid=valid, allowed=allowed,
                             lut_dtype=lut_dtype)
     _, cand = D.mask_invalid_ids(s, cand)
-    return _exact_rerank(corpus, corpus_sq, cand, q, metric=metric, k=k)
+    return D.rerank_topk(corpus, corpus_sq, cand, q, metric=metric, k=k)
 
 
 def expand_visit(probe, block_table, *, steps_per_probe: int, pad_block):
@@ -296,8 +267,8 @@ def _ivf_scan_all(codebooks, codes, centroids, corpus, corpus_sq, assign,
                            lut_dtype=lut_dtype)
     s, ids = D.mask_invalid_ids(s, ids)
     if refine:
-        return _exact_rerank(corpus, corpus_sq, ids, q, metric=metric, k=k)
-    return _pad_to_k(s[:, :k], ids[:, :k], k)
+        return D.rerank_topk(corpus, corpus_sq, ids, q, metric=metric, k=k)
+    return D.pad_to_k(s[:, :k], ids[:, :k], k)
 
 
 def _ivf_probe_stage(codebooks, centroids, q, block_table, *, metric: str,
@@ -402,8 +373,8 @@ def ivf_pq_search(codebooks, centroids, block_lists, corpus, q, *,
                                    if adaptive_nprobe is not None
                                    else float(nprobe))
     if refine:
-        return _exact_rerank(corpus, corpus_sq, ids, q, metric=metric, k=k)
-    return _pad_to_k(s[:, :k], ids[:, :k], k)
+        return D.rerank_topk(corpus, corpus_sq, ids, q, metric=metric, k=k)
+    return D.pad_to_k(s[:, :k], ids[:, :k], k)
 
 
 class PQIndex(MutationMixin):

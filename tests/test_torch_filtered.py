@@ -8,12 +8,13 @@ helper, not ``.__wrapped__``), the predicate edges, and the column writes
 of the port's bulk path against the reference's row loop, leaf for leaf.
 Filtered top-k from one trained state (the reference trains, the state and
 its metadata leaves cross through ``convert.from_reference_state``) for
-``flat``, ``pq`` and ``ivf_pq`` under every ``adc_mode`` and ``scan_all``,
+``flat``, ``int8``, ``ivf``, ``pq`` and ``ivf_pq`` under every
+``adc_mode`` and ``scan_all``,
 at about 1, 10 and 50 % selectivity and a compound predicate: ids exact
 but between scores equal within the bound, scores within the ROADMAP's
 float32 bound (atol = rtol = 1e-5), every id inside the bitmap. An
 all-true predicate gives the unfiltered answer bit for bit. Then the
-refusals (``lsh``; the engines of ROADMAP.md Queue 1 item 5), filtered
+refusals (``lsh``, ``graph``), filtered
 queries after writes, the nprobe boost and ``filter_stats``, metadata
 through snapshots and the WAL, BM25 (postings, idf, lengths, scores) and
 ``hybrid_merge`` against the reference's, hybrid queries, both serving
@@ -35,6 +36,8 @@ from repro_torch.search import (And, BM25Index, Eq, In,  # noqa: E402
                                 MetadataStore, Not, Or, Range, filter_hash,
                                 hybrid_merge)
 from repro_torch.search.meta import Column  # noqa: E402
+from test_torch_int8 import int8_ref_state  # noqa: E402
+from test_torch_ivf import ivf_ref_state  # noqa: E402
 from test_torch_mutation import _assert_same  # noqa: E402
 
 SEED = 1234
@@ -242,6 +245,9 @@ CONFIGS = [
     ("ivf_pq", "l2", dict(IVF, adc_mode="per_query")),
     ("ivf_pq", "cosine", dict(IVF, scan_all=True)),
     ("ivf_pq", "dot", dict(IVF, refine=0, scan_all=True)),
+    ("int8", "cosine", {}), ("int8", "l2", {}), ("int8", "dot", {}),
+    ("ivf", "cosine", dict(IVF)), ("ivf", "l2", dict(IVF)),
+    ("ivf", "dot", dict(IVF)),
 ]
 
 
@@ -267,7 +273,7 @@ def _pair(engine, metric, kwargs):
     with the metadata."""
     X, meta = _corpus()
     jkw = dict(kwargs)
-    if engine != "flat":
+    if engine in ("pq", "ivf_pq"):
         jkw["use_kernel"] = False
     jdb = JaxVectorDB(engine, metric=metric, **jkw).load(X, meta=meta)
     if engine == "flat":
@@ -276,6 +282,9 @@ def _pair(engine, metric, kwargs):
                  "corpus": idx._corpus.data[:N], "live": idx._valid.data[:N]}
         if idx._sq is not None:
             state["corpus_sq"] = idx._sq.data[:N]
+    elif engine in ("ivf", "int8"):  # no state_dict: their attributes
+        state = {"ivf": ivf_ref_state, "int8": int8_ref_state}[engine](
+            jdb.index)
     else:
         state = {k: np.asarray(v) for k, v in jdb.index.state_dict().items()}
     state.update(jdb.metastore.state_leaves())
@@ -322,13 +331,18 @@ def test_mask_allowed_ids_rewrites_only_the_filtered_slots():
 
 
 def test_unfilterable_engines_refuse():
+    """lsh and graph refuse a predicate, as in the reference; ivf and int8
+    serve one."""
     X, meta = _corpus()
-    db = VectorDB("lsh", device="cpu").load(X, meta=meta)
-    with pytest.raises(NotImplementedError, match="lsh"):
-        db.query(X[:2], k=4, where=Eq("tag", 1))
-    for engine in ("ivf", "int8", "graph"):
-        with pytest.raises(NotImplementedError, match="item 5"):
-            VectorDB(engine, device="cpu")
+    for engine in ("lsh", "graph"):
+        db = VectorDB(engine, device="cpu").load(X, meta=meta)
+        with pytest.raises(NotImplementedError, match=engine):
+            db.query(X[:2], k=4, where=Eq("tag", 1))
+    for engine, kw in (("ivf", IVF), ("int8", {})):
+        db = VectorDB(engine, device="cpu", **kw).load(X, meta=meta)
+        s, i = db.query(X[:2], k=4, where=Eq("tag", 1))
+        assert s.shape == (2, 4) and set(i[i >= 0].tolist()) <= \
+            set(range(1, N, 100))
     with pytest.raises(TypeError, match="Predicate"):
         VectorDB("flat", device="cpu").load(X).query(X[:1], where={"tag": 1})
 

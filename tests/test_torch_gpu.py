@@ -1104,3 +1104,74 @@ def test_restored_engines_serve_on_the_card(tmp_path):
         if durable:
             db.wal.close()
             back.wal.close()
+
+
+# ------------------------------------------------- the remaining engines
+@pytest.mark.parametrize("metric", ["cosine", "l2", "dot"])
+def test_int8_scan_kernel_matches_plain(metric, monkeypatch):
+    """The int8 scan launches topk_distance once a chunk (a scratch budget
+    of 4,097 rows: 5 chunks) and answers as its plain path, under a
+    bitmap too; on the card ids equal but for near-ties."""
+    from repro_torch.core import quant
+    dev = _card()
+    rng = np.random.default_rng(12)
+    corpus = rng.normal(size=(20_000, 64)).astype(np.float32)
+    q = torch.as_tensor(corpus[:33] + 0.05, device=dev)
+    db = VectorDB("int8", metric=metric, device=dev).load(corpus)
+    monkeypatch.setattr(quant, "SCAN_BYTES", 4097 * 4 * 64)
+    allowed = torch.as_tensor(rng.random(20_000) < 0.3, device=dev)
+    for a in (None, allowed):
+        ops.reset_launch_counts()
+        ks, ki = db.index.query(q, k=10, allowed=a)
+        assert ops.launch_counts()["topk_distance"] == 5
+        ps, pi = db.index.query(q, k=10, allowed=a, use_kernel=False)
+        torch.cuda.synchronize()
+        if a is not None:
+            assert bool(a[ki.long()].all())
+        qf = (D.l2_normalize(q) if metric == "cosine" else q).float()
+        rows = quant.dequantize_rows(db.index.codes, db.index.scales)
+        scale = (torch.linalg.vector_norm(qf, dim=1)[:, None]
+                 * torch.linalg.vector_norm(rows, dim=1).max())
+        f = 2 if metric == "l2" else 1
+        tol = f * 2 * 64 * 2.0 ** -24 * scale + 1e-6 * ps.abs()
+        assert bool(((ks - ps).abs() <= tol).all())
+        # an id may differ only where its float64 score (the exact |c|^2
+        # for l2, as the engine keeps it) is within 2 tol of the plain one
+        r, c = torch.nonzero(ki != pi, as_tuple=True)
+        i = ki[r, c].long()
+        exact = (rows[i].double() * qf[r].double()).sum(1)
+        if metric == "l2":
+            exact = (2 * exact - db.index.corpus_sq[i].double()
+                     - (qf[r].double() ** 2).sum(1))
+        assert bool(((exact - ps[r, c].double()).abs()
+                     <= 2 * tol[r, c].double() + 1e-6).all())
+
+
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_graph_build_and_entry_scan_kernel_match_plain(metric):
+    """The graph build through the kernel gives the plain build's table
+    (a sampled build: 6,000 rows, 1,024-row samples) but where a
+    neighbor is a near-tie; the engine's beam search through the kernel
+    gives the plain path's answers."""
+    from repro_torch.core.graph import build_knn_graph
+    dev = _card()
+    rng = np.random.default_rng(13)
+    corpus = torch.as_tensor(rng.normal(size=(6_000, 64)).astype(np.float32),
+                             device=dev)
+    kw = dict(degree=16, metric=metric, max_candidates=1024, seed=5)
+    ops.reset_launch_counts()
+    got = build_knn_graph(corpus, use_kernel=True, **kw)
+    assert ops.launch_counts()["topk_distance"] == 6
+    want = build_knn_graph(corpus, use_kernel=False, **kw)
+    same = float((got == want).float().mean())
+    assert same >= 0.999, same
+    db = VectorDB("graph", metric=metric, max_build_candidates=1024,
+                  device=dev).load(corpus)
+    q = corpus[:64] + 0.05
+    ops.reset_launch_counts()
+    ks, ki = db.query(q, k=10)
+    assert ops.launch_counts()["topk_distance"] == 1
+    ps, pi = db.index.query(q, k=10, use_kernel=False)
+    torch.cuda.synchronize()
+    assert float((ki == pi).float().mean()) >= 0.99
+    assert torch.allclose(ks[ki == pi], ps[ki == pi], atol=1e-5, rtol=1e-5)

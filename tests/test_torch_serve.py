@@ -363,13 +363,8 @@ def test_pump_stream_matches_the_reference_pump():
     each package's QueryEngine: the same ids for every read and the same
     result for every write."""
     from repro.core import VectorDB as JaxVectorDB
-    from repro.serve import QueryEngine as JaxQueryEngine
     from repro_torch.core.convert import from_reference_state
-    rng = np.random.default_rng(4)
-    d = 16
-    centers = rng.normal(size=(8, d)).astype(np.float32) * 2.0
-    corpus = (centers[rng.integers(0, 8, 500)]
-              + rng.normal(size=(500, d)).astype(np.float32)) / np.float32(8)
+    corpus, rng = _stream_corpus()
     kw = dict(n_clusters=8, nprobe=3, m=8, ksub=64, kmeans_iters=4,
               block_size=8)
     jdb = JaxVectorDB("ivf_pq", metric="l2", use_kernel=False,
@@ -377,6 +372,39 @@ def test_pump_stream_matches_the_reference_pump():
     state = {key: np.asarray(v) for key, v in jdb.index.state_dict().items()}
     db = VectorDB("ivf_pq", metric="l2", device="cpu", adc_mode="per_query",
                   **kw).load_state(from_reference_state(state))
+    _pump_stream(jdb, db, corpus, rng)
+
+
+def test_pump_stream_on_ivf_matches_the_reference_pump():
+    """The same stream on the plain IVF engine, from the reference's
+    trained state (its attributes: the engine has no state_dict)."""
+    from repro.core import VectorDB as JaxVectorDB
+    from repro_torch.core.convert import from_reference_state
+    from test_torch_ivf import ivf_ref_state
+    corpus, rng = _stream_corpus()
+    kw = dict(n_clusters=8, nprobe=3, kmeans_iters=4)
+    jdb = JaxVectorDB("ivf", metric="l2", **kw).load(corpus)
+    db = VectorDB("ivf", metric="l2", device="cpu", **kw).load_state(
+        from_reference_state(ivf_ref_state(jdb.index)))
+    _pump_stream(jdb, db, corpus, rng)
+    np.testing.assert_array_equal(db.index._buckets.numpy(),
+                                  jdb.index._buckets)
+
+
+def _stream_corpus():
+    """500 clustered rows of d = 16, and the generator that made them (the
+    stream's rows and queries come next from it)."""
+    rng = np.random.default_rng(4)
+    centers = rng.normal(size=(8, 16)).astype(np.float32) * 2.0
+    return (centers[rng.integers(0, 8, 500)]
+            + rng.normal(size=(500, 16)).astype(np.float32)) / np.float32(8), rng
+
+
+def _pump_stream(jdb, db, corpus, rng):
+    """One stream of reads and writes through each package's QueryEngine:
+    the same ids for every read and the same result for every write."""
+    from repro.serve import QueryEngine as JaxQueryEngine
+    d = corpus.shape[1]
     new = corpus[rng.integers(0, 500, 60)] + 0.02 * rng.normal(
         size=(60, d)).astype(np.float32)
     qs = corpus[rng.integers(0, 500, 48)] + 0.05 * rng.normal(
