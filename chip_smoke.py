@@ -188,7 +188,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      beam search through the kernel against ``use_kernel=False`` (rows
      with equal seeds bit-equal); load seconds, GB held and peak memory
      of each; ``topk_distance``'s launches on the phase's path;
-  9. a JSON line of the kernels, then the result line.
+  9. the mesh fronts at full size, on the phase-4 data made again, against
+     the float32 ``flat`` truth (kept, the engine dropped), on meshes
+     (1,), (4,) ``data`` and (2, 2) ``data`` x ``model`` that repeat the
+     card (S logical shards on one card; with two cards or more, also a
+     mesh over all of them): ``DistributedVectorDB`` float32 at each mesh
+     (ids and scores bit-equal to ``flat`` at (1,), near-ties aside at
+     the others; each shard's ``topk_distance`` against its plain version
+     at Q = 32, its time and the merge's), bf16 at (4,) against the
+     single-host bf16 ``flat``; ``DistributedPQ`` (m = 64, float32
+     tables) at (4,) and, from its state, (2, 2): answers equal to the
+     same tables through the single-host ``adc_topk`` over the unsharded
+     codes, recall@10, ``per_device_bytes``, each shard's ``pq_adc``
+     against plain; ``DistributedIVFPQ`` (C = 2973, nprobe 8, m = 64, blk
+     32, ``auto``) trained at (4,) and served at every mesh from its state
+     (answers equal to the single-host per-query grid on the unsharded
+     layout with the same probes and tables) and on the hot set; then at
+     (4,) the mutation cell's batches (8 inserts of 1,024, a delete of
+     8,192, an upsert of 1,024, compact): written rows' slots and codes
+     exact, no deleted id back, written rows found in their own top 10 at
+     the loaded rows' rate less 0.02, each spilled block on its owner
+     shard wherever that shard has room; ``QueryEngine`` and
+     ``AsyncQueryEngine`` on a 256-read interleaved_1to8 stream (every
+     read equal to a twin's ``db.query(bucketize=False)`` with the writes
+     applied in order); each shard's three ``ivf_adc`` grids against their
+     plain versions at Q = 32, the per-query kernel's time a shard, the
+     merge's and the sharing probe's host ms; load seconds, peak GB and
+     p50/p99 at Q = 1, 32, 512 for each engine and mesh;
+ 10. a JSON line of the kernels (phase 9's launches added), then the
+     result line.
 
 It needs one CUDA card and the repository's ``src/`` beside it, and it
 imports nothing of the JAX package.
@@ -401,11 +429,12 @@ def percentile(xs, p: float) -> float:
     return xs[min(len(xs) - 1, int(math.ceil(p / 100 * len(xs))) - 1)]
 
 
-def serve_batches(db, queries, label: str) -> dict:
+def serve_batches(db, queries, label: str, stats=None) -> dict:
     """Run the query batches through the front, one batch of Q queries
     served again and again (so ivf_pq's schedule cache hits after the
     first); host clock around work that ends in a synchronize. Returns
-    {Q: (scores, ids)} of the last rep."""
+    {Q: (scores, ids)} of the last rep; ``stats`` (a dict) gains {Q: (p50
+    ms, p99 ms)}."""
     import torch
     last = {}
     for Q in BATCHES:
@@ -420,6 +449,8 @@ def serve_batches(db, queries, label: str) -> dict:
             times.append(time.perf_counter() - t0)
         last[Q] = (s, i)
         p50, p99 = percentile(times, 50), percentile(times, 99)
+        if stats is not None:
+            stats[Q] = (p50 * 1e3, p99 * 1e3)
         log(f"  {label} Q={Q}: p50 {p50 * 1e3:.3f} ms, p99 {p99 * 1e3:.3f} ms "
             f"(n={len(times)}, one batch repeated), QPS "
             f"{Q * len(times) / sum(times):.1f}")
@@ -2511,8 +2542,8 @@ def live_truth(idx, queries, label: str, acc: dict):
 
 
 def stream_script(db, queries, n: int, seed: int, salt: int, device,
-                  rank: int):
-    """The interleaved_1to8 stream: SERVE_READS single-query reads (k = 10)
+                  rank: int, reads: int = SERVE_READS):
+    """The interleaved_1to8 stream: ``reads`` single-query reads (k = 10)
     and after every SERVE_EVERY of them one write of SERVE_ROWS rows,
     inserts and deletes in turn. An insert's first row is an isotropic
     random unit vector, far from every cluster, and the read after it
@@ -2521,7 +2552,7 @@ def stream_script(db, queries, n: int, seed: int, salt: int, device,
     keeps it, about 93 %). A delete takes the 64 best ids of the read
     after it (found before the stream). Returns the ops, in order."""
     import torch
-    n_writes = SERVE_READS // SERVE_EVERY
+    n_writes = reads // SERVE_EVERY
     fresh = new_rows(n_writes * SERVE_ROWS, n, seed, salt, device, rank)
     gen = torch.Generator(device=device).manual_seed(seed + salt)
     probe = torch.randn(n_writes, DIM, generator=gen, device=device)
@@ -2534,7 +2565,7 @@ def stream_script(db, queries, n: int, seed: int, salt: int, device,
     victims = db.query(torch.stack(after_delete).to(device), k=SERVE_ROWS,
                        bucketize=False)[1].cpu()
     ops_, last = [], None
-    for i in range(SERVE_READS):
+    for i in range(reads):
         if i and i % SERVE_EVERY == 0:
             w = i // SERVE_EVERY - 1
             if w % 2 == 0:
@@ -3890,6 +3921,621 @@ def phase_engines(n: int, seed: int, device, rank: int,
     return out
 
 
+# ------------------------------------------------------------ phase 9
+P9_MESHES = (((1,), ("data",)), ((4,), ("data",)),
+             ((2, 2), ("data", "model")))
+P9_INSERTS = 8           # insert batches of 1,024: the mutation cell's batches
+P9_SELF = 4096           # loaded and inserted rows sent back as queries
+P9_STREAM = 256          # reads of phase 9's interleaved_1to8 stream
+P9_KERNELS = ("topk_distance", "pq_adc", "ivf_adc", "ivf_adc_blocked",
+              "ivf_adc_run_resident")
+
+
+def p9_mesh(shape, names, device):
+    """A mesh of ``shape`` that repeats ``device``: S logical shards on
+    one card."""
+    from repro_torch.core import distributed as dist
+    return dist.make_mesh(shape, names, devices=[device] * math.prod(shape))
+
+
+def p9_serve(db, queries, label: str, launches: dict) -> tuple:
+    """serve_batches with every launch count set to 0 just before and read
+    just after (added into ``launches``). Returns (results, {Q: (p50,
+    p99)})."""
+    from repro_torch.kernels import ops
+    stats = {}
+    ops.reset_launch_counts()
+    res = serve_batches(db, queries, label, stats)
+    counts = ops.launch_counts()
+    for name in P9_KERNELS:
+        launches[name] = launches.get(name, 0) + counts[name]
+    log(f"  launches on the {label} path: "
+        + str({k: v for k, v in counts.items() if v}))
+    return res, stats
+
+
+def p9_load(make, label: str) -> tuple:
+    """make() timed on the host clock (synchronized) with its peak device
+    memory. Returns (engine, load seconds, peak GB)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    db = make()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  {label} load {secs:.2f} s, peak {peak:.2f} GB, in use "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    return db, secs, peak
+
+
+def p9_near_truth(db, got, want, qn, label: str) -> None:
+    """A mesh's exact answers against single-host ones: scores within
+    compare_topk's bound rank by rank; where an id differs, the mesh's row
+    scores (float64 of the stored row) within twice the bound of the
+    single-host score at that rank."""
+    import torch
+    slabs = db.corpus
+    tol = topk_tolerance(slabs.shards[0], qn, False)[:, None]
+    (s, i), (ws, wi) = got, want
+    if not bool(((s - ws).abs() <= tol).all()):
+        raise AssertionError(f"{label}: scores beyond the bound")
+    diff = i != wi.long()
+    r, c = torch.nonzero(diff, as_tuple=True)
+    ids = i[r, c]
+    rows = torch.stack([slabs.shards[int(x) // slabs.local_n][
+        int(x) % slabs.local_n] for x in ids.tolist()]) if ids.numel() \
+        else qn[:0]
+    exact = (rows.double() * qn[r].double()).sum(1)
+    near_ties_only(exact, ws[r, c].double(), tol[r, 0].double(), label)
+    log(f"  {label}: ids equal the single-host answer at "
+        f"{float((~diff).float().mean()):.4f} of ranks (the rest near-ties "
+        f"within {float(tol.max()):.3e})")
+
+
+def p9_merge_ms(parts, mesh, k: int = 10) -> float:
+    """Device ms of the merge tail alone on these per-shard candidates."""
+    from repro_torch.core import distributed as dist
+    sizes = list(mesh.shape.values())
+    return gpu_ms(lambda: dist._merge_local_topk(
+        parts, k=k, sizes=sizes, hierarchical=True,
+        device=mesh.merge_device), REPS[32])
+
+
+def p9_flat_shards(db, q32, label: str) -> dict:
+    """Each shard's topk_distance against its plain version at Q = 32,
+    its kernel time, and the merge's on their candidates."""
+    from repro_torch.kernels import ops
+    parts, shard_ms, err = [], [], 0.0
+    for idx, (slab, valid) in enumerate(zip(db.corpus.shards,
+                                            db.valid.shards)):
+        err = max(err, compare_topk(slab, q32, "dot", 10,
+                                    f"{label} shard {idx} topk_distance Q=32",
+                                    valid=valid))
+        shard_ms.append(gpu_ms(lambda: ops.topk_distance(
+            slab, q32, k=10, metric="dot", valid=valid), REPS[32]))
+        s, i = ops.normalize_knockouts(*ops.topk_distance(
+            slab, q32, k=10, metric="dot", valid=valid))
+        parts.append((s, i.long() + idx * db.corpus.local_n))
+    merge = p9_merge_ms(parts, db.mesh)
+    b = topk_bound(db.corpus.local_n, DIM, 32, 10, False)
+    log(f"  {label} Q=32: shard kernel ms {shard_ms} (bound {b[0]:.3f} ms, "
+        f"{b[1]}, each), merge {merge:.4f} ms")
+    return {"shard_ms": shard_ms, "merge_ms": merge, "max_abs_err": err}
+
+
+def p9_flat(corpus, queries, truth, device, launches, out) -> None:
+    """DistributedVectorDB float32 at each mesh (ids bit-equal to the truth
+    at (1,), near-ties aside at the others), each shard's kernel against
+    plain at Q = 32 with its time and the merge's; one bf16 mesh against
+    the single-host bf16 flat; a mesh over every card where there are
+    two or more."""
+    import torch
+    from repro_torch import VectorDB
+    from repro_torch.core import DistributedVectorDB
+    from repro_torch.core import distances as D
+    qn = D.l2_normalize(queries)
+    for shape, names in P9_MESHES:
+        label = f"dist_flat {shape}"
+        mesh = p9_mesh(shape, names, device)
+        db, secs, peak = p9_load(
+            lambda: DistributedVectorDB(mesh).load(corpus), label)
+        log(f"  {label}: {db.n_shards} slabs of {db.corpus.local_n} rows "
+            f"({db.corpus.shape[0] - db.n} pad rows in the last), "
+            f"{db.corpus.numel() * 4 / 1e9:.2f} GB")
+        res, lat = p9_serve(db, queries, label, launches)
+        for Q in BATCHES:
+            if shape == (1,):
+                if not same_result(res[Q], truth[Q]):
+                    raise AssertionError(f"{label} Q={Q}: not bit-equal to "
+                                         "the single-host flat")
+            else:
+                p9_near_truth(db, res[Q], truth[Q], qn[:Q], f"{label} Q={Q}")
+        if shape == (1,):
+            log(f"  {label}: ids and scores bit-equal to the single-host "
+                f"flat at Q = {BATCHES}")
+        entry = {"load_s": secs, "peak_gb": peak, "p50_p99_ms": lat}
+        if db.n_shards > 1:
+            entry.update(p9_flat_shards(db, qn[:32], label))
+        out[label] = entry
+        del db
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    single = VectorDB("flat", dtype=torch.bfloat16, device=device).load(corpus)
+    want = {Q: single.query(queries[:Q], k=10) for Q in BATCHES}
+    del single
+    torch.cuda.empty_cache()
+    log(f"  the single-host bf16 flat's answers: "
+        f"{time.perf_counter() - t0:.2f} s")
+    label = "dist_flat bf16 (4,)"
+    mesh = p9_mesh((4,), ("data",), device)
+    db, secs, peak = p9_load(lambda: DistributedVectorDB(
+        mesh, dtype=torch.bfloat16).load(corpus), label)
+    res, lat = p9_serve(db, queries, label, launches)
+    qb = D.l2_normalize(queries.to(torch.bfloat16))
+    for Q in BATCHES:
+        p9_near_truth(db, res[Q], want[Q], qb[:Q], f"{label} Q={Q}")
+    out[label] = {"load_s": secs, "peak_gb": peak, "p50_p99_ms": lat,
+                  "recall_at_10_vs_float32": recall_at_10(
+                      res[512][1], truth[512][1])}
+    del db
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= 2:
+        from repro_torch.core import distributed as dist
+        count = torch.cuda.device_count()
+        mesh = dist.make_mesh((count,), ("data",))
+        label = f"dist_flat over {count} cards"
+        db, secs, peak = p9_load(lambda: DistributedVectorDB(mesh).load(
+            corpus), label)
+        res, lat = p9_serve(db, queries, label, launches)
+        for Q in BATCHES:
+            p9_near_truth(db, res[Q], truth[Q], qn[:Q], f"{label} Q={Q}")
+        out[label] = {"load_s": secs, "p50_p99_ms": lat}
+        del db
+        torch.cuda.empty_cache()
+    else:
+        log("  one card: every mesh of this phase repeats cuda:0, so the "
+            "shards run one after another and the gather is a copy on one "
+            "device (no interconnect is measured)")
+
+
+def p9_pq(corpus, queries, truth, device, launches, out,
+          lookups_per_s: float) -> None:
+    """DistributedPQ (m = 64, float32 tables) trained at (4,), served at
+    (4,) and from the same state at (2, 2): answers equal to the same
+    tables through the single-host adc_topk over the unsharded codes,
+    recall@10 against the truth, per_device_bytes; each shard's kernel
+    against plain at Q = 32 with its time and the merge's."""
+    import torch
+    from repro_torch.core import DistributedPQ
+    from repro_torch.core import distances as D
+    from repro_torch.core.pq import adc_tables
+    from repro_torch.kernels import ops
+    mesh4 = p9_mesh((4,), ("data",), device)
+    db4, secs, peak = p9_load(lambda: DistributedPQ(
+        mesh4, m=M_SUBSPACES).load(corpus), "dist_pq (4,)")
+    codes = db4.codes.gather()
+    state = {"engine": "dist_pq", "metric": "cosine",
+             "codebooks": db4.codebooks, "codes": codes, "n": db4.n,
+             "d": db4.d}
+    codes = codes[:db4.n]
+    qn = D.l2_normalize(queries)
+    for shape, names in P9_MESHES[1:]:
+        label = f"dist_pq {shape}"
+        if shape == (4,):
+            db, s_load, s_peak = db4, secs, peak
+        else:
+            db, s_load, s_peak = p9_load(lambda: DistributedPQ(
+                p9_mesh(shape, names, device), m=M_SUBSPACES).load_state(
+                    state), label + " from the (4,) state")
+        res, lat = p9_serve(db, queries, label, launches)
+        for Q in BATCHES:  # the batch normalized as the engine does
+            luts = adc_tables(db.codebooks, D.l2_normalize(queries[:Q]),
+                              metric="dot")
+            equal_up_to_ties(res[Q], ops.adc_topk(codes, luts, k=10),
+                             f"{label} Q={Q} against adc_topk over the "
+                             "unsharded codes")
+        recall = recall_at_10(res[512][1], truth[512][1])
+        pdb = db.per_device_bytes()
+        cap = -(-db.n // db.n_shards) * db.m + db.codebooks.numel() * 4
+        log(f"  {label}: recall@10 against float32 flat {recall:.4f} "
+            f"(printed, not gated); per_device_bytes {pdb} (a quarter of "
+            f"the padded codes plus the codebooks: {cap}); memory_bytes "
+            f"{db.memory_bytes()}")
+        if pdb > cap:
+            raise AssertionError(f"{label}: per_device_bytes {pdb} > {cap}")
+        out[label] = {"load_s": s_load, "peak_gb": s_peak, "p50_p99_ms": lat,
+                      "recall_at_10": recall, "per_device_bytes": pdb}
+    luts = adc_tables(db4.codebooks, qn[:32], metric="dot")
+    parts, shard_ms, err = [], [], 0.0
+    for idx, (c, v) in enumerate(zip(db4.codes.shards, db4.valid.shards)):
+        err = max(err, compare_pq(c, luts, k=10, lut_dtype="float32",
+                                  valid=v, label=f"dist_pq (4,) shard {idx} "
+                                                 "pq_adc Q=32"))
+        shard_ms.append(gpu_ms(lambda: ops.adc_topk(c, luts, k=10, valid=v),
+                               REPS[32]))
+        s, i = ops.adc_topk(c, luts, k=10, valid=v)
+        parts.append((s, i.long() + idx * db4.codes.local_n))
+    merge = p9_merge_ms(parts, mesh4)
+    b = pq_bound(db4.codes.shards[0], luts, db4.valid.shards[0], 10,
+                 lookups_per_s)
+    log(f"  dist_pq (4,) Q=32: shard kernel ms {shard_ms} (bound {b[0]:.3f}"
+        f" ms, {b[1]}, each), merge {merge:.4f} ms")
+    out["dist_pq (4,)"].update(shard_ms=shard_ms, merge_ms=merge,
+                               max_abs_err=err)
+    del db4, db, codes, state
+    torch.cuda.empty_cache()
+
+
+def p9_state(db) -> dict:
+    """A DistributedIVFPQ's state in ``load_state``'s form (the leaves
+    ``core.convert.mesh_leaves`` reads off a reference engine), copied."""
+    import torch
+    lay = db.layout
+    state = {"engine": db.engine_name, "metric": db.metric,
+             "codebooks": db.codebooks.clone(),
+             "centroids": db.centroids.clone(), "d": db.d,
+             "next_id": db.next_id, "generation": db.generation,
+             "layout_pos": lay.pos.clone(),
+             "layout_free": torch.arange(lay.n_blocks, lay.capacity - 1),
+             "layout_tombstones": lay.tombstones}
+    for key in ("slots", "codes", "block_cluster", "block_table", "bcnt",
+                "tail_fill"):
+        state[f"layout_{key}"] = getattr(lay, key).clone()
+    for kind, v in db.mutation_stats.items():
+        state[f"writes_{kind}"] = v
+    return state
+
+
+def p9_single(db, q):
+    """The single-host answer for a DistributedIVFPQ: the same probes and
+    tables (q normalized as the engine normalizes its batch) through
+    ops.ivf_adc_topk over its unsharded layout (the last storage row the
+    all-pad block)."""
+    from repro_torch.core import distances as D
+    from repro_torch.core.pq import _ivf_probe_stage
+    from repro_torch.kernels import ops
+    qn = D.l2_normalize(q.float())
+    lay = db.layout
+    visit, luts, coarse, _ = _ivf_probe_stage(
+        db.codebooks, db.centroids, qn, lay.block_table, metric="dot",
+        nprobe=db.nprobe, steps_per_probe=lay.steps_per_probe,
+        pad_block=lay.pad_row)
+    return ops.ivf_adc_topk(lay.codes, lay.slots, visit, luts, k=10,
+                            coarse=coarse, steps_per_probe=lay.steps_per_probe,
+                            pad_block=lay.pad_row)
+
+
+def p9_spills(db, before: dict) -> tuple:
+    """Where one insert batch's new blocks went: (blocks placed on the
+    shard of their cluster's previous block, blocks placed elsewhere while
+    that shard had no free row). Fails on a block placed off its owner
+    shard while the owner had room. Needs the capacity unchanged. The free
+    rows are [n_blocks, capacity - 1), so an owner has room only when it
+    holds the lowest free row: the layout meets the reference's rule by
+    construction, and this holds it to that."""
+    import torch
+    lay = db.layout
+    bloc = lay.capacity // db.n_shards
+    bcnt0, bcnt1 = before["bcnt"].long(), lay.bcnt.long()
+    grew = torch.nonzero(bcnt1 > bcnt0)[:, 0]
+    own = other = 0
+    full = {shard for shard in range(db.n_shards)
+            if max(lay.n_blocks, shard * bloc)
+            >= min(lay.capacity - 1, (shard + 1) * bloc)}
+    for c, a, b in zip(grew.tolist(), bcnt0[grew].tolist(),
+                       bcnt1[grew].tolist()):
+        rows = lay.block_table[c, max(a - 1, 0):b].tolist()
+        if a == 0:
+            rows = rows[1:]  # a cluster's first block: the lowest free row
+        for prev, row in zip(rows, rows[1:]):
+            if row // bloc == prev // bloc:
+                own += 1
+            elif prev // bloc in full:
+                other += 1
+            else:
+                raise AssertionError(f"cluster {c}: block {row} off shard "
+                                     f"{prev // bloc}, which has room")
+    return own, other
+
+
+def p9_writes(db, queries, n, seed, device, rank, sample, launches,
+              out) -> None:
+    """The mutation cell's batches at (4,): 8 inserts of 1,024, a delete
+    of 8,192, an upsert of 1,024, compact; then every written row's slot
+    and codes, no deleted id back, written rows found in their own top 10
+    at the loaded rows' rate less 0.02, each spilled block on its owner
+    shard wherever that shard had room."""
+    import torch
+    rates = {}
+    ins_vecs = new_rows(P9_INSERTS * MUT_BATCH["insert"], n, seed, 9, device,
+                        rank)
+    ins_ids, own, other = [], 0, 0
+    t0 = time.perf_counter()
+    for a in range(0, ins_vecs.shape[0], MUT_BATCH["insert"]):
+        before = {"bcnt": db.layout.bcnt.clone(),
+                  "capacity": db.layout.capacity}
+        ins_ids.append(db.insert(ins_vecs[a:a + MUT_BATCH["insert"]]))
+        if db.layout.capacity == before["capacity"]:
+            o, f = p9_spills(db, before)
+            own, other = own + o, other + f
+        else:
+            log(f"  the capacity grew to {db.layout.capacity}: the shard "
+                "boundaries moved, this batch's spills are not checked")
+    torch.cuda.synchronize()
+    rates["insert"] = ins_vecs.shape[0] / (time.perf_counter() - t0)
+    ins_ids = torch.cat(ins_ids)
+    log(f"  inserted {ins_ids.numel()} rows: {rates['insert']:.1f} rows/s; "
+        f"{own} spilled blocks on their cluster's owner shard, {other} "
+        f"elsewhere (their owner shard full)")
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    perm = torch.randperm(n, generator=gen, device=device)
+    n_del, n_ups = MUT_BATCH["delete"], MUT_BATCH["upsert"]
+    dead, ups_ids = perm[:n_del], perm[n_del:n_del + n_ups]
+    t0 = time.perf_counter()
+    deleted = db.delete(dead)
+    torch.cuda.synchronize()
+    rates["delete"] = n_del / (time.perf_counter() - t0)
+    if deleted != n_del:
+        raise AssertionError(f"deleted {deleted} of {n_del} live ids")
+    ups_vecs = new_rows(n_ups, n, seed, 10, device, rank)
+    t0 = time.perf_counter()
+    db.upsert(ups_vecs, ups_ids)
+    torch.cuda.synchronize()
+    rates["upsert"] = n_ups / (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    stats = db.compact()
+    torch.cuda.synchronize()
+    log(f"  delete {rates['delete']:.1f} rows/s, upsert {rates['upsert']:.1f}"
+        f" rows/s, compact {time.perf_counter() - t0:.3f} s {stats}; size "
+        f"{db.size}, capacity {db.layout.capacity}, blocks a shard "
+        f"{db.blocks_per_shard}")
+    if db.size != n + ins_ids.numel() - n_del:
+        raise AssertionError(f"size {db.size} after the writes")
+    rows_in_layout(db, ins_ids, ins_vecs, "inserted")
+    rows_in_layout(db, ups_ids, ups_vecs, "upserted")
+    dead_mask = torch.zeros(db.next_id, dtype=torch.bool, device=device)
+    dead_mask[dead] = True
+    res, lat = p9_serve(db, queries, "dist_ivf_pq (4,) after the writes",
+                        launches)
+    for Q in BATCHES:
+        no_dead_ids(res[Q][1], dead_mask, f"dist_ivf_pq (4,) Q={Q}")
+    loaded = self_found(db, sample[1][:P9_SELF], sample[0][:P9_SELF],
+                        "loaded rows (none written)")
+    ins = self_found(db, ins_vecs[:P9_SELF], ins_ids[:P9_SELF],
+                     "inserted rows")
+    ups = self_found(db, ups_vecs, ups_ids, "upserted rows")
+    log(f"  dist_ivf_pq has no re-rank: the loaded rows' own rate "
+        f"{loaded:.4f} is the bar (less {SELF_MARGIN})")
+    if min(ins, ups) < loaded - SELF_MARGIN:
+        raise AssertionError(f"written rows found at {min(ins, ups):.4f}, "
+                             f"below the loaded rows' {loaded:.4f} less "
+                             f"{SELF_MARGIN}")
+    out["dist_ivf_pq (4,) writes"] = {
+        "rows_per_s": rates, "spills_on_owner": own, "spills_elsewhere":
+        other, "self_found": {"loaded": loaded, "inserted": ins,
+                              "upserted": ups}, "p50_p99_ms": lat}
+
+
+def p9_fronts(db, queries, n, seed, device, rank, out) -> None:
+    """QueryEngine and AsyncQueryEngine over the written (4,) index, each
+    on a copy of it from one state, on a short interleaved_1to8 stream:
+    every read's ids equal a twin's db.query(bucketize=False) with the
+    stream's writes applied in queue order; no read sees an id deleted
+    before it."""
+    import torch
+    from repro_torch.core import DistributedIVFPQ
+    state = p9_state(db)
+    ops_ = stream_script(db, queries, n, seed, 12, device, rank,
+                         reads=P9_STREAM)
+
+    def fresh():
+        return DistributedIVFPQ(db.mesh, m=M_SUBSPACES).load_state(state)
+
+    twin = fresh()
+    oracle_s, oracle_i = [], []
+    for op in ops_:
+        if op[0] == "write":
+            twin.apply_write(op[1], vectors=op[2], ids=op[3])
+        else:
+            s, i = twin.query(op[1].to(device), k=10, bucketize=False)
+            oracle_s.append(s[0].cpu())
+            oracle_i.append(i[0].cpu())
+    del twin
+    oracle = (torch.stack(oracle_s), torch.stack(oracle_i))
+    for name, run in FRONTS[:2]:
+        copy = fresh()
+        results, stats, secs, batches = run(copy, ops_)
+        label = f"{name} over dist_ivf_pq (4,) interleaved_1to8"
+        log_front(label, stats, secs, batches, P9_STREAM)
+        reads = [res for op, res in zip(ops_, results) if op[0] == "read"]
+        ids_match_oracle(reads, oracle, label)
+        deleted = set()
+        for op, res in zip(ops_, results):
+            if op[0] == "write":
+                if op[1] == "delete":
+                    deleted.update(int(i) for i in op[3].tolist() if i >= 0)
+            elif set(res[1].tolist()) & deleted:
+                raise AssertionError(f"{label}: a read saw a deleted id")
+        out[label] = {"p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+                      "qps": P9_STREAM / secs}
+        del copy
+        torch.cuda.empty_cache()
+
+
+def p9_shards(db, queries, out, lookups_per_s: float, label: str) -> None:
+    """Each shard's ivf_adc grids against their plain versions at Q = 32
+    (the per-query grid, and both grouped ones also against it), the
+    per-query kernel's time a shard, the merge's, and the sharing probe's
+    host ms a shard (what auto pays before it picks a grid). A shard that
+    owns no block compares pad output only, and is logged as such."""
+    import torch
+    from repro_torch.core import distances as D
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.ivf import visit_sharing
+    from repro_torch.core.pq import _ivf_probe_stage
+    from repro_torch.kernels import ops
+    qn = D.l2_normalize(queries[:32])
+    visit, luts, coarse, _ = _ivf_probe_stage(
+        db.codebooks, db.centroids, qn, db.block_table, metric="dot",
+        nprobe=db.nprobe, steps_per_probe=db.spp, pad_block=-1)
+    bps = db.blocks_per_shard
+    kw = dict(k=10, spp=db.spp, lut_dtype="float32")
+    parts, shard_ms, probe_ms, err = [], [], [], 0.0
+    for idx, (c, ids) in enumerate(zip(db.codes_bm.shards,
+                                       db.bucket_ids.shards)):
+        v = dist.local_visit(visit, idx, bps)
+        err = max(err, compare_ivf(c, ids, v, luts, coarse, **kw,
+                                   label=f"{label} shard {idx} ivf_adc "
+                                         "Q=32"))
+        for mode in GROUPED:
+            err = max(err, compare_grouped(
+                c, ids, v, luts, coarse, mode=mode, qblk=8, **kw,
+                label=f"{label} shard {idx} ivf_adc_{mode} Q=32"))
+        call = dict(k=10, coarse=coarse, steps_per_probe=db.spp,
+                    pad_block=bps, mode="per_query")
+        shard_ms.append(gpu_ms(lambda: ops.ivf_adc_topk(c, ids, v, luts,
+                                                        **call), REPS[32]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPS[32]):
+            visit_sharing(v, pad_block=bps)
+        probe_ms.append((time.perf_counter() - t0) * 1e3 / REPS[32])
+        s, i = ops.ivf_adc_topk(c, ids, v, luts, **call)
+        parts.append((s, i.long()))
+        b = ivf_bound(ids, v, luts, coarse, db.layout.blk, db.m,
+                      lookups_per_s, k=10)
+        owned = int((db.layout.block_cluster[idx * bps:(idx + 1) * bps]
+                     >= 0).sum())
+        log(f"  {label} shard {idx}: {owned} blocks, {int((v != bps).sum())}"
+            f" of {v.numel()} visit steps on them"
+            f"{'' if owned else ' (pad output compared only)'}; per-query "
+            f"kernel {shard_ms[-1]:.4f} ms (bound {b[0]:.4f} ms, {b[1]}), "
+            f"sharing probe {probe_ms[-1]:.3f} ms (host)")
+    merge = p9_merge_ms(parts, db.mesh)
+    log(f"  {label} Q=32: merge {merge:.4f} ms; auto pays "
+        f"{sum(probe_ms):.3f} ms of sharing probes a batch")
+    out[f"{label} shards"] = {"shard_ms": shard_ms, "merge_ms": merge,
+                              "probe_ms": probe_ms, "max_abs_err": err}
+
+
+def p9_ivf(box, queries, truth, n, seed, device, rank, launches, out,
+           lookups_per_s: float) -> None:
+    """DistributedIVFPQ (C = 2973, nprobe 8, m = 64, blk 32, auto) trained
+    at (4,) (the data dropped after), served at every mesh from that state
+    (answers equal to the single-host per-query answer on the unsharded
+    layout with the same probes and tables), the hot set at (4,), then
+    the writes, the fronts and the shards' kernels at (4,)."""
+    import torch
+    from repro_torch.core import DistributedIVFPQ
+    corpus = box.pop()
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    perm = torch.randperm(n, generator=gen, device=device)
+    kept = perm[MUT_BATCH["delete"] + MUT_BATCH["upsert"]:][:P9_SELF]
+    sample = (kept, corpus[kept].clone())  # loaded rows the writes spare
+    hot = hot_queries(corpus, seed, device)
+    mesh4 = p9_mesh((4,), ("data",), device)
+    db4, secs, peak = p9_load(lambda: DistributedIVFPQ(
+        mesh4, m=M_SUBSPACES).load(corpus), "dist_ivf_pq (4,)")
+    del corpus
+    torch.cuda.empty_cache()
+    lay = db4.layout
+    log(f"  dist_ivf_pq (4,): C={db4.centroids.shape[0]}, storage rows "
+        f"{lay.capacity} ({db4.blocks_per_shard} a shard, plus its pad "
+        f"block), blocks {lay.n_blocks}, steps_per_probe {lay.steps_per_probe},"
+        f" per_device_bytes "
+        f"{db4.per_device_bytes()}")
+    state = p9_state(db4)
+    for shape, names in P9_MESHES:
+        label = f"dist_ivf_pq {shape}"
+        if shape == (4,):
+            db, s_load, s_peak = db4, secs, peak
+        else:
+            db, s_load, s_peak = p9_load(lambda: DistributedIVFPQ(
+                p9_mesh(shape, names, device), m=M_SUBSPACES).load_state(
+                    state), label + " from the (4,) state")
+        res, lat = p9_serve(db, queries, label, launches)
+        for Q in BATCHES:
+            equal_up_to_ties(res[Q], p9_single(db, queries[:Q]),
+                             f"{label} Q={Q} against the single-host grid "
+                             "on the unsharded layout")
+        recall = recall_at_10(res[512][1], truth[512][1])
+        log(f"  {label}: recall@10 against float32 flat {recall:.4f} "
+            "(printed: no re-rank)")
+        out[label] = {"load_s": s_load, "peak_gb": s_peak,
+                      "p50_p99_ms": lat, "recall_at_10": recall}
+        if db is not db4:
+            del db
+            torch.cuda.empty_cache()
+    hot_res, hot_lat = p9_serve(db4, hot, "dist_ivf_pq (4,) hot set",
+                                launches)
+    equal_up_to_ties(hot_res[512], p9_single(db4, hot),
+                     "dist_ivf_pq (4,) hot set Q=512 against the single-host "
+                     "grid")
+    out["dist_ivf_pq (4,) hot set"] = {"p50_p99_ms": hot_lat}
+    # at (4,) the last shard owns no block (the capacity is a power of two
+    # over about half as many blocks): at (2,) both shards own blocks, so
+    # every shard there holds real work against plain
+    db2 = DistributedIVFPQ(p9_mesh((2,), ("data",), device),
+                           m=M_SUBSPACES).load_state(state)
+    p9_shards(db2, queries, out, lookups_per_s, "dist_ivf_pq (2,)")
+    del db2, state
+    p9_writes(db4, queries, n, seed, device, rank, sample, launches, out)
+    p9_fronts(db4, queries, n, seed, device, rank, out)
+    p9_shards(db4, queries, out, lookups_per_s, "dist_ivf_pq (4,)")
+    del db4
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(n: int, seed: int, device, rank: int, rates: dict) -> dict:
+    """Phase 9: the mesh fronts at full size on the phase-4 data made
+    again, against the float32 flat truth, on meshes (1,), (4,) and (2, 2)
+    that repeat the card. Returns {"launches": {kernel: launches on the
+    phase's path}, label: its numbers}."""
+    import torch
+    from repro_torch import VectorDB
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"phase 9: the mesh fronts, N={n}, d={DIM}, cosine, meshes "
+        f"{[m[0] for m in P9_MESHES]} repeating {device} "
+        f"({torch.cuda.device_count()} card(s) visible); device memory in "
+        f"use at the start {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    t0 = time.perf_counter()
+    corpus, queries = make_dataset(n, max(BATCHES), seed, device, rank)
+    flat = VectorDB("flat", metric="cosine", device=device).load(corpus)
+    truth = {Q: flat.query(queries[:Q], k=10) for Q in BATCHES}
+    torch.cuda.synchronize()
+    del flat
+    torch.cuda.empty_cache()
+    log(f"  the phase-4 data made again and the float32 flat truth at Q = "
+        f"{BATCHES}: {time.perf_counter() - t0:.2f} s")
+    launches, out = {}, {}
+    for name, part in (("flat", lambda: p9_flat(corpus, queries, truth,
+                                                device, launches, out)),
+                       ("pq", lambda: p9_pq(corpus, queries, truth, device,
+                                            launches, out, rates["lookups"]))):
+        t0 = time.perf_counter()
+        part()
+        log(f"  [dist_{name}: {time.perf_counter() - t0:.1f} s]")
+    t0 = time.perf_counter()
+    box = [corpus]
+    del corpus
+    p9_ivf(box, queries, truth, n, seed, device, rank, launches, out,
+           rates["lookups"])
+    log(f"  [dist_ivf_pq: {time.perf_counter() - t0:.1f} s]")
+    log(f"  launches on phase 9's path (served batches; not the "
+        f"comparisons): {launches}")
+    for name in ("topk_distance", "pq_adc"):
+        if launches.get(name, 0) <= 0:
+            raise AssertionError(f"{name} never launched on phase 9's path")
+    if sum(launches.get(g, 0) for g in P9_KERNELS[2:]) <= 0:
+        raise AssertionError("no ivf_adc grid launched on phase 9's path")
+    out["launches"] = launches
+    log(f"[phase 9: {time.perf_counter() - t_phase:.1f} s]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=MARCO_PASSAGES,
@@ -3955,6 +4601,14 @@ def main(argv=None) -> int:
         if entry["name"] == "topk_distance":
             entry["launches"] += engines["launches"]
             entry["engines_phase"] = engines
+    mesh = phase_mesh(args.n, args.seed, device, args.rank, rates)
+    for entry in kernels:
+        if entry["name"] in P9_KERNELS:
+            n_p9 = mesh["launches"].get(entry["name"], 0)
+            entry["launches"] += n_p9
+            entry["mesh_phase"] = {"launches": n_p9}
+    log("phase 9 summary: " + json.dumps(
+        {k: v for k, v in mesh.items() if k != "launches"}, default=str))
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

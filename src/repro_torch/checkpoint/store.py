@@ -13,8 +13,9 @@ snapshots:
     ``<key with "/" as "__">.<i>.npy``, each a (rows, rest) slab of at
     most ``chunk_mb``;
   * ``manifest.json`` holds ``step``, ``meta`` and, per leaf, its logical
-    ``shape``, ``dtype`` and ``files``, and ``pspec: null`` (the mesh
-    fronts, ROADMAP.md Queue 1 item 6, will fill it);
+    ``shape``, ``dtype`` and ``files``, and ``pspec``: the leaf's partition
+    spec as a list (a tuple of axes as a list, ``None`` as null), or null
+    for a leaf saved without one;
   * bf16 is written as a ``uint16`` view with ``"bfloat16"`` as the
     manifest dtype, as the reference writes ml_dtypes' bf16; the port
     reads it back through an int16 view to ``torch.bfloat16``, bit for
@@ -123,12 +124,9 @@ def save(tree, directory: str, step: int, *, pspecs=None, chunk_mb: int = 512,
     manifest: index snapshots record the engine, metric, generation, live
     rows and, when durable, the WAL's ``wal_lsn``. A crash at any point
     leaves the previous snapshot intact or the new one committed.
-    ``pspecs`` (partition specs for restore-time resharding) come with the
-    mesh fronts (ROADMAP.md Queue 1, item 6)."""
-    if pspecs is not None:
-        raise NotImplementedError(
-            "partition specs come with the mesh fronts (ROADMAP.md Queue 1, "
-            "item 6)")
+    ``pspecs``: a tree like ``tree`` whose leaves are
+    ``core.distributed.PartitionSpec`` (or None), recorded per leaf in the
+    manifest for ``restore_resharded``, in the reference's form."""
     crashpoint("snapshot.write.pre")
     tmp = os.path.join(directory, f"step_{step:08d}.tmp")
     final = os.path.join(directory, f"step_{step:08d}")
@@ -138,6 +136,7 @@ def save(tree, directory: str, step: int, *, pspecs=None, chunk_mb: int = 512,
     manifest = {"step": step, "leaves": {}}
     if meta is not None:
         manifest["meta"] = dict(meta)
+    spec_map = dict(_flatten_with_paths(pspecs))
     chunk_bytes = chunk_mb * 1024 * 1024
     for key, leaf in _flatten_with_paths(tree):
         arr = _as_savable_leaf(leaf)
@@ -157,8 +156,10 @@ def save(tree, directory: str, step: int, *, pspecs=None, chunk_mb: int = 512,
             np.save(os.path.join(tmp, f), _host_rows(rows[start:start + per]))
             _fsync_file(os.path.join(tmp, f))
             files.append(f)
-        manifest["leaves"][key] = {"shape": shape, "dtype": logical,
-                                   "files": files, "pspec": None}
+        spec = spec_map.get(key)
+        manifest["leaves"][key] = {
+            "shape": shape, "dtype": logical, "files": files,
+            "pspec": None if spec is None else [_spec_entry(e) for e in spec]}
     with open(os.path.join(tmp, "manifest.json"), "w") as fh:
         json.dump(manifest, fh, indent=1)
         fh.flush()
@@ -172,6 +173,16 @@ def save(tree, directory: str, step: int, *, pspecs=None, chunk_mb: int = 512,
     _fsync_dir(directory)
     crashpoint("snapshot.fsync.post")
     return final
+
+
+def _spec_entry(e):
+    """One partition-spec entry as the manifest holds it: an axis name, a
+    list of names, or None."""
+    if e is None:
+        return None
+    if isinstance(e, (tuple, list)):
+        return list(e)
+    return str(e)
 
 
 def _steps(directory: str) -> List[int]:
@@ -327,31 +338,52 @@ def restore(tree_like, directory: str, step: int):
         if key not in keys:
             raise KeyError(f"manifest leaf {key} missing from target tree")
 
-    def build(node, prefix):
-        if isinstance(node, dict):
-            return {k: build(v, prefix + (k,)) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v, prefix + (i,))
-                              for i, v in enumerate(node))
-        if node is None:
-            return None
-        key = "/".join(str(p) for p in prefix)
+    def leaf(key, node):
         target = torch.as_tensor(node)
-        got = _read_leaf(path, manifest["leaves"][key], target.device)
-        if tuple(got.shape) != tuple(target.shape):
-            raise ValueError(f"{key}: saved shape {tuple(got.shape)}, target "
-                             f"{tuple(target.shape)}")
-        return got.to(target.dtype)
+        return _read_like(path, manifest, key, target, target.device)
 
-    return build(tree_like, ())
+    return _map_leaves(tree_like, leaf)
+
+
+def _map_leaves(tree, fn, prefix=()):
+    """``tree`` (nested dicts, lists, tuples) with each leaf replaced by
+    fn(key, leaf); None stays None."""
+    if isinstance(tree, dict):
+        return {k: _map_leaves(v, fn, prefix + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(v, fn, prefix + (i,))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn("/".join(str(p) for p in prefix), tree)
+
+
+def _read_like(path, manifest, key, like, device):
+    """Leaf ``key`` read onto ``device``, checked against the shape of
+    ``like`` and cast to its dtype (a torch or numpy dtype)."""
+    got = _read_leaf(path, manifest["leaves"][key], device)
+    if tuple(got.shape) != tuple(like.shape):
+        raise ValueError(f"{key}: saved shape {tuple(got.shape)}, target "
+                         f"{tuple(like.shape)}")
+    dtype = like.dtype
+    if not isinstance(dtype, torch.dtype):
+        dtype = torch.from_numpy(np.zeros(0, dtype)).dtype
+    return got.to(dtype)
 
 
 def restore_resharded(tree_like, directory: str, step: int, mesh,
                       make_sharding):
-    """Restore onto another mesh: comes with the mesh fronts."""
-    raise NotImplementedError(
-        "restore_resharded comes with the mesh fronts (ROADMAP.md Queue 1, "
-        "item 6)")
+    """Elastic re-mesh restore: each leaf of ``tree_like`` read as saved,
+    then placed on the new ``mesh`` by ``make_sharding(key, leaf)``, a
+    ``core.distributed.NamedSharding``: a row-sharded leaf comes back as
+    ``core.distributed.ShardedRows`` (its slabs on their devices), a
+    replicated one as a tensor on the mesh's merge device. The saved
+    partition spec is in the manifest, but the new mesh may have other
+    axes or fewer devices: the callback decides, as in the reference.
+    Leaves keep the dtype of ``tree_like``'s leaves."""
+    path, manifest = _load_manifest(directory, step)
+    return _map_leaves(tree_like, lambda key, leaf: make_sharding(
+        key, leaf).place(_read_like(path, manifest, key, leaf, "cpu")))
 
 
 class AsyncSaveHandle:

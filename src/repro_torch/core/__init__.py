@@ -4,4 +4,11 @@
 signatures, a Hamming shortlist and an exact re-rank), ``int8`` (exact
 over an int8 corpus), ``pq`` (the flat PQ ADC scan) and ``ivf_pq`` (IVF
 over PQ residual codes); ``flat``, ``ivf``, ``pq`` and ``ivf_pq`` take
-writes (``core.mutable``)."""
+writes (``core.mutable``). The mesh fronts ``DistributedVectorDB``,
+``DistributedPQ`` and ``DistributedIVFPQ`` (the last with writes) shard
+the exact, PQ and IVF-PQ engines over a ``core.distributed.Mesh``."""
+from repro_torch.core.db import (ENGINES, PLAN_BUCKETS, DistributedIVFPQ,
+                                 DistributedPQ, DistributedVectorDB, VectorDB)
+
+__all__ = ["ENGINES", "PLAN_BUCKETS", "VectorDB", "DistributedIVFPQ",
+           "DistributedPQ", "DistributedVectorDB"]

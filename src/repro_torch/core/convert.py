@@ -14,8 +14,13 @@ without a ``state_dict`` cross as a dict of their attributes: ``flat``
 its corpus, live mask and corpus_sq; ``lsh`` its planes, codes, corpus
 and corpus_sq; ``ivf`` its centroids, buckets, fill, corpus and
 corpus_sq; ``int8`` its codes, scales and corpus_sq; ``graph`` its
-neighbors, corpus and corpus_sq. Nothing here imports the reference
-package.
+neighbors, corpus and corpus_sq. The reference's mesh fronts
+(``dist_flat``, ``dist_pq``, ``dist_ivf_pq``) have no ``state_dict``
+either: ``mesh_leaves`` reads one into numpy leaves (its sharded arrays
+gathered, its host ``BlockListLayout`` array for array), and
+``from_reference_state`` takes the engine itself too; the port's mesh
+front of the same shard count then ``load_state``s them. Nothing here
+imports the reference package.
 """
 from __future__ import annotations
 
@@ -25,17 +30,64 @@ import torch
 from repro_torch.search.meta import STATE_PREFIX
 
 
-def from_reference_state(state: dict) -> dict:
-    """{leaf name: array-like} -> {leaf name: torch.Tensor, int or str}.
+MESH_ENGINES = ("dist_flat", "dist_pq", "dist_ivf_pq")
+_LAYOUT_ARRAYS = ("slots", "codes", "block_cluster", "block_table", "bcnt",
+                  "tail_fill")
+
+
+def mesh_leaves(engine) -> dict:
+    """A reference mesh front's state as numpy leaves: ``dist_flat`` its
+    padded corpus (in its dtype) and row count; ``dist_pq`` its codebooks,
+    padded codes, row count and width; ``dist_ivf_pq`` its codebooks,
+    centroids, id space, generation, write counters (``writes_<kind>``)
+    and its layout's arrays as ``layout_<name>``, with ``layout_pos`` (the
+    flat slot of each id, -1 for none), ``layout_free`` (its free rows,
+    ascending) and ``layout_tombstones``."""
+    name = engine.engine_name
+    leaves = {"engine": name, "metric": engine.metric}
+    if name == "dist_flat":
+        corpus = np.asarray(engine.corpus)
+        return dict(leaves, corpus=corpus, n=int(engine.n),
+                    dtype=str(corpus.dtype))
+    if name == "dist_pq":
+        return dict(leaves, codebooks=np.asarray(engine.codebooks),
+                    codes=np.asarray(engine.codes), n=int(engine.n),
+                    d=int(engine.d))
+    if name != "dist_ivf_pq":
+        raise ValueError(f"{name!r} is not a mesh front ({MESH_ENGINES})")
+    lay = engine.layout
+    pos = np.full(int(engine.next_id), -1, np.int64)
+    for i, (row, slot) in lay._pos.items():
+        pos[i] = row * lay.blk + slot
+    leaves.update(codebooks=np.asarray(engine.codebooks),
+                  centroids=np.asarray(engine.centroids), d=int(engine.d),
+                  next_id=int(engine.next_id),
+                  generation=int(engine.generation),
+                  layout_pos=pos,
+                  layout_free=np.asarray(sorted(lay._free), np.int64),
+                  layout_tombstones=int(lay.tombstones))
+    leaves.update({f"layout_{key}": np.asarray(getattr(lay, key))
+                   for key in _LAYOUT_ARRAYS})
+    leaves.update({f"writes_{kind}": int(v)
+                   for kind, v in engine.mutation_stats.items()})
+    return leaves
+
+
+def from_reference_state(state) -> dict:
+    """{leaf name: array-like} (or a reference mesh front, read through
+    ``mesh_leaves``) -> {leaf name: torch.Tensor, int or str}.
 
     String leaves (engine, metric) become ``str``, scalar leaves (d,
     generation) ``int``, array leaves CPU tensors of the same dtype (a
     copy, since the reference's arrays are read-only), except uint32 (LSH
-    signature words), which become int32 tensors of the same bits;
+    signature words), which become int32 tensors of the same bits, and
+    bfloat16 (ml_dtypes), which becomes ``torch.bfloat16`` by its bits;
     ``load_state`` moves them to the engine's device. The metadata leaves
     of a snapshot (``metastore__*``, host numpy on both sides) pass through
     as numpy copies.
     """
+    if getattr(state, "engine_name", None) in MESH_ENGINES:
+        state = mesh_leaves(state)
     out = {}
     for key, value in state.items():
         arr = np.asarray(value)
@@ -47,6 +99,8 @@ def from_reference_state(state: dict) -> dict:
             out[key] = arr.item()
         elif arr.dtype == np.uint32:
             out[key] = torch.tensor(arr.view(np.int32))
+        elif arr.dtype.name == "bfloat16":
+            out[key] = torch.tensor(arr.view(np.int16)).view(torch.bfloat16)
         else:
             out[key] = torch.tensor(arr)
     return out

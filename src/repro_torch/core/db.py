@@ -28,9 +28,16 @@ id space, built on the host, uploaded to the engine's device once a batch
 and ANDed into its validity. Hybrid search fuses BM25
 (``search.lexical``) with the dense scores. Entry points run on the GPU
 unless given ``device="cpu"``.
+
+The mesh fronts (``DistributedVectorDB``, ``DistributedPQ``,
+``DistributedIVFPQ``) serve ``flat``, ``pq`` and ``ivf_pq`` over a
+``core.distributed.Mesh`` with the same plan ladder; ``DistributedIVFPQ``
+takes writes through ``apply_write`` as ``VectorDB`` does, so that both
+serving fronts serve either.
 """
 from __future__ import annotations
 
+import math
 import os
 import time
 import warnings
@@ -41,15 +48,22 @@ import torch
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.core import distances as D
-from repro_torch.core.flat import FlatIndex
+from repro_torch.core import distributed as dist
+from repro_torch.core.flat import (LOAD_CHUNK, FlatIndex, _check_snapshot,
+                                   corpus_dtype)
 from repro_torch.core.graph import GraphIndex
-from repro_torch.core.ivf import IVFIndex, ScheduleCache
+from repro_torch.core.ivf import (BlockListLayout, IVFIndex, ScheduleCache,
+                                  assign_clusters)
 from repro_torch.core.lsh import LSHIndex
-from repro_torch.core.pq import IVFPQIndex, PQIndex
+from repro_torch.core.mutable import MutationMixin
+from repro_torch.core.pq import (IVFPQIndex, PQIndex, _ivf_probe_stage,
+                                 adc_tables, pq_encode, train_ivf_pq,
+                                 train_pq)
 from repro_torch.core.quant import Int8FlatIndex
 from repro_torch.core.wal import WriteAheadLog
 from repro_torch.device import resolve_device
 from repro_torch.ft.faults import crashpoint
+from repro_torch.kernels import ops as kops
 from repro_torch.search.lexical import BM25Index, hybrid_merge
 from repro_torch.search.meta import MetadataStore, Predicate, filter_hash
 
@@ -684,3 +698,449 @@ class VectorDB(_PlanLedger, _WriteFront):
             return None
         return dict(st, sched_cache_hits=self.sched_cache.stats["hits"],
                     sched_cache_misses=self.sched_cache.stats["misses"])
+
+
+# ---------------------------------------------------------------- mesh fronts
+class _MeshFront(_PlanLedger):
+    """What the three mesh fronts share: the mesh, the sharded axes and
+    their row sharding, the plan ledger, and the merge device, where
+    queries arrive and results come back (``device``, which the serving
+    fronts read)."""
+
+    def _mesh_init(self, mesh, metric: str, axes) -> None:
+        if metric not in D.METRICS:
+            raise ValueError(f"metric {metric!r} not in {D.METRICS}")
+        self.mesh = mesh
+        self.metric = metric
+        self.sharding = dist.corpus_sharding(mesh, axes)
+        self.axes = self.sharding.axes
+        self.n_shards = self.sharding.n_shards
+        self._plan_init()
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.merge_device
+
+    def _queries(self, q, dtype=torch.float32):
+        """q as a (Q, d) batch on the merge device: float32, cast to
+        ``dtype``, normalized for cosine (in ``dtype``, as the reference
+        normalizes after its cast); with the metric the shards score."""
+        q = torch.atleast_2d(torch.as_tensor(q, device=self.device)).float()
+        q = q.to(dtype)
+        if self.metric == "cosine":
+            return D.l2_normalize(q), "dot"
+        return q, self.metric
+
+    def _serve(self, q, kk: int, bucketize: bool, search):
+        """Pad the batch to its plan bucket (or not), run ``search`` on it,
+        slice the caller's rows back out; (Q, 0) results for kk = 0."""
+        if kk <= 0:
+            return _empty_result(q.shape[0], 0, self.device)
+        Q = q.shape[0]
+        if bucketize:
+            q, Q = self._plan_batch(q, kk)
+        s, i = search(q)
+        return s[:Q], i[:Q]
+
+
+def _slab_sq(slab):
+    """|c|^2 of a slab's rows, float32, a chunk at a time."""
+    out = torch.empty(slab.shape[0], dtype=torch.float32, device=slab.device)
+    for a in range(0, slab.shape[0], LOAD_CHUNK):
+        out[a:a + LOAD_CHUNK] = torch.sum(
+            torch.square(slab[a:a + LOAD_CHUNK].float()), dim=-1)
+    return out
+
+
+class DistributedVectorDB(_MeshFront):
+    """Exact search over a mesh (port of the reference's
+    ``DistributedVectorDB``): corpus rows sharded over ``axes`` (every mesh
+    axis by default), each shard's slab scanned by ``topk_distance`` on its
+    device, the local top-k merged hierarchically
+    (``core.distributed.sharded_flat_search``). ``dtype`` float32 or
+    bfloat16 is the slabs' type; queries go through the plan-bucket ladder
+    as on the single-host front.
+
+    ``load`` builds each shard's (ceil(N / S), d) slab on its device
+    (normalized for cosine; bf16 slabs a chunk of rows at a time, then
+    cast), the last slab ending in the pad rows ``pad_to_shards`` would
+    add: the caller's rows and the slabs are the only corpus-sized
+    tensors, where padding the whole corpus first would make a third. For
+    l2 each slab keeps its |c|^2, computed from the stored (cast) rows as
+    the reference computes it each query. ``tile`` is taken at the
+    reference's default only (``core.distributed.check_tile``)."""
+
+    engine_name = "dist_flat"
+
+    def __init__(self, mesh, metric: str = "cosine", axes=None,
+                 dtype=torch.float32, tile: int = 65536):
+        dist.check_tile(tile, 65536)
+        self._mesh_init(mesh, metric, axes)
+        self.dtype = corpus_dtype(dtype)
+        self.corpus = self.valid = self.corpus_sq = None
+        self.n = 0
+
+    def _set_slabs(self, slabs, n: int) -> None:
+        local_n = slabs[0].shape[0]
+        self.corpus = dist.ShardedRows(slabs, self.sharding)
+        self.valid = dist.ShardedRows(
+            [idx * local_n + torch.arange(local_n, device=dev) < n
+             for idx, dev in enumerate(self.sharding.devices)], self.sharding)
+        self.corpus_sq = (dist.ShardedRows([_slab_sq(c) for c in slabs],
+                                           self.sharding)
+                          if self.metric == "l2" else None)
+        self.n = int(n)
+
+    def load(self, vectors) -> "DistributedVectorDB":
+        x = torch.as_tensor(vectors)
+        if x.dim() != 2:
+            raise ValueError(f"load takes (N, d) vectors, got {tuple(x.shape)}")
+        N, d = x.shape
+        local_n = -(-N // self.n_shards)
+        self.corpus = self.valid = self.corpus_sq = None
+        slabs = []
+        for idx, dev in enumerate(self.sharding.devices):
+            base, stop = idx * local_n, min((idx + 1) * local_n, N)
+            if self.dtype == torch.float32:
+                # a slab's rows in one call, as FlatIndex preprocesses its
+                # corpus: a (1,) mesh holds FlatIndex's rows bit for bit
+                slab, _ = D.preprocess_corpus(
+                    x[base:stop].to(device=dev, dtype=torch.float32),
+                    self.metric)
+                if stop - base < local_n:
+                    slab = torch.cat([slab, slab.new_zeros(
+                        (local_n - max(stop - base, 0), d))])
+            else:  # float32 rows a chunk at a time, as the bf16 FlatIndex
+                slab = torch.zeros((local_n, d), dtype=self.dtype, device=dev)
+                for a in range(base, stop, LOAD_CHUNK):
+                    b = min(a + LOAD_CHUNK, stop)
+                    rows, _ = D.preprocess_corpus(
+                        x[a:b].to(device=dev, dtype=torch.float32),
+                        self.metric)
+                    slab[a - base:b - base] = rows
+            slabs.append(slab)
+        self._set_slabs(slabs, N)
+        return self
+
+    def load_state(self, state) -> "DistributedVectorDB":
+        """Serve a trained state (``core.convert.from_reference_state`` of a
+        reference engine): the padded corpus, cut into this mesh's slabs
+        (the same shard count as the state's mesh)."""
+        _check_snapshot(state, self.engine_name, self.metric)
+        got = corpus_dtype(state.get("dtype", self.dtype))
+        if got != self.dtype:
+            raise ValueError(f"state holds a {got} corpus, cannot load into "
+                             f"a {self.dtype} mesh front")
+        corpus = torch.as_tensor(state["corpus"]).to(self.dtype)
+        if corpus.shape[0] % self.n_shards:
+            raise ValueError(f"{corpus.shape[0]} padded rows do not split "
+                             f"into {self.n_shards} shards")
+        placed = self.sharding.place(corpus)
+        self._set_slabs(placed.shards, int(state["n"]))
+        return self
+
+    def query(self, q, k: int = 10, *, bucketize: bool = True):
+        """q: (d,) or (Q, d) -> (scores (Q, k) f32, ids (Q, k) int64) on
+        the merge device."""
+        if self.corpus is None:
+            raise RuntimeError("query before load")
+        qq, metric = self._queries(q, self.dtype)
+        return self._serve(qq, min(k, self.n), bucketize, lambda b: (
+            dist.sharded_flat_search(
+                self.corpus, b, mesh=self.mesh, k=min(k, self.n),
+                metric=metric, axes=self.axes, valid=self.valid,
+                corpus_sq=self.corpus_sq)))
+
+
+class DistributedPQ(_MeshFront):
+    """PQ serving over a mesh (port of the reference's ``DistributedPQ``):
+    uint8 codes row-sharded, codebooks and the per-query (Q, m, ksub) LUTs
+    replicated, each shard's N/S codes scanned by ``pq_adc`` on its device
+    (``core.distributed.sharded_pq_search``). Training follows
+    ``PQIndex.load`` step for step on the merge device; the corpus is not
+    kept."""
+
+    engine_name = "dist_pq"
+
+    def __init__(self, mesh, metric: str = "cosine", m: int = 8,
+                 ksub: int = 256, kmeans_iters: int = 10, seed: int = 0,
+                 axes=None, use_kernel=None, lut_dtype: str = "float32"):
+        self._mesh_init(mesh, metric, axes)
+        if lut_dtype not in kops.ADC_LUT_DTYPES:
+            raise ValueError(f"lut_dtype {lut_dtype!r} not in "
+                             f"{kops.ADC_LUT_DTYPES}")
+        self.m = m
+        self.ksub = ksub
+        self.kmeans_iters = kmeans_iters
+        self.seed = seed
+        self.use_kernel = use_kernel
+        self.lut_dtype = lut_dtype
+        self.codebooks = self.codes = self.valid = None
+        self.n = 0
+        self.d = 0
+
+    def _set_codes(self, codes, n: int) -> None:
+        codes, valid = dist.pad_to_shards(codes, self.n_shards)
+        self.codes = self.sharding.place(codes)
+        self.valid = self.sharding.place(valid)
+        self.n = int(n)
+
+    def load(self, vectors) -> "DistributedPQ":
+        x = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
+        self.n, self.d = x.shape
+        corpus, _ = D.preprocess_corpus(x, self.metric)
+        del x
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.codebooks = train_pq(corpus, m=self.m, ksub=self.ksub,
+                                  iters=self.kmeans_iters, generator=gen)
+        codes = pq_encode(self.codebooks, corpus)
+        del corpus
+        self._set_codes(codes, codes.shape[0])
+        return self
+
+    def load_state(self, state) -> "DistributedPQ":
+        """Serve a trained state (``core.convert.from_reference_state``):
+        codebooks, and the codes of the n rows (padding past n is
+        ignored and made again for this mesh)."""
+        _check_snapshot(state, self.engine_name, self.metric)
+        self.codebooks = torch.as_tensor(state["codebooks"],
+                                         device=self.device).float()
+        self.m, self.ksub = (int(v) for v in self.codebooks.shape[:2])
+        self.d = int(state["d"])
+        n = int(state["n"])
+        codes = torch.as_tensor(state["codes"], device=self.device)[:n]
+        self._set_codes(codes.to(torch.uint8), n)
+        return self
+
+    def query(self, q, k: int = 10, *, bucketize: bool = True):
+        """q: (d,) or (Q, d) -> (scores (Q, k) f32, ids (Q, k) int64) on
+        the merge device."""
+        if self.codes is None:
+            raise RuntimeError("query before load")
+        q, metric = self._queries(q)
+        kk = min(k, self.n)
+
+        def search(b):
+            luts = adc_tables(self.codebooks, b, metric=metric)
+            return dist.sharded_pq_search(
+                self.codes, luts, mesh=self.mesh, k=kk, axes=self.axes,
+                valid=self.valid, use_kernel=self.use_kernel,
+                lut_dtype=self.lut_dtype)
+
+        return self._serve(q, kk, bucketize, search)
+
+    def per_device_bytes(self) -> int:
+        """Resident index bytes a device: its code slab and the replicated
+        codebooks (the reference's formula)."""
+        return int(self.codes.numel() // self.n_shards
+                   + self.codebooks.numel() * 4)
+
+    def memory_bytes(self) -> int:
+        return int(self.codes.numel()
+                   + self.codebooks.numel() * 4 * self.n_shards)
+
+
+class DistributedIVFPQ(_MeshFront, _WriteFront, MutationMixin):
+    """IVF-PQ serving over a mesh (port of the reference's
+    ``DistributedIVFPQ``): the block-aligned inverted lists range-sharded,
+    each shard owning a contiguous range of (blk, m) code blocks plus its
+    own all-pad block; centroids, codebooks and the block table
+    replicated. The probe, the visit expansion (tails at -1) and the LUTs
+    run once on the merge device (``core.pq._ivf_probe_stage``); each
+    shard localizes the visit table to its range and runs the ``ivf_adc``
+    grids on its slab (``core.distributed.sharded_ivf_pq_search``); the
+    merge is the same as the other mesh fronts'. Bucket ids hold global
+    rows. Compressed only: no re-rank, and no corpus is kept after load.
+
+    Writes, as the reference takes them, over one ``BlockListLayout`` on
+    the merge device whose capacity is a multiple of the shard count
+    (``row_multiple``), so that storage rows slice into equal slabs. A
+    new block takes the lowest free row, which is the row the reference's
+    allocation policy (the shard of the cluster's last block while it has
+    a free row, else the lowest free row) picks: see
+    ``core.ivf.BlockListLayout``. Deletes tombstone slots to the -1 every
+    grid knocks out. After each write the slabs are cut again
+    (``_sync``); a capacity growth moves the shard boundaries, as in the
+    reference. Load trains through ``core.pq.train_ivf_pq``, so one seed
+    gives the clustering of ``VectorDB("ivf_pq")``."""
+
+    engine_name = "dist_ivf_pq"
+
+    def __init__(self, mesh, metric: str = "cosine", n_clusters: int = 0,
+                 nprobe: int = 8, m: int = 8, ksub: int = 256,
+                 kmeans_iters: int = 10, seed: int = 0, axes=None,
+                 use_kernel=None, lut_dtype: str = "float32",
+                 block_size: int = 32):
+        self._mesh_init(mesh, metric, axes)
+        if lut_dtype not in kops.ADC_LUT_DTYPES:
+            raise ValueError(f"lut_dtype {lut_dtype!r} not in "
+                             f"{kops.ADC_LUT_DTYPES}")
+        self.n_clusters = n_clusters  # 0 => sqrt(N) at load time
+        self.nprobe = nprobe
+        self.m = m
+        self.ksub = ksub
+        self.kmeans_iters = kmeans_iters
+        self.seed = seed
+        self.use_kernel = use_kernel
+        self.lut_dtype = lut_dtype
+        self.block_size = block_size
+        self.codebooks = self.centroids = None
+        self.codes_bm = self.bucket_ids = self.block_table = None
+        self.layout = None
+        self.spp = 1
+        self.blocks_per_shard = 0
+        self.n = 0  # id-space size; `size` is the live count
+        self.d = 0
+        self._mut_init(0)
+
+    @property
+    def size(self) -> int:
+        return 0 if self.layout is None else int(self.layout.live)
+
+    def _new_layout(self, codes, assign, n_clusters: int) -> None:
+        self.layout = BlockListLayout.from_assign(
+            assign, n_clusters, blk=self.block_size, payload=codes,
+            row_multiple=self.n_shards)
+
+    def load(self, vectors) -> "DistributedIVFPQ":
+        x = torch.as_tensor(vectors, dtype=torch.float32, device=self.device)
+        N, self.d = x.shape
+        C = min(self.n_clusters or max(1, int(math.sqrt(N))), N)
+        corpus, _ = D.preprocess_corpus(x, self.metric)
+        del x
+        self.centroids, assign, self.codebooks, codes = train_ivf_pq(
+            corpus, n_clusters=C, m=self.m, ksub=self.ksub,
+            iters=self.kmeans_iters, metric=self.metric, seed=self.seed)
+        del corpus
+        self._new_layout(codes, assign, C)
+        self.n = N
+        self._mut_init(N)
+        self._sync()
+        return self
+
+    def load_state(self, state) -> "DistributedIVFPQ":
+        """Serve a trained and maybe written state
+        (``core.convert.from_reference_state`` of a reference engine):
+        codebooks, centroids and the layout array for array
+        (``BlockListLayout.from_arrays``), with the id space, generation
+        and write counters."""
+        _check_snapshot(state, self.engine_name, self.metric)
+        dev = self.device
+        self.codebooks = torch.as_tensor(state["codebooks"], device=dev).float()
+        self.centroids = torch.as_tensor(state["centroids"], device=dev).float()
+        self.m, self.ksub = (int(v) for v in self.codebooks.shape[:2])
+        self.d = int(state["d"])
+        arrays = {key[len("layout_"):]: value for key, value in state.items()
+                  if key.startswith("layout_")}
+        self.layout = BlockListLayout.from_arrays(
+            arrays, device=dev, row_multiple=self.n_shards)
+        self.block_size = self.layout.blk
+        self._mut_init(int(state["next_id"]))
+        self.n = self.next_id
+        self.generation = int(state.get("generation", 0))
+        for kind in self.mutation_stats:
+            self.mutation_stats[kind] = int(state.get(f"writes_{kind}", 0))
+        self._sync()
+        return self
+
+    # ---------------------------------------------------------- mutation
+    def _encode_batch(self, vectors):
+        x = torch.atleast_2d(torch.as_tensor(vectors, dtype=torch.float32,
+                                             device=self.device))
+        rows, _ = D.preprocess_corpus(x, self.metric)
+        assign = assign_clusters(rows, self.centroids)
+        return pq_encode(self.codebooks, rows - self.centroids[assign]), assign
+
+    def _after_mutation(self, shape_before) -> None:
+        if self.layout.shape_key != shape_before:
+            self.plan_generation += 1
+
+    def insert(self, vectors, ids=None) -> torch.Tensor:
+        codes, assign = self._encode_batch(vectors)
+        ids = self._take_ids(codes.shape[0], ids)
+        before = self.layout.shape_key
+        self.layout.insert_rows(ids, assign, codes)
+        self.n = self.next_id
+        self._record("inserts", ids.numel())
+        self._after_mutation(before)
+        return ids
+
+    def delete(self, ids) -> int:
+        n = self.layout.delete_rows(ids)
+        if n:
+            self._record("deletes", n)
+        return n
+
+    def upsert(self, vectors, ids) -> torch.Tensor:
+        codes, assign = self._encode_batch(vectors)
+        ids = self._check_upsert_ids(codes.shape[0], ids)
+        before = self.layout.shape_key
+        self.layout.delete_rows(ids)
+        self.layout.insert_rows(ids, assign, codes)
+        self._record("upserts", ids.numel())
+        self._after_mutation(before)
+        return ids
+
+    def compact(self) -> dict:
+        stats = self.layout.compact()
+        self._record("compactions", 1)
+        return stats
+
+    # ------------------------------------------------------------- query
+    def _sync(self) -> None:
+        """Cut the layout into the shards' slabs: shard s gets storage rows
+        [s * bloc, (s + 1) * bloc) and one all-pad block after them, on its
+        device (bloc = capacity / S, the blocks a shard owns)."""
+        if not self._dirty:
+            return
+        lay = self.layout
+        S, blk = self.n_shards, lay.blk
+        bloc = lay.capacity // S
+        self.codes_bm = self.bucket_ids = None  # the old slabs go first
+        slots = lay.slots.view(S, bloc, blk)
+        codes = lay.codes.view(S, bloc, blk, self.m)
+        ids, cds = [], []
+        for s, dev in enumerate(self.sharding.devices):
+            ids.append(torch.cat([slots[s], slots.new_full((1, blk), -1)]
+                                 ).to(dev))
+            cds.append(torch.cat([codes[s],
+                                  codes.new_zeros((1, blk, self.m))]).to(dev))
+        self.bucket_ids = dist.ShardedRows(ids, self.sharding)
+        self.codes_bm = dist.ShardedRows(cds, self.sharding)
+        self.block_table = lay.block_table
+        self.spp = lay.steps_per_probe
+        self.blocks_per_shard = bloc
+        self._dirty = False
+
+    def query(self, q, k: int = 10, *, bucketize: bool = True):
+        """q: (d,) or (Q, d) -> (scores (Q, k) f32, ids (Q, k) int64) on
+        the merge device; (-inf, -1) past the live candidates."""
+        if self.layout is None:
+            raise RuntimeError("query before load")
+        self._sync()
+        q, metric = self._queries(q)
+        kk = min(k, max(self.size, 1))
+        nprobe = min(self.nprobe, self.centroids.shape[0])
+
+        def search(b):
+            visit, luts, coarse, _ = _ivf_probe_stage(
+                self.codebooks, self.centroids, b, self.block_table,
+                metric=metric, nprobe=nprobe, steps_per_probe=self.spp,
+                pad_block=-1)
+            return dist.sharded_ivf_pq_search(
+                self.codes_bm, self.bucket_ids, visit, luts, coarse,
+                mesh=self.mesh, k=kk, steps_per_probe=self.spp,
+                blocks_per_shard=self.blocks_per_shard, axes=self.axes,
+                use_kernel=self.use_kernel, lut_dtype=self.lut_dtype)
+
+        return self._serve(q, kk, bucketize, search)
+
+    def per_device_bytes(self) -> int:
+        """Resident index bytes a device: its block slab (codes and slot
+        ids) and the replicated coarse structures (the reference's
+        formula)."""
+        S = self.n_shards
+        return int(self.codes_bm.numel() // S
+                   + self.bucket_ids.numel() * 4 // S
+                   + self.codebooks.numel() * 4 + self.centroids.numel() * 4
+                   + self.block_table.numel() * 4)

@@ -1,0 +1,429 @@
+"""Search over a mesh of devices: corpus rows sharded, queries replicated
+(port of ``repro.core.distributed``).
+
+The reference runs one SPMD program under ``shard_map``: every device
+scores the replicated queries against its rows, lifts its local ids to
+global ones by its row offset, and the (Q, k) winners of every device are
+all-gathered and merged by one more top-k, the only collective of the
+query path. A hierarchical variant merges within each inner-axis group
+first, so that only k survivors a group cross the outer axis.
+
+The port keeps the reference's single controller. A ``Mesh`` is a grid of
+``torch.device`` with named axes; a row-sharded array (``ShardedRows``)
+holds one slab a shard, on the shard's device, in flattened mesh order
+(row-major over the sharded axes); each shard's local search launches the
+shard's kernels (``topk_distance``, ``pq_adc``, the ``ivf_adc`` grids) on
+its slab, and the all-gather is a copy of each shard's (Q, k) candidates
+to the merge device (``devices.flat[0]``), followed by the merge there.
+Results are replicated, so they come back on the merge device.
+
+A mesh may repeat a device: ``make_mesh((4,), ("data",),
+devices=["cuda:0"] * 4)`` gives four logical shards on one card, the
+counterpart of the reference tests' host-platform device count. Slabs,
+id lifting, pad rows, pad blocks and the merge then all run, one shard
+after another; what such a mesh cannot show is an interconnect.
+
+Every merge is a stable descending sort over the shard-major
+concatenation of the candidates, the order ``lax.top_k`` gives over a
+tiled ``all_gather``: between equal scores the lower shard wins, then the
+lower slot. Slots past a shard's candidates are (-inf, -1), and ids come
+back as int64. The reference's ``tile`` arguments (its scan tiles) are
+taken at their defaults only: the kernels pick their own tiles
+(``kernels.topk_distance.plan``), so another value would change nothing.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.core import distances as D
+from repro_torch.core.flat import flat_search
+from repro_torch.kernels import ops as kops
+
+
+class PartitionSpec:
+    """A leaf's placement, one entry a dimension: a mesh axis name, a tuple
+    of names (sharded over their flattened product) or None (whole); the
+    port's ``jax.sharding.PartitionSpec``. ``checkpoint.save(pspecs=)``
+    records it in the reference's manifest form."""
+
+    def __init__(self, *entries):
+        self.entries = tuple(tuple(e) if isinstance(e, list) else e
+                             for e in entries)
+
+    def __iter__(self):
+        return iter(self.entries)
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, PartitionSpec)
+                and self.entries == other.entries)
+
+    def __hash__(self) -> int:
+        return hash(self.entries)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{self.entries}"
+
+
+P = PartitionSpec
+
+
+class Mesh:
+    """A grid of devices with named axes (the port's ``jax.sharding.Mesh``):
+    ``devices`` an ndarray of ``torch.device``, ``shape`` {axis: size} in
+    axis order. The merge device, where results are gathered, is
+    ``devices.flat[0]``."""
+
+    def __init__(self, devices, axis_names):
+        arr = np.asarray(devices, dtype=object)
+        names = tuple(axis_names)
+        if arr.ndim != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"mesh of shape {arr.shape} needs {arr.ndim} "
+                             f"distinct axis names, got {names}")
+        self.devices = np.empty(arr.shape, dtype=object)
+        for idx in np.ndindex(arr.shape):
+            self.devices[idx] = torch.device(arr[idx])
+        self.axis_names = names
+        self.shape = dict(zip(names, arr.shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def merge_device(self) -> torch.device:
+        return self.devices.flat[0]
+
+    def _axes(self, axes) -> tuple:
+        axes = self.axis_names if axes is None else tuple(axes)
+        unknown = [a for a in axes if a not in self.shape]
+        if unknown:
+            raise ValueError(f"axes {unknown} not in mesh {self.axis_names}")
+        return axes
+
+    def shard_devices(self, axes=None) -> list:
+        """The device of each shard of rows split over ``axes``, in
+        flattened order (row-major over ``axes``); every other axis at
+        index 0 (a slab is replicated along the axes it is not split
+        over, and one copy is searched)."""
+        axes = self._axes(axes)
+        sizes = [self.shape[a] for a in axes]
+        out = []
+        for flat_idx in range(math.prod(sizes)):
+            coord = dict(zip(axes, np.unravel_index(flat_idx, sizes)))
+            out.append(self.devices[tuple(int(coord.get(a, 0))
+                                          for a in self.axis_names)])
+        return out
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, devices="
+                f"{[str(d) for d in self.devices.flat]})")
+
+
+def make_mesh(axis_shapes, axis_names, devices=None) -> Mesh:
+    """The port's ``jax.make_mesh``: a mesh of ``axis_shapes`` over the
+    first prod(axis_shapes) of ``devices``. None takes every CUDA card in
+    order and raises when there are fewer than the shape needs (it never
+    falls back to the CPU); an explicit list may repeat a device
+    (``["cuda:0"] * 4``, ``["cpu"] * 8``)."""
+    shape = tuple(int(s) for s in axis_shapes)
+    n = math.prod(shape)
+    if devices is None:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if count < n:
+            raise RuntimeError(
+                f"a mesh of shape {shape} needs {n} CUDA cards, found "
+                f"{count}; pass devices=[...] to repeat a device (a card, or "
+                "'cpu' for the plain PyTorch versions)")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    devices = [torch.device(d) for d in devices]
+    if len(devices) < n:
+        raise ValueError(f"a mesh of shape {shape} needs {n} devices, got "
+                         f"{len(devices)}")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devices[:n]
+    return Mesh(arr.reshape(shape), axis_names)
+
+
+class NamedSharding:
+    """``spec`` over ``mesh`` (the port's ``jax.sharding.NamedSharding``).
+    The port shards rows only: the first entry names the axes the rows
+    split over, any later entry is None; an empty spec or a None first
+    entry replicates."""
+
+    def __init__(self, mesh: Mesh, spec: PartitionSpec):
+        entries = tuple(spec)
+        if any(e is not None for e in entries[1:]):
+            raise ValueError(f"{spec}: the port shards the first dimension "
+                             "only")
+        first = entries[0] if entries else None
+        axes = () if first is None else (
+            (first,) if isinstance(first, str) else tuple(first))
+        self.mesh = mesh
+        self.spec = spec
+        self.axes = mesh._axes(axes) if axes else ()
+        self.n_shards = math.prod(mesh.shape[a] for a in self.axes)
+        self.devices = mesh.shard_devices(self.axes)
+
+    def place(self, x):
+        """``x`` placed: a ``ShardedRows`` of its row slabs (the rows must
+        divide the shard count, as ``device_put`` requires), or for a
+        replicated spec the tensor on the merge device."""
+        x = torch.as_tensor(x)
+        if not self.axes:
+            return x.to(self.mesh.merge_device)
+        if x.dim() == 0 or x.shape[0] % self.n_shards:
+            raise ValueError(f"{tuple(x.shape)} rows do not split into "
+                             f"{self.n_shards} shards (pad_to_shards)")
+        return ShardedRows([part.to(dev) for part, dev in
+                            zip(x.chunk(self.n_shards), self.devices)], self)
+
+
+class ShardedRows:
+    """A row-sharded array: ``shards[i]`` holds rows [i * local_n,
+    (i + 1) * local_n) of the logical array, on ``sharding.devices[i]``."""
+
+    def __init__(self, shards, sharding: NamedSharding):
+        if len(shards) != sharding.n_shards:
+            raise ValueError(f"{len(shards)} slabs for {sharding.n_shards} "
+                             "shards")
+        self.shards = list(shards)
+        self.sharding = sharding
+
+    @property
+    def local_n(self) -> int:
+        return self.shards[0].shape[0]
+
+    @property
+    def shape(self) -> tuple:
+        return ((self.local_n * len(self.shards),)
+                + tuple(self.shards[0].shape[1:]))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.shards[0].dtype
+
+    def numel(self) -> int:
+        return sum(s.numel() for s in self.shards)
+
+    def gather(self) -> torch.Tensor:
+        """The logical array on the merge device."""
+        dev = self.sharding.mesh.merge_device
+        return torch.cat([s.to(dev) for s in self.shards])
+
+
+def corpus_sharding(mesh: Mesh, axes=None) -> NamedSharding:
+    """Row sharding over ``axes`` (every mesh axis by default, flattened)."""
+    return NamedSharding(mesh, P(mesh._axes(axes), None))
+
+
+def _as_sharded(x, sharding: NamedSharding) -> ShardedRows:
+    return x if isinstance(x, ShardedRows) else sharding.place(x)
+
+
+def pad_to_shards(x, n_shards: int):
+    """Pad rows to a multiple of n_shards with zero rows; returns (padded,
+    valid mask)."""
+    N = x.shape[0]
+    pad = (-N) % n_shards
+    valid = torch.arange(N + pad, device=x.device) < N
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return x, valid
+
+
+def _merge(parts, k: int):
+    """One top-k over the candidate sets side by side, ties to the lower
+    position, on the first set's device."""
+    dev = parts[0][0].device
+    s = torch.cat([p[0].to(dev) for p in parts], dim=1)
+    i = torch.cat([p[1].to(dev) for p in parts], dim=1)
+    top, pos = D.topk_scores(s, k)
+    return top, torch.gather(i, 1, pos)
+
+
+def _merge_local_topk(parts, *, k: int, sizes, hierarchical: bool, device):
+    """The shared merge tail: pad each shard's (Q, k') candidates to k with
+    (-inf, -1); with ``hierarchical`` and more than one axis, merge within
+    each group along the innermost axis, then the next one out (the
+    reference's ``for a in reversed(axes[1:])``), each group on its first
+    shard's device; then gather along the outer axis onto ``device`` and
+    merge. ``parts`` is in flattened shard order over axes of ``sizes``."""
+    parts = [D.pad_to_k(s, i, k) for s, i in parts]
+    if hierarchical and len(sizes) > 1:
+        for n in reversed(sizes[1:]):
+            parts = [_merge(parts[g:g + n], k)
+                     for g in range(0, len(parts), n)]
+    return _merge([(s.to(device), i.to(device)) for s, i in parts], k)
+
+
+def check_tile(tile: int, default: int) -> None:
+    """Refuse a ``tile`` other than the reference's default (see above)."""
+    if tile != default:
+        raise ValueError(f"tile={tile}: the port's kernels pick their own "
+                         f"tiles; only the reference's default {default} "
+                         "is taken")
+
+
+def _lift(s, i, base: int):
+    """Local ids to global ones (int64), knocked-out slots kept at -1."""
+    i = i.long()
+    return s, torch.where(i >= 0, i + base, -1)
+
+
+def sharded_flat_search(corpus, q, *, mesh: Mesh, k: int,
+                        metric: str = "cosine", axes=None, valid=None,
+                        tile: int = 65536, hierarchical: bool = True,
+                        corpus_sq=None, use_kernel=None):
+    """Exact distributed top-k: ``corpus`` (N, d) row-sharded (a
+    ``ShardedRows``, or a tensor placed by ``corpus_sharding``); q (Q, d)
+    replicated. Each shard runs ``flat_search`` (the ``topk_distance``
+    kernel on a CUDA slab) at k' = min(k, local_n). ``valid`` and
+    ``corpus_sq`` (|c|^2 for l2; recomputed a call when None, as the
+    reference does) are sharded like the corpus. N must divide the shard
+    count (``pad_to_shards``). Returns (scores (Q, k), global ids (Q, k)
+    int64) on the merge device."""
+    check_tile(tile, 65536)
+    sh = corpus_sharding(mesh, axes)
+    corpus = _as_sharded(corpus, sh)
+    valid = None if valid is None else _as_sharded(valid, sh)
+    sq = None if corpus_sq is None else _as_sharded(corpus_sq, sh)
+    local_n = corpus.local_n
+    parts = []
+    for idx, (c_blk, dev) in enumerate(zip(corpus.shards, sh.devices)):
+        s, i = flat_search(c_blk, q.to(dev), metric=metric,
+                           k=min(k, local_n),
+                           corpus_sq=None if sq is None else sq.shards[idx],
+                           valid=None if valid is None else valid.shards[idx],
+                           use_kernel=use_kernel)
+        parts.append(_lift(s, i, idx * local_n))
+    return _merge_local_topk(parts, k=k,
+                             sizes=[mesh.shape[a] for a in sh.axes],
+                             hierarchical=hierarchical,
+                             device=mesh.merge_device)
+
+
+def sharded_pq_search(codes, luts, *, mesh: Mesh, k: int, axes=None,
+                      valid=None, hierarchical: bool = True, use_kernel=None,
+                      lut_dtype: str = "float32"):
+    """Compressed distributed top-k: PQ codes (N, m) row-sharded, the
+    (Q, m, ksub) LUTs replicated. Each shard runs ``kops.adc_topk`` (the
+    ``pq_adc`` kernel on a CUDA slab) over its N/S codes, then the same
+    lift and merge as ``sharded_flat_search``. Per-device resident bytes
+    are N*m/S plus the replicated tables. Returns (scores (Q, k), global
+    ids (Q, k) int64)."""
+    sh = corpus_sharding(mesh, axes)
+    codes = _as_sharded(codes, sh)
+    valid = None if valid is None else _as_sharded(valid, sh)
+    local_n = codes.local_n
+    parts = []
+    for idx, (c_blk, dev) in enumerate(zip(codes.shards, sh.devices)):
+        s, i = kops.adc_topk(c_blk, luts.to(dev), k=min(k, local_n),
+                             valid=None if valid is None else valid.shards[idx],
+                             use_kernel=use_kernel, lut_dtype=lut_dtype)
+        parts.append(_lift(s, i, idx * local_n))
+    return _merge_local_topk(parts, k=k,
+                             sizes=[mesh.shape[a] for a in sh.axes],
+                             hierarchical=hierarchical,
+                             device=mesh.merge_device)
+
+
+def local_visit(visit, idx: int, blocks_per_shard: int):
+    """Shard ``idx``'s view of a global visit table: the steps on its
+    block range [idx * bps, (idx + 1) * bps) localized to its slab, every
+    other step (off-shard probes and the -1 tails) retargeted at its pad
+    block ``bps``."""
+    off = idx * blocks_per_shard
+    inside = (visit >= off) & (visit < off + blocks_per_shard)
+    return torch.where(inside, visit - off, blocks_per_shard).to(torch.int32)
+
+
+def sharded_ivf_pq_search(bucket_codes, bucket_ids, visit, luts, coarse, *,
+                          mesh: Mesh, k: int, steps_per_probe: int = 1,
+                          blocks_per_shard: int, axes=None,
+                          hierarchical: bool = True, use_kernel=None,
+                          lut_dtype: str = "float32"):
+    """Bucket-range-sharded IVF-PQ top-k: each shard owns a contiguous
+    range of inverted-list blocks plus its own all-pad block; the visit
+    table, LUTs and coarse terms are replicated.
+
+    ``visit`` (Q, T) numbers blocks globally in [0, S * blocks_per_shard),
+    with the tails of short clusters at -1. Each shard localizes it
+    (``local_visit``) and runs ``kops.ivf_adc_topk`` (the ``ivf_adc`` grids
+    on a CUDA slab, ``auto`` dispatch) with ``pad_block=blocks_per_shard``,
+    so that the per-query grid skips the steps that are not its own (the
+    reference passes no pad block: its shards score every step, most of
+    them on the pad block; the answers are the same). Bucket ids hold
+    global rows, so nothing is lifted.
+
+    bucket_codes: (S * (blocks_per_shard + 1), blk, m) and bucket_ids
+    likewise (``ShardedRows`` or tensors); luts (Q, m, ksub) or (Q,
+    nprobe, m, ksub); coarse (Q, nprobe) f32. Returns (scores (Q, k), ids
+    (Q, k) int64)."""
+    sh = corpus_sharding(mesh, axes)
+    codes = _as_sharded(bucket_codes, sh)
+    ids = _as_sharded(bucket_ids, sh)
+    if codes.shape[0] != sh.n_shards * (blocks_per_shard + 1):
+        raise ValueError(f"bucket_codes {codes.shape} is not {sh.n_shards} "
+                         f"slabs of {blocks_per_shard} + 1 blocks")
+    kk = min(k, (blocks_per_shard + 1) * codes.shape[1])
+    parts = []
+    for idx, (c_blk, id_blk, dev) in enumerate(
+            zip(codes.shards, ids.shards, sh.devices)):
+        s, i = kops.ivf_adc_topk(
+            c_blk, id_blk, local_visit(visit.to(dev), idx, blocks_per_shard),
+            luts.to(dev), k=kk, coarse=coarse.to(dev),
+            steps_per_probe=steps_per_probe, use_kernel=use_kernel,
+            lut_dtype=lut_dtype, pad_block=blocks_per_shard)
+        parts.append((s, i.long()))
+    return _merge_local_topk(parts, k=k,
+                             sizes=[mesh.shape[a] for a in sh.axes],
+                             hierarchical=hierarchical,
+                             device=mesh.merge_device)
+
+
+def two_level_search(corpus, q, *, mesh: Mesh, k: int, q_axes, c_axes,
+                     tile: int = 4096, n_valid: int = None,
+                     metric: str = "dot"):
+    """Batched distributed top-k: queries sharded over ``q_axes``, corpus
+    rows over ``c_axes`` (disjoint). Each (query block, corpus slab) pair
+    runs ``flat_search`` (the ``topk_distance`` kernel) on the slab's
+    device, rows at or past ``n_valid`` knocked out; the k survivors of
+    each slab merge across ``c_axes`` in one step. Q must divide the query
+    shard count and N the corpus shard count. Returns (scores (Q, k), ids
+    (Q, k) int64) on the merge device, query blocks in order."""
+    check_tile(tile, 4096)
+    q_sh = NamedSharding(mesh, P(tuple(q_axes), None))
+    c_sh = NamedSharding(mesh, P(tuple(c_axes), None))
+    if set(q_sh.axes) & set(c_sh.axes):
+        raise ValueError(f"q_axes {q_sh.axes} and c_axes {c_sh.axes} overlap")
+    corpus = _as_sharded(corpus, c_sh)
+    if q.shape[0] % q_sh.n_shards:
+        raise ValueError(f"{q.shape[0]} queries do not split into "
+                         f"{q_sh.n_shards} shards")
+    local_n = corpus.local_n
+    kk = min(k, local_n)
+    out = []
+    for q_blk in q.chunk(q_sh.n_shards):
+        parts = []
+        for idx, (c_blk, dev) in enumerate(zip(corpus.shards, c_sh.devices)):
+            base = idx * local_n
+            valid = (None if n_valid is None else
+                     base + torch.arange(local_n, device=dev) < n_valid)
+            s, i = flat_search(c_blk, q_blk.to(dev), metric=metric, k=kk,
+                               valid=valid)
+            parts.append(_lift(s, i, base))
+        out.append(_merge_local_topk(parts, k=k, sizes=[len(parts)],
+                                     hierarchical=False,
+                                     device=mesh.merge_device))
+    return (torch.cat([s for s, _ in out]), torch.cat([i for _, i in out]))
+
+
+def merge_candidate_sets(scores, ids, k: int):
+    """(S, Q, k') per-shard candidates -> the global (Q, k), ties to the
+    lower shard, then the lower slot. Tensors or arrays in, tensors out."""
+    scores = torch.as_tensor(scores)
+    ids = torch.as_tensor(ids)
+    return _merge(list(zip(scores.unbind(0), ids.unbind(0))), k)

@@ -314,15 +314,26 @@ class BlockListLayout:
     set, and a batch's new blocks are rows next_free + arange(R): clusters
     in ascending order, each cluster's new blocks consecutive once its tail
     block is full. That makes every write a few batched device operations.
+
+    The mesh front (``core.db.DistributedIVFPQ``) sets ``row_multiple`` to
+    its shard count, so that capacities are
+    ``row_multiple * row_capacity(ceil(n / row_multiple), 4)`` and storage
+    rows slice into equal per-shard slabs. The reference's mesh front also
+    steers each new block to the shard of its cluster's last block when
+    that shard has a free row, else to the lowest free row. Under the
+    invariant above (every used row lies below ``next_free``) that shard
+    has a free row only if it holds ``next_free``, so its pick is always
+    the lowest free row, the fast path's.
     """
 
     def __init__(self, n_clusters: int, blk: int = 32, m: int = 0,
-                 device=None):
+                 device=None, row_multiple: int = 1):
         if blk % 8:
             raise ValueError(f"block size {blk} is not a multiple of 8")
         self.C = int(n_clusters)
         self.blk = int(blk)
         self.m = int(m)
+        self.row_multiple = int(row_multiple)
         self.spp_cap = 1
         cap = self._round_rows(2)
         i32 = dict(dtype=torch.int32, device=device)
@@ -341,8 +352,8 @@ class BlockListLayout:
     # ------------------------------------------------------------ build
     @classmethod
     def from_assign(cls, assign, n_clusters: int, *, blk: int = 32,
-                    payload=None, ids=None, live=None,
-                    device=None) -> "BlockListLayout":
+                    payload=None, ids=None, live=None, device=None,
+                    row_multiple: int = 1) -> "BlockListLayout":
         """Build from a (N,) assignment (+ optional (N, m) payload codes).
 
         ``ids`` defaults to row numbers; ``live`` masks tombstoned ids out.
@@ -360,11 +371,51 @@ class BlockListLayout:
             assign, ids = assign[keep], ids[keep]
             payload = None if payload is None else payload[keep]
         m = 0 if payload is None else payload.shape[1]
-        lay = cls(n_clusters, blk=blk, m=m, device=dev)
+        lay = cls(n_clusters, blk=blk, m=m, device=dev,
+                  row_multiple=row_multiple)
         lay.pos = torch.full((N,), -1, dtype=torch.int64, device=dev)
         counts = torch.bincount(assign, minlength=n_clusters)
         lay._reserve_rows(int(_block_ranges(counts, blk)[1].sum()) + 2)
         lay._bulk_append(assign, ids, payload)
+        return lay
+
+    @classmethod
+    def from_arrays(cls, arrays, *, device=None,
+                    row_multiple: int = 1) -> "BlockListLayout":
+        """A layout from its arrays, as they stand (no repacking): ``slots``,
+        ``codes`` (optional), ``block_cluster``, ``block_table``, ``bcnt``,
+        ``tail_fill``, ``pos`` (the flat slot of each id, -1 for none),
+        ``free`` (the free storage rows, ascending) and ``tombstones``;
+        ``core.convert`` gives them for a reference layout. The arrays are
+        copied. The free rows must be the one range [n_blocks, capacity -
+        1) the fast path keeps."""
+        def t(key, dtype):  # a copy: the layout writes in place
+            return torch.as_tensor(arrays[key]).to(device=device, dtype=dtype,
+                                                   copy=True)
+
+        slots = t("slots", torch.int32)
+        blk = slots.shape[1]
+        codes = arrays.get("codes")
+        m = 0 if codes is None else int(codes.shape[2])
+        table = t("block_table", torch.int32)
+        lay = cls(table.shape[0], blk=blk, m=m, device=slots.device,
+                  row_multiple=row_multiple)
+        lay.slots = slots
+        lay.codes = None if codes is None else t("codes", torch.uint8)
+        lay.block_cluster = t("block_cluster", torch.int32)
+        lay.block_table = table
+        lay.spp_cap = table.shape[1]
+        lay.bcnt = t("bcnt", torch.int32)
+        lay.tail_fill = t("tail_fill", torch.int32)
+        lay.pos = t("pos", torch.int64)
+        free = torch.as_tensor(arrays["free"]).long().reshape(-1).cpu()
+        n_blocks = lay.capacity - 1 - free.numel()
+        if not torch.equal(free, torch.arange(n_blocks, lay.capacity - 1)):
+            raise ValueError("free rows are not the one range [n_blocks, "
+                             "capacity - 1)")
+        lay.next_free = n_blocks
+        lay.live = int((lay.pos >= 0).sum())
+        lay.tombstones = int(arrays["tombstones"])
         return lay
 
     # -------------------------------------------------------- capacities
@@ -390,7 +441,8 @@ class BlockListLayout:
         return self.next_free
 
     def _round_rows(self, n: int) -> int:
-        return row_capacity(n, minimum=4)
+        per = -(-n // self.row_multiple)
+        return self.row_multiple * row_capacity(per, minimum=4)
 
     def _reserve_rows(self, n: int) -> bool:
         """Grow storage to >= n rows (pad row included); True on growth.

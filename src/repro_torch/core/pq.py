@@ -377,6 +377,25 @@ def ivf_pq_search(codebooks, centroids, block_lists, corpus, q, *,
     return D.pad_to_k(s[:, :k], ids[:, :k], k)
 
 
+def train_ivf_pq(corpus, *, n_clusters: int, m: int, ksub: int, iters: int,
+                 metric: str, seed: int):
+    """IVF-PQ training on preprocessed rows, one generator seeded with
+    ``seed`` on the rows' device for both k-means: the coarse centroids
+    (normalized for cosine), each row's cluster, the PQ codebooks of the
+    residuals and their codes. ``IVFPQIndex`` and the mesh front
+    (``core.db.DistributedIVFPQ``) train through it, so that one seed
+    gives both the same clustering."""
+    gen = torch.Generator(device=corpus.device).manual_seed(seed)
+    cent = kmeans(corpus, n_clusters=n_clusters, iters=iters, generator=gen)
+    if metric == "cosine":
+        cent = D.l2_normalize(cent)
+    assign = assign_clusters(corpus, cent)
+    residuals = ResidualRows(corpus, cent, assign)
+    codebooks = train_pq(residuals, m=m, ksub=ksub, iters=iters,
+                         generator=gen)
+    return cent, assign, codebooks, pq_encode(codebooks, residuals)
+
+
 class PQIndex(MutationMixin):
     """Flat product-quantized engine: m bytes a row, the ADC scan over all
     codes, and an exact re-rank of the best ``refine`` candidates when the
@@ -685,19 +704,12 @@ class IVFPQIndex(MutationMixin):
         C = min(self.n_clusters or max(1, int(math.sqrt(N))), N)
         corpus, sq = D.preprocess_corpus(x, self.metric)
         del x  # a converted copy of the input goes now, not after training
-        gen = torch.Generator(device=self.device).manual_seed(self.seed)
-        cent = kmeans(corpus, n_clusters=C, iters=self.kmeans_iters,
-                      generator=gen)
-        if self.metric == "cosine":
-            cent = D.l2_normalize(cent)
-        assign = assign_clusters(corpus, cent)
-        residuals = ResidualRows(corpus, cent, assign)
-        self.codebooks = train_pq(residuals, m=self.m, ksub=self.ksub,
-                                  iters=self.kmeans_iters, generator=gen)
-        self.centroids = cent
+        self.centroids, assign, self.codebooks, codes = train_ivf_pq(
+            corpus, n_clusters=C, m=self.m, ksub=self.ksub,
+            iters=self.kmeans_iters, metric=self.metric, seed=self.seed)
         self._corpus = GrowableRows.from_array(corpus) if self.refine else None
         self._sq = None if sq is None else GrowableRows.from_array(sq)
-        self._finalize_layout(pq_encode(self.codebooks, residuals), assign)
+        self._finalize_layout(codes, assign)
         return self
 
     # ---------------------------------------------------------- mutation

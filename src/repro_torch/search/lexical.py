@@ -12,7 +12,8 @@ bitmap composes here too.
 both score sets min-max normalized to [0, 1], every candidate of the union
 scored ``alpha * dense + (1 - alpha) * lexical`` (0 for a side it did not
 surface on), duplicates kept on the dense side, one top-k over both sets
-(``merge_candidate_sets``, the reference's mesh merge, as a stable sort).
+through the mesh fronts' merge (``core.distributed.merge_candidate_sets``,
+a stable sort), as the reference fuses through its mesh merge.
 
 One departure, in speed only: the reference builds the postings in a
 Python loop over documents; here one ``np.unique`` over (token, row) pairs
@@ -164,18 +165,6 @@ def _minmax(scores: np.ndarray, ids: np.ndarray) -> np.ndarray:
     return np.where(valid, out, -np.inf)
 
 
-def merge_candidate_sets(scores: np.ndarray, ids: np.ndarray, k: int):
-    """(S, Q, k') candidate sets -> the global (Q, k): one top-k over the
-    sets side by side, equal scores to the lower position (the order
-    ``lax.top_k`` gives the reference's merge)."""
-    S, Q, kk = scores.shape
-    s = np.moveaxis(scores, 0, 1).reshape(Q, S * kk)
-    i = np.moveaxis(ids, 0, 1).reshape(Q, S * kk)
-    pos = np.argsort(-s, axis=1, kind="stable")[:, :k]
-    return (np.take_along_axis(s, pos, axis=1),
-            np.take_along_axis(i, pos, axis=1))
-
-
 def hybrid_merge(dense_s, dense_i, lex_s, lex_i, *, alpha: float, k: int):
     """Fuse dense (ADC) and lexical (BM25) candidate sets (module
     docstring). Returns (scores (Q, k) f32, ids (Q, k) int32), (-inf, -1)
@@ -209,9 +198,12 @@ def hybrid_merge(dense_s, dense_i, lex_s, lex_i, *, alpha: float, k: int):
             i = np.pad(i, ((0, 0), (0, w)), constant_values=-1)
         return s, i
 
+    from repro_torch.core.distributed import merge_candidate_sets  # layering
+
     ds, di = pad(fused_dense, np.where(dense_i >= 0, dense_i, -1))
     ls, li = pad(fused_lex, lex_ids)
     s, i = merge_candidate_sets(np.stack([ds, ls]).astype(np.float32),
                                 np.stack([di, li]).astype(np.int32), k)
+    s, i = s.numpy(), i.numpy()
     return s, np.where(np.isneginf(s), -1, i).astype(np.int32)
 

@@ -21,8 +21,8 @@ the card's::
     ``overflow="block"`` makes ``submit`` wait (optionally with a
     timeout), ``"reject"`` makes it raise ``BackpressureError`` at once.
   * **The batcher thread** is the only thread that touches the DB. It
-    drains the queue in arrival order: writes apply at once through
-    ``VectorDB.apply_write``; reads gather into a micro-batch until
+    drains the queue in arrival order: writes apply at once through the
+    DB's ``apply_write`` (``VectorDB``'s or ``DistributedIVFPQ``'s); reads gather into a micro-batch until
     ``max_batch``, ``max_wait_ms`` or the next write (a write closes the
     batch: read-your-writes, as in the pump). It pads the batch to the
     ``PLAN_BUCKETS`` ladder, moves it to the card through pinned memory

@@ -13,7 +13,11 @@ Two fronts share this module's batching machinery:
 
 Both assemble a read micro-batch the same way (``bucket_of``,
 ``assemble_queries``), pad it up to ``core.db.PLAN_BUCKETS``, and send
-writes through ``VectorDB.apply_write`` (``apply_db_write``).
+writes through the DB's ``apply_write`` (``apply_db_write``). The DB is a
+``VectorDB`` or one of the mesh fronts (``DistributedVectorDB``,
+``DistributedPQ``, ``DistributedIVFPQ``, which takes writes), served
+alike: a query on the DB's ``device`` (a mesh front's merge device), the
+results copied back once.
 
 Ordering: writes share the queue with reads. Writes at the head apply at
 once, and a read batch never reaches past the next queued write, so every

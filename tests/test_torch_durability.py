@@ -9,7 +9,8 @@ writes, bit for bit); replay by lsn after a crash between rename and
 truncate; the lsn floor after a truncating snapshot; the snapshot cadence
 by bytes and by age; partial and corrupt steps skipped; the async front
 acknowledging a write only after its fsync; the checkpoint store
-(retention, background saves and their retries, chunked and bf16 leaves);
+(retention, background saves and their retries, chunked and bf16 leaves,
+partition specs in the reference's manifest form, the re-mesh restore);
 the seeded crash-recovery fuzz against a dict oracle.
 
 Then both directions across the packages: the record framing byte for
@@ -749,11 +750,73 @@ def test_valid_steps_filters_partial_dirs(tmp_path, tree):
     assert not ckpt.is_valid_step(str(tmp_path), 3)
 
 
-def test_resharding_waits_for_the_mesh_fronts(tmp_path, tree):
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ckpt.restore_resharded(tree, str(tmp_path), 0, None, None)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ckpt.save(tree, str(tmp_path), 0, pspecs={})
+def test_manifest_records_pspecs_as_the_reference_does(tmp_path, tree):
+    """``save(pspecs=)`` writes each leaf's partition spec in the
+    reference's manifest form (tests/test_checkpoint.py), equal field for
+    field to the reference's own save of the same tree and specs; a leaf
+    without a spec reads null."""
+    import json
+    from jax.sharding import PartitionSpec as JP
+    from repro_torch.core.distributed import P
+    specs = {"params": {"w": P("data", None), "b": P()},
+             "opt": {"step": P()}}
+    ckpt.save(tree, str(tmp_path / "port"), 2, pspecs=specs)
+    ckpt.save(tree, str(tmp_path / "nospec"), 2)
+    ref_tree = {"params": {"w": np.arange(24, dtype=np.float32).reshape(4, 6),
+                           "b": np.ones(3, np.float32)},
+                "opt": {"step": np.asarray(7, np.int32)}}
+    rckpt.save(ref_tree, str(tmp_path / "ref"), 2, pspecs={
+        "params": {"w": JP(("data", "model"), None), "b": JP()},
+        "opt": {"step": JP()}})
+    ckpt.save(tree, str(tmp_path / "port2"), 2, pspecs={
+        "params": {"w": P(("data", "model"), None), "b": P()},
+        "opt": {"step": P()}})
+
+    def leaves(name):
+        path = tmp_path / name / "step_00000002" / "manifest.json"
+        return json.loads(path.read_text())["leaves"]
+
+    assert leaves("port")["params/w"]["pspec"] == ["data", None]
+    assert leaves("port")["params/b"]["pspec"] == []
+    assert leaves("nospec")["params/w"]["pspec"] is None
+    for key, leaf in leaves("ref").items():
+        assert leaves("port2")[key]["pspec"] == leaf["pspec"], key
+    assert leaves("ref")["params/w"]["pspec"] == [["data", "model"], None]
+
+
+def test_restore_resharded_places_leaves_on_a_new_mesh(tmp_path, tree):
+    """A tree saved from 4 row shards, restored onto a (2, 4) mesh of the
+    CPU: the sharded leaf as 8 slabs of its rows over both axes, the
+    replicated ones whole on the merge device, every value and dtype kept;
+    a leaf whose rows do not split, or a spec past the first dimension,
+    is refused."""
+    from repro_torch.core import distributed as dist
+    mesh4 = dist.make_mesh((4,), ("data",), devices=["cpu"] * 4)
+    rows = torch.arange(16 * 3, dtype=torch.float32).reshape(16, 3)
+    placed = dist.corpus_sharding(mesh4).place(rows)
+    assert [s.shape for s in placed.shards] == [(4, 3)] * 4
+    saved = dict(tree, rows=placed.gather())
+    ckpt.save(saved, str(tmp_path), 1, pspecs={"rows": placed.sharding.spec})
+    mesh8 = dist.make_mesh((2, 4), ("data", "model"), devices=["cpu"] * 8)
+
+    def sharding(key, leaf):
+        return dist.NamedSharding(mesh8, dist.P(("data", "model"), None)
+                                  if key == "rows" else dist.P())
+
+    got = ckpt.restore_resharded(saved, str(tmp_path), 1, mesh8, sharding)
+    assert isinstance(got["rows"], dist.ShardedRows)
+    assert len(got["rows"].shards) == 8 and got["rows"].local_n == 2
+    assert torch.equal(got["rows"].gather(), rows)
+    assert torch.equal(got["params"]["w"], tree["params"]["w"])
+    assert got["params"]["b"].dtype == torch.bfloat16
+    assert int(got["opt"]["step"]) == 7
+    with pytest.raises(ValueError, match="do not split"):
+        ckpt.restore_resharded({"params": {"w": tree["params"]["w"]}},
+                               str(tmp_path), 1, mesh8,
+                               lambda key, leaf: dist.NamedSharding(
+                                   mesh8, dist.P(("data", "model"), None)))
+    with pytest.raises(ValueError, match="first dimension"):
+        dist.NamedSharding(mesh8, dist.P(None, "data"))
 
 
 # ------------------------------------------------ across the packages

@@ -1175,3 +1175,57 @@ def test_graph_build_and_entry_scan_kernel_match_plain(metric):
     torch.cuda.synchronize()
     assert float((ki == pi).float().mean()) >= 0.99
     assert torch.allclose(ks[ki == pi], ps[ki == pi], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(1,), (4,), (2, 2)])
+def test_mesh_fronts_launch_each_shards_kernels(shape):
+    """The three mesh fronts on a mesh that repeats the card: every shard
+    launches its kernel once a batch (``topk_distance``, ``pq_adc``, an
+    ``ivf_adc`` grid; ``auto``'s measured probe may add its candidates'
+    launches), and each front's answers equal its shards' plain versions:
+    ``pq_adc`` and the ``ivf_adc`` grids bit for bit, ``topk_distance``
+    within the float32 bound of two summation orders, rank by rank."""
+    from repro_torch.core import (DistributedIVFPQ, DistributedPQ,
+                                  DistributedVectorDB)
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.pq import _ivf_probe_stage, adc_tables
+    dev = _card()
+    S = int(np.prod(shape))
+    mesh = dist.make_mesh(shape, ("data", "model")[:len(shape)],
+                          devices=[dev] * S)
+    rng = np.random.default_rng(21)
+    corpus = rng.normal(size=(9_001, 32)).astype(np.float32)
+    q = torch.as_tensor(corpus[:20] + 0.01, device=dev)
+    qn = D.l2_normalize(q)
+    flat = DistributedVectorDB(mesh).load(corpus)
+    ops.reset_launch_counts()
+    ks, ki = flat.query(q, k=10)
+    assert ops.launch_counts()["topk_distance"] == S
+    ps, pi = dist.sharded_flat_search(flat.corpus, qn, mesh=mesh, k=10,
+                                      metric="dot", valid=flat.valid,
+                                      use_kernel=False)
+    torch.cuda.synchronize()
+    tol = 2 * 32 * 2.0 ** -24 + 1e-6
+    assert bool(((ks - ps).abs() <= tol).all())
+    pq = DistributedPQ(mesh, m=8).load(corpus)
+    ops.reset_launch_counts()
+    got = pq.query(q, k=10)
+    assert ops.launch_counts()["pq_adc"] == S
+    _same(got, dist.sharded_pq_search(
+        pq.codes, adc_tables(pq.codebooks, qn, metric="dot"), mesh=mesh,
+        k=10, valid=pq.valid, use_kernel=False))
+    ivf = DistributedIVFPQ(mesh, m=8).load(corpus)
+    ivf.insert(corpus[:300] + 0.02)
+    ivf.delete(np.arange(0, 600, 3))
+    ops.reset_launch_counts()
+    got = ivf.query(q, k=10)
+    counts = ops.launch_counts()
+    assert sum(counts[g] for g in ("ivf_adc", "ivf_adc_blocked",
+                                   "ivf_adc_run_resident")) >= S
+    visit, luts, coarse, _ = _ivf_probe_stage(
+        ivf.codebooks, ivf.centroids, qn, ivf.block_table, metric="dot",
+        nprobe=8, steps_per_probe=ivf.spp, pad_block=-1)
+    _same(got, dist.sharded_ivf_pq_search(
+        ivf.codes_bm, ivf.bucket_ids, visit, luts, coarse, mesh=mesh, k=10,
+        steps_per_probe=ivf.spp, blocks_per_shard=ivf.blocks_per_shard,
+        use_kernel=False))

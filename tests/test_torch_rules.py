@@ -38,6 +38,7 @@ PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
 
 def test_import_loads_no_jax():
     code = ("import json, sys, repro_torch, repro_torch.core.convert, "
+            "repro_torch.core.distributed, "
             "repro_torch.serve, repro_torch.checkpoint, repro_torch.core.wal, "
             "repro_torch.ft, repro_torch.search; "
             "print(json.dumps([m for m in sys.modules if m.split('.')[0] "
