@@ -215,8 +215,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      plain versions at Q = 32, the per-query kernel's time a shard, the
      merge's and the sharing probe's host ms; load seconds, peak GB and
      p50/p99 at Q = 1, 32, 512 for each engine and mesh;
- 10. a JSON line of the kernels (phase 9's launches added), then the
-     result line.
+ 10. training at full width (examples/train_sbert.py --preset full's
+     settings: MarcoLike 2,000 passages at seq 24, batch 64, lr 3e-4 with
+     warmup 20 and cosine decay, clip 1.0, weight decay 0.01, 300 steps,
+     a checkpoint every 50 in ``--snapshot-dir``): one contrastive_loss
+     step's gradients at B = 8 on the card against the CPU from one seeded
+     state, in bf16 and in a float32 copy of the config (the CPU tests'
+     bounds); the run through the port's ``Supervisor`` and
+     ``CheckpointStore`` with failures injected at steps 75 and 180,
+     against an uninterrupted run (parameters and Adam moments bit-equal;
+     ``torch.use_deterministic_algorithms`` on for the phase's training,
+     with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set at the start of the
+     script): loss and in-batch accuracy every 50 steps, step p50 / p99,
+     tokens/s, peak device memory, each checkpoint's copy and write
+     seconds; retrieval top-1 before and after (the example's
+     ``retrieval_accuracy``: ``encode`` through ``flash_attention`` and
+     ``VectorDB("flat", metric="cosine")`` through ``topk_distance``, their
+     launches; after must beat before), the trained tower's kernel encode
+     against ``use_kernel=False`` (row cosine >= 0.999); 100 steps with
+     int8 Adam state (its loss curve beside float32's, the moments' bytes
+     against ``adam_state_bytes``); the loss's last-20-step mean below its
+     first-20 in both; ``gradient_accumulation`` on a batch of 64 at
+     n_micro = 4 against n_micro = 1 (a per-pair loss, float32 copy) and
+     against the four quarters' mean (the contrastive loss), rtol 1e-4 /
+     atol 1e-5;
+ 11. a JSON line of the kernels (phases 9 and 10's launches added), then
+     the result line.
 
 It needs one CUDA card and the repository's ``src/`` beside it, and it
 imports nothing of the JAX package.
@@ -4536,6 +4560,329 @@ def phase_mesh(n: int, seed: int, device, rank: int, rates: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------- phase 10: training
+TRAIN_PASSAGES = 2000        # examples/train_sbert.py --preset full's data
+TRAIN_BATCH = 64
+TRAIN_SEQ = 24
+TRAIN_STEPS = 300
+TRAIN_CKPT_EVERY = 50
+TRAIN_FAILS = (75, 180)
+TRAIN_INT8_STEPS = 100       # the loss rises through the warmup (steps
+                             # 20-50) in either state, then falls
+TRAIN_GRAD_B = 8             # the card-against-CPU gradient check's batch
+TRAIN_WINDOW = 20            # steps averaged at each end of a loss curve
+CUBLAS_DETERMINISTIC = ":4096:8"  # 8 x 4 MiB: PyTorch's default size on Hopper
+
+
+def deterministic_cublas() -> str:
+    """The cuBLAS workspace setting that ``torch.use_deterministic_algorithms``
+    asks for, set unless the environment sets it; read when the first cuBLAS
+    handle is made, so ``main`` sets it before any phase. 32 MiB is what
+    PyTorch gives a Hopper card by default, so earlier phases' matmuls keep
+    their workspace."""
+    import os
+    return os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG",
+                                 CUBLAS_DETERMINISTIC)
+
+
+def grads_card_vs_cpu(cfg, batch, seed: int, device, label: str) -> None:
+    """One contrastive_loss step's loss and gradients from one seeded
+    state, on the card and on the CPU (the port's plain path there), held
+    to the CPU-parity bounds: float32 loss within 1e-5 relative and each
+    leaf within 1e-4 x its max |g|; bf16 loss within 2e-2 and each nonzero
+    leaf at cosine >= 0.99; lm_head's gradient zero on both."""
+    import torch
+    from repro_torch.models import encoder
+    from repro_torch.train.accum import value_and_grad
+    out = []
+    for dev in (device, torch.device("cpu")):
+        t0 = time.perf_counter()
+        model = encoder.init(cfg, torch.Generator().manual_seed(seed),
+                             device=dev, trainable=True)
+        tb = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        (loss, _), grads = value_and_grad(
+            lambda m, b: encoder.contrastive_loss(m, cfg, b), model, tb)
+        out.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
+        log(f"  {label} on {dev}: loss {float(loss):.6f}, "
+            f"{time.perf_counter() - t0:.2f} s")
+        del model, grads
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = out
+    f32 = cfg.dtype == "float32"
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    worst_err = 0.0
+    worst_cos = 1.0
+    for name, gc in g_cpu.items():
+        gg = g_gpu[name]
+        scale = float(gc.abs().max())
+        if name.startswith("lm_head"):
+            if scale or float(gg.abs().max()):
+                raise AssertionError(f"{label}: lm_head has a gradient")
+            continue
+        if f32:
+            worst_err = max(worst_err, float((gg - gc).abs().max()) / scale)
+        elif scale:
+            cos = float((gg.double() * gc.double()).sum()
+                        / gg.double().norm() / gc.double().norm())
+            worst_cos = min(worst_cos, cos)
+    log(f"  {label}: loss card {l_gpu:.6f} vs CPU {l_cpu:.6f} (rel "
+        f"{rel:.3e}, bound {1e-5 if f32 else 2e-2}); "
+        + (f"worst leaf |g - g_cpu| / max|g_cpu| {worst_err:.3e} (bound 1e-4)"
+           if f32 else f"worst leaf cosine {worst_cos:.6f} (bound 0.99)")
+        + "; lm_head's gradient zero on both")
+    if rel > (1e-5 if f32 else 2e-2) or worst_err > 1e-4 or worst_cos < 0.99:
+        raise AssertionError(f"{label}: card gradients differ from the CPU's")
+
+
+def loss_drop(metrics, label: str) -> tuple:
+    """(first, last) TRAIN_WINDOW-step mean losses; the last must be lower."""
+    losses = [m["loss"] for m in metrics]
+    first = sum(losses[:TRAIN_WINDOW]) / TRAIN_WINDOW
+    last = sum(losses[-TRAIN_WINDOW:]) / TRAIN_WINDOW
+    log(f"  {label}: loss mean of the first {TRAIN_WINDOW} steps {first:.4f}, "
+        f"of the last {TRAIN_WINDOW} {last:.4f}")
+    if not last < first:
+        raise AssertionError(f"{label}: the loss did not fall")
+    return first, last
+
+
+def step_times(job, label: str) -> dict:
+    """p50 / p99 of the job's step seconds (the first step apart), tokens
+    a second at the p50 (both towers' tokens), and the first step."""
+    secs = job.step_seconds
+    p50, p99 = percentile(secs[1:], 50), percentile(secs[1:], 99)
+    tokens = 2 * TRAIN_BATCH * TRAIN_SEQ
+    log(f"  {label}: step p50 {p50 * 1e3:.2f} ms, p99 {p99 * 1e3:.2f} ms "
+        f"over {len(secs) - 1} steps (the first {secs[0] * 1e3:.1f} ms), "
+        f"{tokens / p50:.0f} tokens/s at the p50 (forward, backward, clip, "
+        f"AdamW and the batch's upload; host clock ending in a synchronize)")
+    return {"p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3,
+            "first_ms": secs[0] * 1e3, "tokens_per_s": tokens / p50}
+
+
+def same_state(a, b, label: str) -> None:
+    """Every leaf of two jobs' train states equal, bit for bit."""
+    from repro_torch.train.optim import tree_get, tree_paths
+    for path, x in tree_paths(a.state):
+        if not torch_equal(x, tree_get(b.state, path)):
+            raise AssertionError(f"{label}: {'/'.join(path)} differs")
+
+
+def torch_equal(x, y) -> bool:
+    import torch
+    return bool(torch.equal(x.cpu(), y.cpu()))
+
+
+def accumulation_checks(job, batch_fn, device) -> None:
+    """gradient_accumulation on one batch of 64 at full width: n_micro = 4
+    against n_micro = 1, within rtol 1e-4 / atol 1e-5, with a loss that is
+    a mean over pairs (each row's 1 - cos(q_i, p_i)) on a float32 copy of
+    the config; with the contrastive loss (shipped bf16), n_micro = 4
+    against the mean of n_micro = 1 over the four quarters, within the
+    same bounds. In-batch negatives make the contrastive loss of 4 x 16
+    rows another function than that of 64 rows: their difference is
+    printed, not held."""
+    import dataclasses
+    import torch
+    from repro_torch.models import encoder
+    from repro_torch.train.accum import gradient_accumulation, value_and_grad
+    cfg = job.cfg
+    batch = {k: torch.as_tensor(v).to(device) for k, v in batch_fn(0).items()}
+
+    def close(a, b, label):
+        worst = 0.0
+        for name in a:
+            d = (a[name] - b[name]).abs() - 1e-4 * b[name].abs()
+            worst = max(worst, float(d.max()))
+        log(f"  {label}: max(|a - b| - 1e-4 |b|) {worst:.3e} (bound 1e-5)")
+        if worst > 1e-5:
+            raise AssertionError(f"{label}: gradients differ")
+
+    def contrastive(m, b):
+        return encoder.contrastive_loss(m, cfg, b)
+
+    g4, _, _ = gradient_accumulation(contrastive, job.model, batch, 4)
+    q = TRAIN_BATCH // 4
+    quarters = [value_and_grad(contrastive, job.model,
+                               {k: v[i * q:(i + 1) * q]
+                                for k, v in batch.items()})[1]
+                for i in range(4)]
+    mean_q = {k: (((quarters[0][k] + quarters[1][k]) + quarters[2][k])
+                  + quarters[3][k]) * 0.25 for k in g4}
+    close(g4, mean_q, "contrastive, n_micro=4 against the quarters' mean")
+    g1, _, _ = gradient_accumulation(contrastive, job.model, batch, 1)
+    num = sum(float((g4[k] - g1[k]).norm() ** 2) for k in g1) ** 0.5
+    den = sum(float(g1[k].norm() ** 2) for k in g1) ** 0.5
+    log(f"  contrastive, n_micro=4 against n_micro=1 ({TRAIN_BATCH}-way "
+        f"against {q}-way softmax, another loss): |g4 - g1| / |g1| "
+        f"{num / den:.4f} (printed)")
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+
+    def align(m, b):
+        q = encoder.encode(m, cfg32, b["q_tokens"], b["q_mask"], train=True)
+        p = encoder.encode(m, cfg32, b["p_tokens"], b["p_mask"], train=True)
+        loss = (1.0 - (q * p).sum(dim=-1)).mean()
+        return loss, {"loss": loss}
+
+    a4, l4, _ = gradient_accumulation(align, job.model, batch, 4)
+    a1, l1, _ = gradient_accumulation(align, job.model, batch, 1)
+    log(f"  per-pair loss (float32 copy): n_micro=4 {float(l4):.7f}, "
+        f"n_micro=1 {float(l1):.7f}")
+    close(a4, a1, "per-pair loss, n_micro=4 against n_micro=1")
+
+
+def phase_train(seed: int, device, snap_root: str) -> dict:
+    """Phase 10: examples/train_sbert.py --preset full on the card:
+    thistle-sbert FULL trained 300 steps under the supervisor with two
+    injected failures, against an uninterrupted run; retrieval before and
+    after through the kernels; int8 Adam state; accumulation. Returns
+    {kernel: launches on the retrieval path} and the phase's numbers."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import thistle_sbert
+    from repro_torch.data.marco import MarcoLike
+    from repro_torch.ft import FailureInjector, Supervisor
+    from repro_torch.kernels import ops
+    from repro_torch.train.optim import adam_state_bytes, state_bytes
+    from repro_torch.models.encoder import encode
+    from repro_torch.train.sbert import (SbertJob, retrieval_accuracy,
+                                         sbert_batches)
+
+    cfg = thistle_sbert.FULL
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"phase 10: training {cfg.name} at full width (layers {cfg.n_layers}, "
+        f"d_model {cfg.d_model}, vocab {cfg.vocab_size}, {cfg.param_dtype} "
+        f"parameters, {cfg.dtype} activations), examples/train_sbert.py "
+        f"--preset full: MarcoLike({TRAIN_PASSAGES} passages, noise 0.25, "
+        f"passage_len {TRAIN_SEQ}), batch {TRAIN_BATCH}, seq {TRAIN_SEQ}, lr "
+        f"3e-4 (warmup 20, cosine), clip 1.0, wd 0.01, {TRAIN_STEPS} steps; "
+        f"CUBLAS_WORKSPACE_CONFIG={deterministic_cublas()}; device memory in "
+        f"use at the start {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    data = MarcoLike(n_passages=TRAIN_PASSAGES, vocab_size=cfg.vocab_size,
+                     noise=0.25, passage_len=TRAIN_SEQ, seed=0)
+    out = {}
+
+    t0 = time.perf_counter()
+    small = sbert_batches(data, TRAIN_GRAD_B, cfg.vocab_size)(0)
+    for c, label in ((cfg, "gradients, bf16 config"),
+                     (dataclasses.replace(cfg, dtype="float32"),
+                      "gradients, float32 copy")):
+        grads_card_vs_cpu(c, small, seed, device, label)
+    log(f"  [card against CPU: {time.perf_counter() - t0:.1f} s]")
+
+    torch.cuda.reset_peak_memory_stats()
+    job = SbertJob(cfg, data, TRAIN_BATCH, total_steps=TRAIN_STEPS,
+                   injector=FailureInjector(fail_at=list(TRAIN_FAILS)),
+                   device=device, seed=seed, log_every=TRAIN_CKPT_EVERY,
+                   log=log)
+    n_params = sum(p.numel() for p in job.model.parameters())
+    ops.reset_launch_counts()
+    before = retrieval_accuracy(job.model, cfg, data)  # the seeded tower
+    launches = ops.launch_counts()
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=snap_root)
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    try:
+        torch.use_deterministic_algorithms(True)
+        # filling every new tensor (a debugging aid of deterministic mode)
+        # adds 2,000 launches to the step's 6,000 and changes no result
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        t0 = time.perf_counter()
+        store = CheckpointStore(work, keep=2)
+        sup = Supervisor(job, store, total_steps=TRAIN_STEPS,
+                         checkpoint_every=TRAIN_CKPT_EVERY,
+                         on_event=lambda k, i: log(f"  [supervisor] {k}: {i}"))
+        res = sup.run()
+        store.wait()
+        sup_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  supervised run: {res['final_step']} steps, {res['n_retries']} "
+            f"restarts, {len(job.step_seconds)} steps run, {sup_s:.1f} s; "
+            f"{n_params} parameters; peak device memory {peak:.2f} GB")
+        for h in job.saves:
+            log(f"  checkpoint step {h.step}: host copy {h.copy_s:.2f} s, "
+                f"write {h.write_s:.2f} s ({h.path})")
+        if res["final_step"] != TRAIN_STEPS or res["n_retries"] != len(TRAIN_FAILS):
+            raise AssertionError("the supervised run did not end as planned")
+        sup_times = step_times(job, "supervised run")
+
+        t0 = time.perf_counter()
+        plain = SbertJob(cfg, data, TRAIN_BATCH, total_steps=TRAIN_STEPS,
+                         device=device, seed=seed, log_every=0)
+        for step in range(TRAIN_STEPS):
+            plain.run_step(step)
+        log(f"  uninterrupted run: {TRAIN_STEPS} steps, "
+            f"{time.perf_counter() - t0:.1f} s")
+        times = step_times(plain, "uninterrupted run")
+        same_state(job, plain, "restarted against uninterrupted")
+        log("  the restarted run's parameters and Adam moments equal the "
+            "uninterrupted run's, bit for bit")
+        for s in range(0, TRAIN_STEPS, TRAIN_CKPT_EVERY):
+            m = plain.metrics[s]
+            log(f"    step {s:3d}: loss {m['loss']:.4f}, in-batch acc "
+                f"{m['in_batch_acc']:.3f}")
+        f32_drop = loss_drop(plain.metrics, "float32 Adam state")
+
+        int8 = SbertJob(cfg, data, TRAIN_BATCH, total_steps=TRAIN_STEPS,
+                        device=device, seed=seed, log_every=0,
+                        int8_state=True)
+        for step in range(TRAIN_INT8_STEPS):
+            int8.run_step(step)
+        for s in range(0, TRAIN_INT8_STEPS, 10):
+            log(f"    step {s:3d}: int8 state loss "
+                f"{int8.metrics[s]['loss']:.4f}, float32 state "
+                f"{plain.metrics[s]['loss']:.4f}")
+        int8_drop = loss_drop(int8.metrics, "int8 Adam state")
+        moments = {"int8": state_bytes(int8.opt), "float32": state_bytes(plain.opt)}
+        log(f"  Adam moments: int8 {moments['int8'] / 1e9:.4f} GB (plan "
+            f"adam_state_bytes {adam_state_bytes(n_params, True) / 1e9:.4f} "
+            f"GB), float32 {moments['float32'] / 1e9:.4f} GB (plan "
+            f"{adam_state_bytes(n_params, False) / 1e9:.4f} GB)")
+        del int8
+        accumulation_checks(plain, plain.batch_fn, device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+        shutil.rmtree(work, ignore_errors=True)
+
+    ops.reset_launch_counts()
+    stats = {}
+    after = retrieval_accuracy(job.model, cfg, data, stats=stats)
+    launches = {k: v + launches[k] for k, v in ops.launch_counts().items()}
+    log(f"  retrieval top-1 (300 queries, VectorDB('flat', metric='cosine')): "
+        f"before training {before:.3f}, after {after:.3f} (encode "
+        f"{stats['encode_s']:.2f} s, search {stats['search_s']:.3f} s); "
+        f"launches on the two retrievals' path: flash_attention "
+        f"{launches['flash_attention']}, topk_distance "
+        f"{launches['topk_distance']}")
+    if not after > before:
+        raise AssertionError("training did not lift retrieval")
+    for name in ("flash_attention", "topk_distance"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on phase 10's path")
+    tok = torch.as_tensor(data.passages[:128] % cfg.vocab_size).to(device)
+    got = encode(job.model, cfg, tok, tok != 0)
+    want = encode(job.model, cfg, tok, tok != 0, use_kernel=False)
+    worst = float((got * want).sum(dim=1).min())
+    log(f"  trained tower, 128 passages: encode through the kernel against "
+        f"use_kernel=False: min row cosine {worst:.6f} (bound >= 0.999)")
+    if worst < 0.999:
+        raise AssertionError("the trained tower's kernel encode differs")
+    out.update(launches={k: launches[k] for k in ("flash_attention",
+                                                  "topk_distance")},
+               retrieval={"before": before, "after": after},
+               step=times, supervised_step=sup_times, peak_gb=peak,
+               saves=[{"step": h.step, "copy_s": h.copy_s,
+                       "write_s": h.write_s} for h in job.saves],
+               loss={"float32": f32_drop, "int8": int8_drop},
+               moments_bytes=moments, n_params=n_params)
+    log(f"[phase 10: {time.perf_counter() - t_phase:.1f} s]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=MARCO_PASSAGES,
@@ -4550,15 +4897,17 @@ def main(argv=None) -> int:
                          "not gated), and of ivf_pq filtered in the buckets "
                          "above 10 %%")
     ap.add_argument("--snapshot-dir", default=None,
-                    help="where phase 7 writes its snapshots (a directory "
-                         "of its own inside, removed after); the system's "
-                         "temporary directory by default")
+                    help="where phases 7 and 10 write their snapshots and "
+                         "checkpoints (a directory of their own inside, "
+                         "removed after); the system's temporary directory "
+                         "by default")
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    deterministic_cublas()  # before the first cuBLAS handle (phase 10)
     src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: no src/repro_torch beside {__file__}",
@@ -4609,6 +4958,15 @@ def main(argv=None) -> int:
             entry["mesh_phase"] = {"launches": n_p9}
     log("phase 9 summary: " + json.dumps(
         {k: v for k, v in mesh.items() if k != "launches"}, default=str))
+    train = phase_train(args.seed, device,
+                        args.snapshot_dir or tempfile.gettempdir())
+    for entry in kernels:
+        if entry["name"] in train["launches"]:
+            n_p10 = train["launches"][entry["name"]]
+            entry["launches"] += n_p10
+            entry["train_phase"] = {"launches": n_p10}
+    log("phase 10 summary: " + json.dumps(
+        {k: v for k, v in train.items() if k != "launches"}, default=str))
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

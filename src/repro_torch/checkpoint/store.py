@@ -395,6 +395,8 @@ class AsyncSaveHandle:
         self.step = step
         self.path: Optional[str] = None
         self.attempts = 0
+        self.copy_s = 0.0   # the host copy, on the caller's thread
+        self.write_s = 0.0  # the background write, retries included
         self._exc: Optional[BaseException] = None
         self._done = threading.Event()
 
@@ -446,12 +448,17 @@ class CheckpointStore:
 
     def save_async(self, tree, step: int, *, pspecs=None) -> AsyncSaveHandle:
         """Copy the tree to host memory now and write it on a background
-        thread; returns the handle."""
+        thread; returns the handle (``copy_s`` and, once done,
+        ``write_s`` time the two parts)."""
+        t0 = time.perf_counter()
         host_tree = _host_copy(tree)
+        copy_s = time.perf_counter() - t0
         self.wait()
         handle = AsyncSaveHandle(step)
+        handle.copy_s = copy_s
 
         def _run():
+            t_write = time.perf_counter()
             try:
                 for attempt in range(self.retries + 1):
                     handle.attempts = attempt + 1
@@ -467,6 +474,7 @@ class CheckpointStore:
             except BaseException as e:  # terminal: kept for the caller
                 handle._exc = e
             finally:
+                handle.write_s = time.perf_counter() - t_write
                 handle._done.set()
 
         self._handle = handle

@@ -1,8 +1,8 @@
 """Config dataclasses of the transformer family (port of
 ``repro.configs.base``: ``MLAConfig``, ``MoEConfig``, ``LMConfig`` and
 ``EncoderConfig``, copied field for field so that a config compares equal
-to the reference's). The GNN and recsys configs and the registry come with
-their models (ROADMAP.md Queue 1, item 8).
+to the reference's). The GNN and recsys configs come with their models
+(ROADMAP.md Queue 1, item 8); ``configs.registry`` lists every arch id.
 """
 from __future__ import annotations
 

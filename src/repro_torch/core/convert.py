@@ -1,6 +1,7 @@
-"""Carry trained state from the reference package into the port: an
-engine's (``from_reference_state``) and a model's parameters
-(``from_reference_params``).
+"""Carry trained state between the reference package and the port: an
+engine's (``from_reference_state``), a model's parameters
+(``from_reference_params``; ``stack_layers`` the other way) and a train
+state (``from_reference_train_state``, ``to_reference_train_state``).
 
 K-means in the reference draws from ``jax.random`` and in the port from a
 ``torch.Generator``, so the two train different centroids from one seed.
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.search.meta import STATE_PREFIX
 
@@ -117,34 +119,155 @@ def _flatten(tree, prefix=""):
 
 def from_reference_params(tree: dict, cfg) -> dict:
     """The reference transformer's (or encoder's) parameter tree, as nested
-    dicts of numpy arrays, -> the port's ``state_dict``.
+    dicts of numpy arrays (or tensors), -> the port's ``state_dict``.
 
     Names are the tree's paths joined by dots. The reference stacks the
     ``dense_blocks`` leaves over layers on axis 0 (one ``jax.vmap`` init);
     they become ``dense_blocks.<i>.<path>``, one entry a layer. Every leaf
     keeps its layout ((d, h, dh) for ``wq``, (h, dh, d) for ``wo``) and
-    dtype. ``lm_head`` is dropped: ``encode`` never reads it and the port's
-    model has none. MoE blocks and the MTP head are refused, as the port's
-    ``init`` refuses them.
+    dtype, ``lm_head`` included. MoE blocks and the MTP head are refused,
+    as the port's ``init`` refuses them.
     """
     out = {}
     for key, sub in tree.items():
-        if key == "lm_head" or sub is None:
+        if sub is None:
             continue
         if key in ("moe_blocks", "mtp"):
             raise NotImplementedError(
                 f"{key} come with the LM stack (ROADMAP.md Queue 1, item 8)")
         if key == "dense_blocks":
             for name, leaf in _flatten(sub):
-                arr = np.asarray(leaf)
+                arr = _as_tensor(leaf)
                 if arr.shape[0] != cfg.n_dense_layers:
                     raise ValueError(f"dense_blocks.{name} stacks {arr.shape[0]} "
                                      f"layers, config has {cfg.n_dense_layers}")
                 for i in range(cfg.n_dense_layers):
-                    out[f"dense_blocks.{i}.{name}"] = torch.tensor(arr[i])
+                    out[f"dense_blocks.{i}.{name}"] = arr[i].clone()
         elif isinstance(sub, dict):
             for name, leaf in _flatten(sub, key + "."):
-                out[name] = torch.tensor(np.asarray(leaf))
+                out[name] = _as_tensor(leaf)
         else:
-            out[key] = torch.tensor(np.asarray(sub))
+            out[key] = _as_tensor(sub)
     return out
+
+
+def _as_tensor(leaf) -> torch.Tensor:
+    """A CPU tensor copy of a numpy leaf (bf16 by its bits), or the tensor."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.tensor(arr)
+
+
+def _nest(flat: dict) -> dict:
+    """{"a.b.c": x} -> {"a": {"b": {"c": x}}}."""
+    out = {}
+    for name, leaf in flat.items():
+        *path, last = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return out
+
+
+def stack_layers(named: dict, cfg) -> dict:
+    """The port's per-layer names ({name: tensor}: a ``state_dict``, the
+    parameters or their gradients) -> the reference's tree: nested dicts by
+    path, each ``dense_blocks`` leaf stacked over the layers on axis 0
+    (``torch.stack``, a copy). The inverse of ``from_reference_params``."""
+    L = cfg.n_dense_layers
+    top, layers = {}, [dict() for _ in range(L)]
+    for name, leaf in named.items():
+        if name.startswith("dense_blocks."):
+            _, i, rest = name.split(".", 2)
+            layers[int(i)][rest] = leaf
+        else:
+            top[name] = leaf
+    tree = _nest(top)
+    if L:
+        if any(set(layer) != set(layers[0]) for layer in layers):
+            raise ValueError("dense_blocks layers hold different leaves")
+        tree["dense_blocks"] = _nest({
+            rest: torch.stack([layer[rest] for layer in layers])
+            for rest in layers[0]})
+    return tree
+
+
+def bind_reference_layout(model, cfg) -> dict:
+    """The model's parameters as the reference's tree, sharing storage:
+    each ``dense_blocks`` leaf becomes one (L, ...) tensor and every
+    layer's parameter is re-registered as a view of its slice; the other
+    leaves are the parameters themselves (detached aliases). A write into
+    the tree is a write into the model. The optimizer runs over this tree,
+    so that Adam moments (the int8 blocks too, which the reference forms
+    over the stacked leaf) have the reference's layout leaf for leaf. Bind
+    after the model has moved to its device: ``Module.to`` replaces the
+    storage."""
+    tree = stack_layers({n: p.detach() for n, p in model.named_parameters()},
+                        cfg)
+    for i, layer in enumerate(model.dense_blocks):
+        for rest, param in list(layer.named_parameters()):
+            stacked = tree["dense_blocks"]
+            for part in rest.split("."):
+                stacked = stacked[part]
+            owner_path, _, leaf = rest.rpartition(".")
+            setattr(layer.get_submodule(owner_path), leaf,
+                    nn.Parameter(stacked[i], requires_grad=param.requires_grad))
+    return tree
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items() if v is not None}
+    return fn(tree)
+
+
+def from_reference_train_state(state: dict, cfg) -> dict:
+    """The reference's train state ``{"params", "opt": {"mu", "step"}}``
+    (nested dicts of numpy arrays, as ``jax.tree.map(np.asarray, state)``
+    gives it; ``mu`` holds {"m", "v"} or int8 {"m_q", "m_s", "v_q",
+    "v_s"} a leaf) -> the port's: the same tree of CPU tensors, in the
+    reference's layout (``dense_blocks`` stacked, which is the layout the
+    port's optimizer runs over; ``from_reference_params(state["params"],
+    cfg)`` gives a model's ``state_dict``), ``step`` a 0-d int32 tensor.
+    Leaves are copied bit for bit; a dense_blocks leaf that does not stack
+    ``cfg``'s layer count is refused."""
+    out = _map_tree(state, _as_tensor)
+    _check_layers(out, cfg)
+    return out
+
+
+def to_reference_train_state(state: dict, cfg) -> dict:
+    """The port's train state (``{"params": a reference-layout tree, as
+    ``bind_reference_layout`` gives it, "opt": as ``train.adamw_init``
+    makes it}``) -> the reference's, as numpy leaves. A bf16 leaf comes
+    back as its uint16 bits, as checkpoint files hold it.
+    ``checkpoint.save`` of the port's state writes the same files."""
+    _check_layers(state, cfg)
+
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16).copy()
+        return t.numpy().copy()
+
+    return _map_tree({"params": state["params"], "opt": state["opt"]}, leaf)
+
+
+def _check_layers(state: dict, cfg) -> None:
+    """Every ``dense_blocks`` leaf of the parameters and moments stacks
+    ``cfg``'s layer count, but a flat int8 block list, which spans the
+    whole stack."""
+    for sub in (state["params"].get("dense_blocks"),
+                state["opt"]["mu"].get("dense_blocks")):
+        for name, leaf in _flatten(sub or {}):
+            flat_int8 = (leaf.ndim == 1 and name.rsplit(".", 1)[-1]
+                         in ("m_q", "m_s", "v_q", "v_s"))
+            if not flat_int8 and (leaf.ndim == 0
+                                  or leaf.shape[0] != cfg.n_dense_layers):
+                raise ValueError(f"dense_blocks.{name} of shape "
+                                 f"{tuple(leaf.shape)} does not stack "
+                                 f"{cfg.n_dense_layers} layers")

@@ -14,7 +14,10 @@ running sums are float32; with bf16 inputs p is rounded to bf16 before the
 p v product, as the reference rounds it.
 
 ``kernels.ops.flash_attention`` dispatches: a CUDA tensor launches the
-kernel, a CPU tensor runs the plain version.
+kernel, a CPU tensor runs the plain version. The kernel is forward only
+(as the reference's Pallas kernel has no VJP): on inputs that require a
+gradient, with grad mode on, it raises instead of returning an output
+that autograd cannot see through.
 """
 from __future__ import annotations
 
@@ -64,6 +67,12 @@ def flash_attention_plain(q, k, v, *, causal: bool, scale: float,
 
 def _check(q, k, v, kv_mask, window) -> None:
     """Refuse what the kernel does not take, naming the limit."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError(
+            "flash_attention kernel is forward only: its output would carry "
+            "no gradient back to q, k or v. Train through "
+            "models.attention.dense_or_chunked_attention (the reference's "
+            "differentiable rule), or call the kernel under torch.no_grad()")
     if window is not None:
         raise ValueError("flash_attention kernel has no sliding window "
                          f"(got window={window}); only full attention")

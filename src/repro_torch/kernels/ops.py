@@ -347,7 +347,9 @@ def flash_attention(q, k, v, *, causal: bool, scale=None, kv_mask=None,
     (B, Sq, H, dh) in q's dtype. GQA reads KV head h // (H // KV); masked
     scores are -1e30, so a fully masked row averages v. The kernel takes
     dh a multiple of 16 up to 256 and no ``window``, and raises otherwise;
-    the plain version takes both."""
+    the plain version takes both. The kernel is forward only: with grad
+    mode on and q, k or v requiring a gradient it raises a ValueError (the
+    training path takes ``models.attention.dense_or_chunked_attention``)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if kernel_path(q, use_kernel):

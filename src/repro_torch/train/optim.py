@@ -1,0 +1,223 @@
+"""AdamW with optional int8-blockwise moment state (port of
+``repro.train.optim``: functions over trees of tensors).
+
+A tree is nested dicts of tensors (None entries are empty subtrees); its
+leaves are taken in the reference's order, dict keys sorted. The formula
+and its order of operations are the reference's:
+
+    m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
+    upd = (m / c1) / (sqrt(v / c2) + eps),  c1 = 1 - b1^t, c2 = 1 - b2^t
+    p <- p - lr (upd + wd p)
+
+with t the step after this update and c1, c2, the schedule and lr in
+float32. fp32 Adam state is 8 bytes a parameter; the int8 path stores both
+moments as int8 codes with one float32 scale a block of 128 (about 2.06
+bytes a parameter), v in the sqrt domain, the blockwise scheme of
+bitsandbytes [arXiv:2110.02861]. A leaf whose last dim is a multiple of
+128 keeps its shape (blocks along the last dim); any other leaf is
+flattened and zero-padded to a multiple of 128. ``torch.optim.AdamW``
+rounds in another order and has no int8 state, so it is not this
+function.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+BLOCK = 128
+
+
+# ---------------------------------------------------------------- trees
+
+
+def tree_paths(tree, prefix=()) -> list:
+    """[(path, leaf)] in the reference's flatten order (keys sorted, None
+    skipped). ``path`` is a tuple of keys."""
+    if tree is None:
+        return []
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    out = []
+    for key in sorted(tree):
+        out.extend(tree_paths(tree[key], prefix + (key,)))
+    return out
+
+
+def tree_get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def tree_build(pairs) -> dict:
+    """The inverse of ``tree_paths``: [(path, value)] -> nested dicts."""
+    out = {}
+    for path, value in pairs:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return out
+
+
+def tree_map(fn, tree) -> dict:
+    """fn(leaf) at each leaf of ``tree``."""
+    return tree_build((path, fn(leaf)) for path, leaf in tree_paths(tree))
+
+
+# ---------------------------------------------------------------- schedule
+
+
+def cosine_schedule(step, *, base_lr: float, warmup: int, total: int,
+                    min_ratio: float = 0.1) -> float:
+    """Linear warmup to ``base_lr`` over ``warmup`` steps, then cosine
+    decay to ``min_ratio * base_lr`` at ``total``; computed in float32 as
+    the reference computes it, returned as a Python float (exactly that
+    float32 value)."""
+    f32 = np.float32
+    step = f32(int(step))
+    warm = np.minimum(step / f32(max(warmup, 1)), f32(1.0))
+    t = np.clip((step - f32(warmup)) / f32(max(total - warmup, 1)),
+                f32(0.0), f32(1.0))
+    cos = f32(min_ratio) + f32(1 - min_ratio) * f32(0.5) * (
+        f32(1.0) + np.cos(f32(np.pi) * t))
+    return float(f32(base_lr) * warm * f32(cos))
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, a float32 0-d tensor on
+    the leaves' device (no host sync)."""
+    sums = [torch.sum(torch.square(leaf.float())) for _, leaf in tree_paths(tree)]
+    return torch.sqrt(torch.stack(sums).sum())
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    """(tree scaled by min(1, max_norm / max(norm, 1e-9)), norm)."""
+    n = global_norm(tree)
+    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
+    return tree_map(lambda leaf: (leaf * scale).to(leaf.dtype), tree), n
+
+
+# ---------------------------------------------------------------- int8 blocks
+
+
+def _q8(x):
+    """f32 (n,) padded to BLOCK -> (codes int8, scales f32 (n/BLOCK,))."""
+    xb = x.reshape(-1, BLOCK)
+    scale = torch.clamp(xb.abs().amax(dim=-1), min=1e-12) / 127.0
+    codes = torch.clamp(torch.round(xb / scale[:, None]), -127, 127)
+    return codes.to(torch.int8).reshape(-1), scale
+
+
+def _dq8(codes, scale):
+    return (codes.reshape(-1, BLOCK).float() * scale[:, None]).reshape(-1)
+
+
+def _pad_flat(x):
+    """(flat float32 zero-padded to a multiple of BLOCK, unpadded length)."""
+    flat = x.reshape(-1).float()
+    pad = (-flat.shape[0]) % BLOCK
+    return torch.nn.functional.pad(flat, (0, pad)), flat.shape[0]
+
+
+def _last_dim_blocks(shape) -> bool:
+    """Shape-preserving quantization applies when the last dim blocks
+    evenly (the reference keeps every leading dim, and its sharding)."""
+    return len(shape) >= 1 and shape[-1] % BLOCK == 0
+
+
+def _q8_nd(x):
+    """(..., D) f32 -> (codes int8 (..., D), scales f32 (..., D/BLOCK))."""
+    xb = x.reshape(x.shape[:-1] + (x.shape[-1] // BLOCK, BLOCK))
+    scale = torch.clamp(xb.abs().amax(dim=-1), min=1e-12) / 127.0
+    codes = torch.clamp(torch.round(xb / scale[..., None]), -127, 127)
+    return codes.to(torch.int8).reshape(x.shape), scale
+
+
+def _dq8_nd(codes, scale):
+    shape = codes.shape
+    xb = codes.reshape(shape[:-1] + (shape[-1] // BLOCK, BLOCK)).float()
+    return (xb * scale[..., None]).reshape(shape)
+
+
+# ---------------------------------------------------------------- AdamW
+
+
+def adamw_init(params, *, int8_state: bool = False) -> dict:
+    """{"mu": a tree like ``params`` of {"m", "v"} (float32) or {"m_q",
+    "m_s", "v_q", "v_s"} (int8), "step": 0-d int32 on the host}."""
+    def leaf(p):
+        zeros = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        if int8_state:
+            zc, zs = (_q8_nd(zeros) if _last_dim_blocks(p.shape)
+                      else _q8(_pad_flat(zeros)[0]))
+            return {"m_q": zc, "m_s": zs, "v_q": torch.zeros_like(zc),
+                    "v_s": zs.clone()}
+        return {"m": zeros, "v": torch.zeros_like(zeros)}
+    return {"mu": tree_map(leaf, params),
+            "step": torch.zeros((), dtype=torch.int32)}
+
+
+def adamw_update(grads, state, params, *, lr, b1: float = 0.9,
+                 b2: float = 0.95, eps: float = 1e-8,
+                 weight_decay: float = 0.01, int8_state: bool = False):
+    """Returns (new_params, new_state); nothing is written in place. A
+    None gradient is a zero one (the reference differentiates every leaf:
+    an unused one, like the encoder's ``lm_head``, gets zeros, so only
+    its weight decay moves it). ``lr`` a float (or 0-d tensor)."""
+    step = int(state["step"]) + 1
+    f32 = np.float32
+    c1 = float(f32(1.0) - f32(b1) ** f32(step))
+    c2 = float(f32(1.0) - f32(b2) ** f32(step))
+
+    def finish(upd, p):
+        p32 = p.float()
+        return (p32 - lr * (upd + weight_decay * p32)).to(p.dtype)
+
+    def leaf(p, g, s):
+        g32 = torch.zeros(p.shape, device=p.device) if g is None else g.float()
+        if not int8_state:
+            m = b1 * s["m"] + (1 - b1) * g32
+            v = b2 * s["v"] + (1 - b2) * torch.square(g32)
+            upd = (m / c1) / (torch.sqrt(v / c2) + eps)
+            return finish(upd, p), {"m": m, "v": v}
+        # v is quantized in the sqrt domain: linear absmax codes would round
+        # its small entries to 0 and explode the 1/(sqrt(v)+eps) step
+        if _last_dim_blocks(p.shape):
+            m = _dq8_nd(s["m_q"], s["m_s"])
+            v = torch.square(_dq8_nd(s["v_q"], s["v_s"]))
+            m = b1 * m + (1 - b1) * g32
+            v = b2 * v + (1 - b2) * torch.square(g32)
+            upd = (m / c1) / (torch.sqrt(v / c2) + eps)
+            mq, ms = _q8_nd(m)
+            vq, vs = _q8_nd(torch.sqrt(v))
+        else:
+            flat_g, n = _pad_flat(g32)
+            m = _dq8(s["m_q"], s["m_s"])
+            v = torch.square(_dq8(s["v_q"], s["v_s"]))
+            m = b1 * m + (1 - b1) * flat_g
+            v = b2 * v + (1 - b2) * torch.square(flat_g)
+            upd = ((m / c1) / (torch.sqrt(v / c2) + eps))[:n].reshape(p.shape)
+            mq, ms = _q8(m)
+            vq, vs = _q8(torch.sqrt(v))
+        return finish(upd, p), {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}
+
+    out = [(path, leaf(p, tree_get(grads, path), tree_get(state["mu"], path)))
+           for path, p in tree_paths(params)]
+    new_params = tree_build((path, o[0]) for path, o in out)
+    new_mu = tree_build((path, o[1]) for path, o in out)
+    return new_params, {"mu": new_mu,
+                        "step": torch.tensor(step, dtype=torch.int32)}
+
+
+def adam_state_bytes(n_params: int, int8: bool) -> int:
+    """Planning helper: the moments' bytes for ``n_params`` parameters."""
+    if int8:
+        return int(n_params * (2 + 8 / BLOCK))  # 2 int8 codes + 2 f32/BLOCK scales
+    return n_params * 8
+
+
+def state_bytes(opt: dict) -> int:
+    """The bytes the moments of ``adamw_init``'s state actually hold
+    (padding of the flat int8 leaves included)."""
+    return sum(t.numel() * t.element_size() for _, t in tree_paths(opt["mu"]))

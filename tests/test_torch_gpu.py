@@ -1229,3 +1229,137 @@ def test_mesh_fronts_launch_each_shards_kernels(shape):
         ivf.codes_bm, ivf.bucket_ids, visit, luts, coarse, mesh=mesh, k=10,
         steps_per_probe=ivf.spp, blocks_per_shard=ivf.blocks_per_shard,
         use_kernel=False))
+
+
+# ------------------------------------------------------ training
+def _train_batch(cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    out = {}
+    for side in ("q", "p"):
+        tok = rng.integers(2, cfg.vocab_size, size=(B, S))
+        mask = np.arange(S)[None, :] < rng.integers(1, S + 1, size=B)[:, None]
+        out[f"{side}_tokens"] = torch.tensor(np.where(mask, tok, 0))
+        out[f"{side}_mask"] = torch.tensor(mask)
+    return out
+
+
+def test_flash_attention_refuses_grad_inputs_on_the_card():
+    """The forward-only kernel raises on inputs that need a gradient under
+    grad mode, and launches under no_grad."""
+    dev = _card()
+    q = torch.randn(2, 16, 4, 64, device=dev, requires_grad=True)
+    k, v = torch.randn(2, 16, 4, 64, device=dev), torch.randn(2, 16, 4, 64, device=dev)
+    with pytest.raises(ValueError, match="forward only"):
+        ops.flash_attention(q, k, v, causal=False)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        ops.flash_attention(q, k, v, causal=False)
+    assert ops.launch_counts()["flash_attention"] == 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_contrastive_grads_on_the_card_match_cpu(dtype):
+    """One contrastive step from one seeded state on the card and on the
+    CPU: float32 within 1e-5 (loss, relative) and 1e-4 x max|g| a leaf;
+    bf16 within 2e-2 and cosine >= 0.99; lm_head zero; training never
+    launches the attention kernel, serving the trained tower does."""
+    import dataclasses
+
+    from repro_torch.configs import thistle_sbert
+    from repro_torch.models import encoder
+    from repro_torch.train.accum import value_and_grad
+    dev = _card()
+    cfg = dataclasses.replace(thistle_sbert.SMOKE, dtype=dtype)
+    batch = _train_batch(cfg, 8, 64, seed=0)
+    out = []
+    ops.reset_launch_counts()
+    for d in (dev, torch.device("cpu")):
+        model = encoder.init(cfg, torch.Generator().manual_seed(0), device=d,
+                             trainable=True)
+        (loss, _), grads = value_and_grad(
+            lambda m, b: encoder.contrastive_loss(m, cfg, b), model,
+            {k: v.to(d) for k, v in batch.items()})
+        out.append((float(loss), {k: g.cpu() for k, g in grads.items()}))
+    assert ops.launch_counts()["flash_attention"] == 0
+    (lg, gg), (lc, gc) = out
+    assert lg == pytest.approx(lc, rel=1e-5 if dtype == "float32" else 2e-2)
+    for name, c in gc.items():
+        g, scale = gg[name], float(c.abs().max())
+        if name.startswith("lm_head"):
+            assert scale == 0 and not torch.any(g)
+        elif dtype == "float32":
+            assert float((g - c).abs().max()) <= 1e-4 * scale, name
+        elif scale:
+            cos = float((g.double() * c.double()).sum()
+                        / g.double().norm() / c.double().norm())
+            assert cos >= 0.99, (name, cos)
+    model = encoder.init(cfg, torch.Generator().manual_seed(0), device=dev,
+                         trainable=True)
+    encoder.encode(model, cfg, batch["q_tokens"].to(dev), batch["q_mask"].to(dev))
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_restart_replays_bit_for_bit_on_the_card(int8, tmp_path, monkeypatch):
+    """Failures at steps 5 and 9, checkpoints every 4: the restored run's
+    parameters and moments equal an uninterrupted run's, bit for bit, with
+    deterministic algorithms on (the embedding's backward sums with
+    atomics otherwise)."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.configs import thistle_sbert
+    from repro_torch.data.marco import MarcoLike
+    from repro_torch.ft import FailureInjector, Supervisor
+    from repro_torch.train.optim import tree_get, tree_paths
+    from repro_torch.train.sbert import SbertJob
+    dev = _card()
+    cfg = thistle_sbert.SMOKE
+    data = MarcoLike(n_passages=200, vocab_size=cfg.vocab_size, noise=0.25,
+                     passage_len=24, seed=0)
+    kw = dict(lr=3e-3, total_steps=12, device=dev, log_every=0, int8_state=int8)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = SbertJob(cfg, data, 16, **kw)
+        for s in range(12):
+            plain.run_step(s)
+        job = SbertJob(cfg, data, 16, injector=FailureInjector(fail_at=[5, 9]),
+                       **kw)
+        store = CheckpointStore(str(tmp_path), keep=2)
+        out = Supervisor(job, store, total_steps=12, checkpoint_every=4).run()
+        store.wait()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert out["final_step"] == 12 and out["n_retries"] == 2
+    for path, x in tree_paths(job.state):
+        assert torch.equal(x, tree_get(plain.state, path)), path
+
+
+def test_int8_adam_on_the_card_matches_cpu():
+    """AdamW with int8 state, fed the same grads on the card and the CPU:
+    codes equal in 99.99 % of entries and within 1, scales within 1e-6."""
+    from repro_torch.train.optim import adamw_init, adamw_update, tree_paths
+    dev = _card()
+    gen = torch.Generator().manual_seed(0)
+    shapes = {"flat": (37, 5), "rows": (6, 512), "stack": (2, 64, 4, 16)}
+    params = {k: torch.randn(s, generator=gen) for k, s in shapes.items()}
+    grads = [{k: torch.randn(s, generator=gen) * 1e-2 for k, s in shapes.items()}
+             for _ in range(3)]
+    states = {}
+    for d in (dev, torch.device("cpu")):
+        p = {k: v.to(d) for k, v in params.items()}
+        st = adamw_init(p, int8_state=True)
+        for g in grads:
+            p, st = adamw_update({k: v.to(d) for k, v in g.items()}, st, p,
+                                 lr=1e-2, int8_state=True)
+        states[d.type] = st
+    n = same = 0
+    for (path, a), (_, b) in zip(tree_paths(states["cuda"]["mu"]),
+                                 tree_paths(states["cpu"]["mu"])):
+        a = a.cpu()
+        if path[-1].endswith("_q"):
+            diff = (a.int() - b.int()).abs()
+            assert int(diff.max()) <= 1, path
+            n, same = n + diff.numel(), same + int((diff == 0).sum())
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
+    assert same >= 0.9999 * n
