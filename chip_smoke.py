@@ -51,7 +51,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      float32 on the reference's FLASH_CASES, the encoder's shapes (B = 32, H = 12,
      dh = 64, S in {64, 128, 512}) with ragged key-padding masks and one
      fully masked row, GQA (H = 8, KV = 2) and dh = 80 at a ragged S = 200,
-     causal and not, within the reference's 2e-5 / 2e-2;
+     causal and not, and the sliding window (W in {1, 17, 64, S - 1, 100,
+     4,096} on ragged S, causal and not, with ragged masks and a padded
+     hole that leaves rows fully masked inside their window; danube's
+     heads 32/8 at dh 80, MLA's 16 at dh 192), within the reference's
+     2e-5 / 2e-2;
   4. main path at full size on the MS MARCO v1 passage count (8,841,823
      rows) of d = 768 cosine embeddings, clustered synthetic data made on
      the card from ``--seed``: ``VectorDB("flat")``, then
@@ -217,7 +221,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      p50/p99 at Q = 1, 32, 512 for each engine and mesh;
  10. training at full width (examples/train_sbert.py --preset full's
      settings: MarcoLike 2,000 passages at seq 24, batch 64, lr 3e-4 with
-     warmup 20 and cosine decay, clip 1.0, weight decay 0.01, 300 steps,
+     warmup 20 and cosine decay, clip 1.0, weight decay 0.01, 200 steps
+     (the example's 300 cut to keep the script inside its time limit),
      a checkpoint every 50 in ``--snapshot-dir``): one contrastive_loss
      step's gradients at B = 8 on the card against the CPU from one seeded
      state, in bf16 and in a float32 copy of the config (the CPU tests'
@@ -239,8 +244,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      n_micro = 4 against n_micro = 1 (a per-pair loss, float32 copy) and
      against the four quarters' mean (the contrastive loss), rtol 1e-4 /
      atol 1e-5;
- 11. a JSON line of the kernels (phases 9 and 10's launches added), then
-     the result line.
+ 11. LM serving at full width with seeded weights on the card:
+     h2o-danube-1.8b FULL (GQA 32/8, dh 80, window 4,096, float32
+     parameters): prefill at B = 2, S = 8,192 (the kernel's window and
+     tile skip; the cache rolled into a ring of 4,096), a 4,000-token
+     prompt at B = 2 greedily decoded for 160 steps (the ring wraps), and
+     ``embed_pooled`` on a padded batch (lengths 5,120 to 1); then
+     deepseek-v2-lite-16b FULL with bf16 parameters (MLA through the
+     kernel at dh 192, 64 experts top-6 + 2 shared): prefill at B = 4,
+     S = 1,024 and 32 greedy steps. Each: prefill seconds and tokens/s,
+     decode step p50 / p99 and tokens/s, the cache's bytes, peak GB, the
+     MoE's dropped_frac, ``flash_attention``'s launches and its time at
+     the prefill's shape beside its bound, its plain version's and
+     ``F.scaled_dot_product_attention``'s (a boolean mask, k and v
+     repeated for GQA), one prefill's and one decode step's device time
+     by the profiler. Gates: the last-token logits through the kernel
+     against the plain attention (row cosine >= 0.999; danube's
+     ``embed_pooled`` too), decode at S after prefill(S) against
+     prefill(S + 1) (>= 0.99), two greedy runs equal, and the kernel at
+     the phase's shapes against its plain version (2e-2). The seeded
+     v2-lite routes its tokens alike and drops most assignments at its
+     capacity factor, where one changed choice moves every later token's
+     slot: its two comparisons are printed there and at the dropless
+     capacity (C = t) in bf16, with the tokens that change expert between
+     kernel and plain attention counted; its gates hold the dropless
+     capacity, the kernel one with float32 activations;
+ 12. a JSON line of the kernels (phases 9, 10 and 11's launches added),
+     then the result line.
 
 It needs one CUDA card and the repository's ``src/`` beside it, and it
 imports nothing of the JAX package.
@@ -315,6 +345,26 @@ FLASH_MID_CASES = (
     # dh = 80 at a ragged S
     (4, 200, 200, 4, 4, 80, False, True),
     (4, 200, 200, 4, 4, 80, True, True),
+)
+FLASH_WINDOW_CASES = (
+    # (B, S, H, KV, dh, causal, window, mask): "ragged" lengths 1..S with
+    # the last row empty, or a "hole" (keys S/3..2S/3 padded in every row:
+    # a causal row whose window lies in it is fully masked there)
+    (2, 200, 4, 2, 64, True, 1, "ragged"),
+    (2, 200, 4, 2, 64, False, 1, "ragged"),
+    (2, 333, 4, 4, 64, True, 17, "hole"),
+    (2, 333, 4, 4, 64, False, 17, "hole"),
+    (3, 257, 2, 1, 32, True, 64, "ragged"),
+    (3, 257, 2, 1, 32, False, 64, "hole"),
+    (2, 130, 2, 2, 16, True, 129, "hole"),
+    (2, 130, 2, 2, 16, False, 129, "ragged"),
+    # h2o-danube's heads (GQA 32/8, dh 80), its window at a ragged S past it
+    (2, 520, 32, 8, 80, True, 64, "hole"),
+    (1, 4500, 32, 8, 80, True, 4096, "ragged"),
+    # MLA's heads (16, dh 192: qk_nope 128 + qk_rope 64, v padded)
+    (2, 520, 16, 16, 192, True, None, "ragged"),
+    (2, 520, 16, 16, 192, True, 100, "hole"),
+    (2, 333, 16, 16, 192, False, None, "hole"),
 )
 TEXT_PASSAGES = 131_072      # MarcoLike passages of the text phase
 TEXT_SEQ = 64                # tokens a text
@@ -1144,14 +1194,23 @@ def ragged_mask(gen, B: int, S: int, device, empty_row: bool = True):
     return torch.arange(S, device=device)[None, :] < lengths[:, None]
 
 
-def compare_flash(q, k, v, mask, causal: bool, label: str) -> float:
+def hole_mask(B: int, S: int, device):
+    """(B, S) key-padding mask with keys S/3..2S/3 padded in every row."""
+    import torch
+    pos = torch.arange(S, device=device)
+    return ((pos < S // 3) | (pos >= 2 * S // 3))[None].repeat(B, 1)
+
+
+def compare_flash(q, k, v, mask, causal: bool, label: str,
+                  window=None) -> float:
     """flash_attention's kernel against its plain version: |kernel - plain|
     <= tol + tol * |plain| elementwise at the reference's tolerance for the
     dtype. Returns the largest |difference|."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
                                                      flash_attention_plain)
-    kw = dict(causal=causal, scale=q.shape[-1] ** -0.5, kv_mask=mask)
+    kw = dict(causal=causal, scale=q.shape[-1] ** -0.5, kv_mask=mask,
+              window=window)
     got = flash_attention_cuda(q, k, v, **kw).float()
     want = flash_attention_plain(q, k, v, **kw).float()
     torch.cuda.synchronize()
@@ -1167,8 +1226,8 @@ def compare_flash(q, k, v, mask, causal: bool, label: str) -> float:
 
 
 def flash_mid(seed: int, device) -> None:
-    """flash_attention against its plain version on FLASH_MID_CASES, in
-    bf16 and float32."""
+    """flash_attention against its plain version on FLASH_MID_CASES and
+    FLASH_WINDOW_CASES, in bf16 and float32."""
     import torch
     gen = torch.Generator(device=device).manual_seed(seed + 3)
     for B, Sq, Sk, H, KV, dh, causal, masked in FLASH_MID_CASES:
@@ -1181,6 +1240,17 @@ def flash_mid(seed: int, device) -> None:
                           f"flash_attention {str(dtype)[6:]} B={B} Sq={Sq} "
                           f"Sk={Sk} H={H} KV={KV} dh={dh} causal={causal} "
                           f"mask={'ragged+empty' if masked else 'none'}")
+    for B, S, H, KV, dh, causal, window, kind in FLASH_WINDOW_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(B, S, H, dh, generator=gen, device=device).to(dtype)
+            k = torch.randn(B, S, KV, dh, generator=gen, device=device).to(dtype)
+            v = torch.randn(B, S, KV, dh, generator=gen, device=device).to(dtype)
+            mask = (ragged_mask(gen, B, S, device) if kind == "ragged"
+                    else hole_mask(B, S, device))
+            compare_flash(q, k, v, mask, causal,
+                          f"flash_attention {str(dtype)[6:]} B={B} S={S} H={H} "
+                          f"KV={KV} dh={dh} causal={causal} window={window} "
+                          f"mask={kind}", window=window)
     torch.cuda.empty_cache()
 
 
@@ -4564,7 +4634,8 @@ def phase_mesh(n: int, seed: int, device, rank: int, rates: dict) -> dict:
 TRAIN_PASSAGES = 2000        # examples/train_sbert.py --preset full's data
 TRAIN_BATCH = 64
 TRAIN_SEQ = 24
-TRAIN_STEPS = 300
+TRAIN_STEPS = 200            # the example runs 300; cut to keep the whole
+                             # script well inside its time limit
 TRAIN_CKPT_EVERY = 50
 TRAIN_FAILS = (75, 180)
 TRAIN_INT8_STEPS = 100       # the loss rises through the warmup (steps
@@ -4733,7 +4804,7 @@ def accumulation_checks(job, batch_fn, device) -> None:
 
 def phase_train(seed: int, device, snap_root: str) -> dict:
     """Phase 10: examples/train_sbert.py --preset full on the card:
-    thistle-sbert FULL trained 300 steps under the supervisor with two
+    thistle-sbert FULL trained TRAIN_STEPS steps under the supervisor with two
     injected failures, against an uninterrupted run; retrieval before and
     after through the kernels; int8 Adam state; accumulation. Returns
     {kernel: launches on the retrieval path} and the phase's numbers."""
@@ -4883,6 +4954,453 @@ def phase_train(seed: int, device, snap_root: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 11
+LM_COS_KERNEL = 0.999       # kernel against plain attention, as phase 5
+LM_COS_DECODE = 0.99        # decode at S against prefill(S + 1)
+DANUBE_PREFILL = (2, 8192)  # (B, S): twice the window
+DANUBE_PROMPT = (2, 4000)   # decoded past the window: the ring wraps
+DANUBE_NEW = 160
+DANUBE_EMBED = (5120, 4300, 700, 1)  # embed_pooled's lengths, S past the window
+V2_PREFILL = (4, 1024)
+V2_NEW = 32
+
+
+def attention_pairs(S: int, causal: bool, window) -> int:
+    """(query, key) pairs a head scores at S under causal and the window."""
+    import numpy as np
+    i = np.arange(S)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros(S, np.int64)
+    hi = i + 1 if causal else np.full(S, S)
+    return int((hi - lo).sum())
+
+
+def lm_flash_bound(B, S, H, KV, dh, causal, window) -> tuple:
+    """Least time of one bf16 call: q, k, v read and o written once, against
+    4 dh operations a live (query, key) pair and head on the tensor cores."""
+    return bound_ms(2 * (2 * B * S * H * dh + 2 * B * S * KV * dh),
+                    4.0 * dh * attention_pairs(S, causal, window) * H * B,
+                    BF16_OPS_PER_S)
+
+
+def lm_flash(gen, B, S, H, KV, dh, window, device, label: str) -> dict:
+    """flash_attention at one of phase 11's shapes (bf16, causal, the
+    model's window): the kernel against its plain version, the plain
+    version run a (sequence, KV head) at a time so that its (S, S) scores
+    fit beside the card's other tensors, its time over those pieces, the
+    kernel's, the bound, and F.scaled_dot_product_attention's with a
+    boolean causal/window mask and k, v repeated for GQA (a yardstick)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    q = torch.randn(B, S, H, dh, generator=gen, device=device).to(torch.bfloat16)
+    k = torch.randn(B, S, KV, dh, generator=gen, device=device).to(torch.bfloat16)
+    v = torch.randn(B, S, KV, dh, generator=gen, device=device).to(torch.bfloat16)
+    kw = dict(causal=True, scale=dh ** -0.5, window=window)
+    rep = H // KV
+    pieces = [(b, g) for b in range(B) for g in range(KV)]
+
+    def plain():
+        out = torch.empty_like(q)
+        for b, g in pieces:
+            out[b:b + 1, :, g * rep:(g + 1) * rep] = flash_attention_plain(
+                q[b:b + 1, :, g * rep:(g + 1) * rep], k[b:b + 1, :, g:g + 1],
+                v[b:b + 1, :, g:g + 1], **kw)
+        return out
+
+    got = flash_attention_cuda(q, k, v, **kw).float()
+    want = plain().float()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    tol = FLASH_TOL["bfloat16"]
+    if not (bool((err <= tol + tol * want.abs()).all())
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"{label}: kernel and plain version differ")
+    del got, want
+    ms = gpu_ms(lambda: flash_attention_cuda(q, k, v, **kw), 10)
+    plain_ms = gpu_ms(plain, 1)
+    i = torch.arange(S, device=device)
+    keep = i[:, None] >= i[None, :]
+    if window:
+        keep &= i[:, None] - i[None, :] < window
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(rep, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(rep, dim=2).transpose(1, 2)
+    lib_ms = gpu_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=keep, scale=dh ** -0.5), 10)
+    b = lm_flash_bound(B, S, H, KV, dh, True, window)
+    log(f"  flash_attention at {label} B={B} S={S} H={H} KV={KV} dh={dh} "
+        f"causal window={window}: max |do| {float(err.max()):.3e} (bound "
+        f"{tol} + {tol} |o|); kernel {ms:.4f} ms (bound {b[0]:.4f} ms, "
+        f"{b[1]}; {attention_pairs(S, True, window)} live pairs a head), "
+        f"plain {plain_ms:.4f} ms ({len(pieces)} pieces), "
+        f"F.scaled_dot_product_attention {lib_ms:.4f} ms")
+    return {"shape": f"{label}: B={B} S={S} H={H} KV={KV} dh={dh} bf16 causal "
+                     f"window={window}",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+            "library_ms": lib_ms, "max_abs_err": float(err.max())}
+
+
+def row_cosine(a, b):
+    """min over rows of the cosine of two (..., n) tensors, in float64."""
+    a = a.double().reshape(-1, a.shape[-1])
+    b = b.double().reshape(-1, b.shape[-1])
+    return float(((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min())
+
+
+def lm_gate(name: str, value: float, bound: float) -> None:
+    log(f"  {name}: min row cosine {value:.6f} (bound >= {bound})")
+    if not value >= bound:
+        raise AssertionError(f"{name}: {value:.6f} below {bound}")
+
+
+def lm_model(cfg, seed: int, device):
+    """The model with seeded weights, drawn on the card leaf by leaf."""
+    import torch
+    from repro_torch.models import transformer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.init(cfg, torch.Generator(device=device)
+                             .manual_seed(seed), device=device)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"  init: {time.perf_counter() - t0:.2f} s, {n} parameters "
+        f"({cfg.param_dtype}, {nbytes / 1e9:.2f} GB)")
+    return model
+
+
+def lm_prefill_timed(model, cfg, tokens, label: str):
+    """prefill twice (the first warms up); returns (logits, cache,
+    seconds of the second), host clock ending in a synchronize."""
+    import torch
+    from repro_torch.models import transformer
+    transformer.prefill(model, cfg, tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(model, cfg, tokens)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    B, S = tokens.shape
+    cache_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+    log(f"  prefill {label} B={B} S={S}: {secs:.4f} s, {B * S / secs:.1f} "
+        f"tokens/s; cache {cache_bytes / 1e9:.3f} GB "
+        f"({', '.join(f'{n} {tuple(c.shape)}' for n, c in cache.items())})")
+    if not (logits.shape == (B, 1, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"prefill {label}: bad logits")
+    return logits, cache, secs
+
+
+def lm_generate(model, cfg, tokens, n_new: int, max_len: int, device,
+                label: str) -> dict:
+    """Two greedy DecodeLoop runs (gate: the same tokens). The first times
+    each decode step (host clock around ``transformer.decode_step`` ending
+    in a synchronize): p50 / p99 ms and tokens/s at the batch; the cache's
+    bytes are read from the step's cache."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.serve import DecodeLoop
+    loop = DecodeLoop(model, cfg, max_len=max_len, device=device)
+    real = transformer.decode_step
+    times, seen = [], {}
+
+    def timed(params, cfg_, token, cache, pos):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(params, cfg_, token, cache, pos)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        seen["gb"] = sum(c.numel() * c.element_size()
+                         for c in cache.values()) / 1e9
+        seen["slots"] = next(iter(cache.values())).shape[2]
+        return out
+
+    transformer.decode_step = timed
+    try:
+        a = loop.generate(tokens, n_new=n_new)
+    finally:
+        transformer.decode_step = real
+    t0 = time.perf_counter()
+    b = loop.generate(tokens, n_new=n_new)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    B, S = tokens.shape
+    p50, p99 = percentile(times, 50), percentile(times, 99)
+    same = bool(torch.equal(a, b))
+    log(f"  DecodeLoop {label} B={B} from S={S}: {n_new} greedy tokens in "
+        f"{secs:.3f} s (prefill included); decode step p50 {p50 * 1e3:.3f} "
+        f"ms, p99 {p99 * 1e3:.3f} ms over {len(times)} steps, {B / p50:.1f} "
+        f"tokens/s at the p50; cache {seen['gb']:.3f} GB of {seen['slots']} "
+        f"slots; two runs equal: {same}; first row {a[0, :8].tolist()}...")
+    if not same or a.shape != (B, n_new):
+        raise AssertionError(f"DecodeLoop {label}: greedy runs differ")
+    if int(a.min()) < 0 or int(a.max()) >= cfg.vocab_size:
+        raise AssertionError(f"DecodeLoop {label}: token out of range")
+    return {"p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3,
+            "tokens_per_s": B / p50, "cache_gb": seen["gb"]}
+
+
+def lm_prefill_breakdown(model, cfg, tokens, label: str) -> dict:
+    """One prefill's device time by torch.profiler: every kernel's own
+    device us, summed, the kernel's share, and the top kernels."""
+    import torch
+    from repro_torch.models import transformer
+    us = device_us(lambda: transformer.prefill(model, cfg, tokens), reps=1)
+    busy = sum(us.values()) / 1e3
+    fa = sum(v for n, v in us.items() if "flash_attention" in n) / 1e3
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  one prefill {label}: device busy {busy:.3f} ms, flash_attention "
+        f"{fa:.3f} ms ({100 * fa / max(busy, 1e-9):.1f} %); top: "
+        + ", ".join(f"{n} {v / 1e3:.3f} ms" for n, v in top))
+    return {"prefill_device_ms": busy, "prefill_flash_ms": fa}
+
+
+def lm_decode_breakdown(model, cfg, tokens, label: str) -> dict:
+    """One decode step's device time by torch.profiler (every kernel's
+    own device us, summed) against its host time, after a prefill of
+    ``tokens`` with the cache grown by 8 slots."""
+    import torch
+    from repro_torch.models import transformer
+    B, S = tokens.shape
+    logits, cache = transformer.prefill(model, cfg, tokens)
+    cache = {n: transformer.pad_slots(c, S + 8) if cfg.window is None else c
+             for n, c in cache.items()}
+    tok = torch.argmax(logits[:, -1].float(), dim=-1)[:, None]
+    us = device_us(lambda: transformer.decode_step(model, cfg, tok, cache, S),
+                   reps=3)
+    host = gpu_ms(lambda: transformer.decode_step(model, cfg, tok, cache, S), 3)
+    busy = sum(us.values()) / 1e3
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:6]
+    log(f"  one decode step {label}: device busy {busy:.3f} ms of "
+        f"{host:.3f} ms (CUDA events around the call; the rest is the host "
+        f"queueing about {len(us)} distinct kernels); top: "
+        + ", ".join(f"{n} {v:.1f} us" for n, v in top))
+    return {"device_busy_ms": busy, "step_ms": host}
+
+
+def lm_decode_gate(model, cfg, tokens, label: str, gate: bool = True,
+                   **note) -> float:
+    """Gate: decode_step at position S after prefill(S) against
+    prefill(S + 1)'s last logits (the reference's own check; printed only
+    with gate=False)."""
+    from repro_torch.models import transformer
+    S = tokens.shape[1] - 1
+    full, _ = transformer.prefill(model, cfg, tokens)
+    _, cache = transformer.prefill(model, cfg, tokens[:, :S])
+    if cfg.window is None:  # grown, as DecodeLoop grows it
+        cache = {n: transformer.pad_slots(c, S + 8) for n, c in cache.items()}
+    dec, _ = transformer.decode_step(model, cfg, tokens[:, S:], cache, S)
+    cos = row_cosine(dec, full)
+    name = (f"{label}: decode at {S} after prefill({S}) against prefill("
+            f"{S + 1})" + "".join(f", {k} {v}" for k, v in note.items()))
+    if gate:
+        lm_gate(name, cos, LM_COS_DECODE)
+    else:
+        log(f"  {name}: min row cosine {cos:.6f} (printed, not gated)")
+    return cos
+
+
+def lm_kernel_gate(model, cfg, tokens, label: str, gate: bool = True,
+                   flips: bool = False) -> tuple:
+    """Gate: the last-token logits through the kernel against the same
+    prefill through the plain attention (printed only with gate=False).
+    With ``flips``, also the tokens whose set of k experts differs between
+    the two prefills, over all MoE layers (the router's choices recorded
+    by wrapping ``models.moe._routing``). Returns (cosine, flips)."""
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer
+    real = moe_lib._routing
+    runs = []
+
+    def spy(logits, m, score):
+        gates, idx = real(logits, m, score)
+        runs[-1].append(idx.sort(dim=-1).values)
+        return gates, idx
+
+    if flips:
+        moe_lib._routing = spy
+    try:
+        runs.append([])
+        got, _ = transformer.prefill(model, cfg, tokens)
+        runs.append([])
+        want, _ = transformer.prefill(model, cfg, tokens, use_kernel=False)
+    finally:
+        moe_lib._routing = real
+    cos = row_cosine(got, want)
+    name = (f"{label}: last-token logits through the kernel against the "
+            f"plain attention")
+    if gate:
+        lm_gate(name, cos, LM_COS_KERNEL)
+    else:
+        log(f"  {name}: min row cosine {cos:.6f} (printed, not gated)")
+    n = None
+    if flips:
+        per_layer = [int((a != b).any(dim=-1).sum())
+                     for a, b in zip(runs[0], runs[1])]
+        n = sum(per_layer)
+        log(f"  {label}: tokens routed to another expert set through the "
+            f"kernel than through the plain attention: {n} of "
+            f"{tokens.numel()} x {len(per_layer)} MoE layers (by layer: "
+            f"{per_layer})")
+    return cos, n
+
+
+def phase_lm(seed: int, device) -> dict:
+    """Phase 11: LM serving at full width. Returns {"launches":
+    flash_attention's launches on the phase's path, "models": per model,
+    its numbers and the kernel's at its shapes}."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import deepseek_v2_lite_16b, h2o_danube_1_8b
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.moe import group_shape
+    gen = torch.Generator(device=device).manual_seed(seed + 11)
+    out = {"launches": 0, "models": {}}
+
+    def tokens_of(cfg, B, S):
+        return torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device=device)
+
+    # ---- h2o-danube-1.8b FULL: GQA 32/8, dh 80, window 4,096
+    cfg = h2o_danube_1_8b.FULL
+    log(f"phase 11: LM serving, {cfg.name} FULL (layers {cfg.n_layers}, "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}x"
+        f"{cfg.head_dim}, window {cfg.window}, {cfg.param_dtype} parameters, "
+        f"{cfg.dtype} activations, seeded random weights)")
+    t_model = time.perf_counter()
+    model = lm_model(cfg, seed, device)
+    pre = tokens_of(cfg, *DANUBE_PREFILL)
+    prompt = tokens_of(cfg, *DANUBE_PROMPT)
+    B, S = DANUBE_PREFILL
+    lengths = torch.tensor(DANUBE_EMBED, device=device)
+    emb_mask = (torch.arange(max(DANUBE_EMBED), device=device)[None, :]
+                < lengths[:, None])
+    emb_tok = torch.where(emb_mask, tokens_of(cfg, len(DANUBE_EMBED),
+                                              max(DANUBE_EMBED)), 0)
+    ops.reset_launch_counts()
+    _, cache, secs = lm_prefill_timed(model, cfg, pre, "(twice the window)")
+    ring = all(c.shape[2] == cfg.window for c in cache.values())
+    del cache
+    dec = lm_generate(model, cfg, prompt, DANUBE_NEW, 2 * cfg.window, device,
+                      "(the ring wraps)")
+    pooled = transformer.embed_pooled(model, cfg, emb_tok, emb_mask)
+    n_fa = ops.launch_counts()["flash_attention"]
+    log(f"  launches on the danube path (prefill twice, the decode loop "
+        f"twice, embed_pooled): {ops.launch_counts()}; ring of "
+        f"{cfg.window} slots after the prefill: {ring}")
+    if n_fa <= 0 or not ring:
+        raise AssertionError("danube: flash_attention never launched, or the "
+                             "prefill's cache is no ring")
+    want = transformer.embed_pooled(model, cfg, emb_tok, emb_mask,
+                                    use_kernel=False)
+    lm_gate(f"danube embed_pooled B={len(DANUBE_EMBED)} S={max(DANUBE_EMBED)} "
+            f"lengths {DANUBE_EMBED} through the kernel against the plain "
+            f"attention", row_cosine(pooled, want), LM_COS_KERNEL)
+    kcos, _ = lm_kernel_gate(model, cfg, pre, f"danube B={B} S={S}")
+    dcos = lm_decode_gate(model, cfg, tokens_of(cfg, B, S + 1),
+                          f"danube B={B}")
+    dec.update(lm_decode_breakdown(model, cfg, prompt, "danube B=2 S=4000"))
+    dec.update(lm_prefill_breakdown(model, cfg, pre, "danube B=2 S=8192"))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    flash = lm_flash(gen, B, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                     cfg.window, device, "danube prefill")
+    log(f"  peak device memory {peak:.2f} GB; danube "
+        f"{time.perf_counter() - t_model:.1f} s")
+    out["launches"] += n_fa
+    out["models"]["h2o-danube-1.8b"] = {
+        "prefill_s": secs, "prefill_tokens_per_s": B * S / secs, **dec,
+        "peak_gb": peak, "launches": n_fa, "kernel_cos": kcos,
+        "decode_cos": dcos, "flash": flash}
+
+    # ---- deepseek-v2-lite-16b FULL, bf16 parameters: MLA, 64 experts top-6
+    cfg = dataclasses.replace(deepseek_v2_lite_16b.FULL,
+                              param_dtype="bfloat16")
+    log(f"phase 11: {cfg.name} FULL with bf16 parameters (layers "
+        f"{cfg.n_layers}, d_model {cfg.d_model}, MLA heads {cfg.n_heads}, "
+        f"kv_lora {cfg.mla.kv_lora_rank}, {cfg.moe.n_routed} experts top-"
+        f"{cfg.moe.top_k} + {cfg.moe.n_shared} shared, first "
+        f"{cfg.first_k_dense} dense; {cfg.n_params()} parameters)")
+    t_model = time.perf_counter()
+    model = lm_model(cfg, seed, device)
+    B, S = V2_PREFILL
+    pre = tokens_of(cfg, B, S)
+    ops.reset_launch_counts()
+    _, cache, secs = lm_prefill_timed(model, cfg, pre, "")
+    del cache
+    dec = lm_generate(model, cfg, pre, V2_NEW, S + V2_NEW, device, "")
+    n_fa = ops.launch_counts()["flash_attention"]
+    log(f"  launches on the deepseek-v2-lite path (prefill twice, the "
+        f"decode loop twice): {ops.launch_counts()}")
+    if n_fa <= 0:
+        raise AssertionError("v2-lite: flash_attention never launched")
+    _, aux = transformer.forward(model, cfg, pre)
+    dropped = float(aux["dropped_frac"])
+    G, t, C = group_shape(B * S, cfg.moe)
+    log(f"  MoE at the prefill: {G} groups of {t} tokens, C = {C}, "
+        f"dropped_frac {dropped:.6f} (mean over {cfg.n_moe_layers} MoE "
+        f"layers)")
+    # At the config's capacity factor (1.25) the seeded model drops most
+    # assignments: its tokens' hidden states are alike, so they choose
+    # alike and saturate the experts they choose. At saturation one token
+    # that changes expert moves every later token's queue slot, so a
+    # bf16 ulp anywhere (kernel against plain attention; prefill(S + 1)'s
+    # last token, which sits at the end of a full group, against a
+    # dropless decode step) changes which assignments are dropped. Even
+    # dropless, a bf16 ulp sends tokens at a near-tie of their 6th and 7th
+    # router scores to another expert (counted below). These comparisons
+    # are printed; the gates hold the same weights served at the capacity
+    # factor that drops nothing (C = t, cf = E / k), the regime in which
+    # the reference's own decode check holds (its SMOKE configs set cf 8
+    # to stay dropless), and hold the kernel against the plain attention
+    # with float32 activations, where the two agree to float32 rounding
+    # and no token changes expert.
+    longer = tokens_of(cfg, B, S + 1)
+    _, aux1 = transformer.forward(model, cfg, longer)
+    lm_kernel_gate(model, cfg, pre, f"v2-lite B={B} S={S} at cf "
+                   f"{cfg.moe.capacity_factor}", gate=False)
+    lm_decode_gate(model, cfg, longer, f"v2-lite B={B} at cf "
+                   f"{cfg.moe.capacity_factor}", gate=False,
+                   dropped_frac_of_the_longer_prefill=round(
+                       float(aux1["dropped_frac"]), 6))
+    dropless = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_routed / cfg.moe.top_k))
+    _, aux0 = transformer.forward(model, dropless, pre)
+    log(f"  dropless serving (cf {dropless.moe.capacity_factor:.4f}, C = "
+        f"{group_shape(B * S, dropless.moe)[2]}): dropped_frac "
+        f"{float(aux0['dropped_frac']):.6f}")
+    lm_kernel_gate(model, dropless, pre, f"v2-lite B={B} S={S} dropless",
+                   gate=False, flips=True)
+    kcos, flips32 = lm_kernel_gate(
+        model, dataclasses.replace(dropless, dtype="float32"), pre,
+        f"v2-lite B={B} S={S} dropless, float32 activations", flips=True)
+    dcos = lm_decode_gate(model, dropless, longer, f"v2-lite B={B} dropless")
+    dec.update(lm_decode_breakdown(model, cfg, pre, "v2-lite B=4 S=1024"))
+    dec.update(lm_prefill_breakdown(model, cfg, pre, "v2-lite B=4 S=1024"))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    m = cfg.mla
+    flash = lm_flash(gen, B, S, cfg.n_heads, cfg.n_heads,
+                     m.qk_nope_dim + m.qk_rope_dim, None, device,
+                     "v2-lite prefill (MLA)")
+    log(f"  peak device memory {peak:.2f} GB; v2-lite "
+        f"{time.perf_counter() - t_model:.1f} s")
+    out["launches"] += n_fa
+    out["models"]["deepseek-v2-lite-16b"] = {
+        "prefill_s": secs, "prefill_tokens_per_s": B * S / secs, **dec,
+        "peak_gb": peak, "launches": n_fa, "kernel_cos": kcos,
+        "decode_cos": dcos, "dropped_frac": dropped,
+        "dropped_frac_dropless": float(aux0["dropped_frac"]),
+        "routing_flips_float32": flips32, "flash": flash}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=MARCO_PASSAGES,
@@ -4967,6 +5485,17 @@ def main(argv=None) -> int:
             entry["train_phase"] = {"launches": n_p10}
     log("phase 10 summary: " + json.dumps(
         {k: v for k, v in train.items() if k != "launches"}, default=str))
+    t0 = time.perf_counter()
+    lm = phase_lm(args.seed, device)
+    for entry in kernels:
+        if entry["name"] == "flash_attention":
+            entry["launches"] += lm["launches"]
+            shapes = [m["flash"] for m in lm["models"].values()]
+            entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                       + [f["max_abs_err"] for f in shapes])
+            entry["lm_phase"] = {"launches": lm["launches"], "shapes": shapes}
+    log("phase 11 summary: " + json.dumps(lm["models"], default=str))
+    log(f"[phase 11: {time.perf_counter() - t0:.1f} s]")
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

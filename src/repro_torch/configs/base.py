@@ -2,7 +2,7 @@
 ``repro.configs.base``: ``MLAConfig``, ``MoEConfig``, ``LMConfig`` and
 ``EncoderConfig``, copied field for field so that a config compares equal
 to the reference's). The GNN and recsys configs come with their models
-(ROADMAP.md Queue 1, item 8); ``configs.registry`` lists every arch id.
+(ROADMAP.md Queue 1, item 9); ``configs.registry`` lists every arch id.
 """
 from __future__ import annotations
 

@@ -1,10 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution (port of
 ``repro.configs.registry``).
 
-Every arch id of the reference is listed with its family. The port has a
-config module for the encoder family only (``thistle-sbert``); ``get_arch``
-of an ``lm``, ``gnn`` or ``recsys`` id raises ``NotImplementedError``
-naming the ROADMAP item that brings its configs and models.
+Every arch id of the reference is listed with its family. The port has
+config modules for the encoder family (``thistle-sbert``) and the five
+``lm`` archs; ``get_arch`` of a ``gnn`` or ``recsys`` id raises
+``NotImplementedError`` naming the ROADMAP item that brings its configs
+and models.
 """
 from __future__ import annotations
 
@@ -26,11 +27,10 @@ _MODULES = {
     "thistle-sbert": ("thistle_sbert", "encoder"),
 }
 
-PORTED_FAMILIES = ("encoder",)
+PORTED_FAMILIES = ("encoder", "lm")
 # where each family's configs and models come (ROADMAP.md Queue 1)
-PENDING = {"lm": "ROADMAP.md Queue 1, item 8 (LM serving and the LM stack)",
-           "gnn": "ROADMAP.md Queue 1, item 8 (models/gnn.py)",
-           "recsys": "ROADMAP.md Queue 1, item 8 (models/recsys.py)"}
+PENDING = {"gnn": "ROADMAP.md Queue 1, item 9 (models/gnn.py)",
+           "recsys": "ROADMAP.md Queue 1, item 9 (models/recsys.py)"}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -117,32 +117,40 @@ def _flatten(tree, prefix=""):
             yield name, value
 
 
+def _stacks(cfg) -> dict:
+    """{stacked subtree: its layer count}: the reference's ``jax.vmap``
+    inits stack these leaves over axis 0."""
+    return {"dense_blocks": cfg.n_dense_layers,
+            "moe_blocks": cfg.n_moe_layers,
+            "mtp": cfg.mtp_depth}
+
+
 def from_reference_params(tree: dict, cfg) -> dict:
     """The reference transformer's (or encoder's) parameter tree, as nested
     dicts of numpy arrays (or tensors), -> the port's ``state_dict``.
 
     Names are the tree's paths joined by dots. The reference stacks the
-    ``dense_blocks`` leaves over layers on axis 0 (one ``jax.vmap`` init);
-    they become ``dense_blocks.<i>.<path>``, one entry a layer. Every leaf
+    ``dense_blocks``, ``moe_blocks`` and ``mtp`` leaves over their layers
+    on axis 0 (one ``jax.vmap`` init each); they become
+    ``<stack>.<i>.<path>``, one entry a layer (an MoE layer's expert axis
+    kept: ``moe_blocks.<i>.moe.experts.w_up`` is (E, d, f)). Every leaf
     keeps its layout ((d, h, dh) for ``wq``, (h, dh, d) for ``wo``) and
-    dtype, ``lm_head`` included. MoE blocks and the MTP head are refused,
-    as the port's ``init`` refuses them.
+    dtype, ``lm_head`` included.
     """
     out = {}
+    stacks = _stacks(cfg)
     for key, sub in tree.items():
         if sub is None:
             continue
-        if key in ("moe_blocks", "mtp"):
-            raise NotImplementedError(
-                f"{key} come with the LM stack (ROADMAP.md Queue 1, item 8)")
-        if key == "dense_blocks":
+        if key in stacks:
+            n = stacks[key]
             for name, leaf in _flatten(sub):
                 arr = _as_tensor(leaf)
-                if arr.shape[0] != cfg.n_dense_layers:
-                    raise ValueError(f"dense_blocks.{name} stacks {arr.shape[0]} "
-                                     f"layers, config has {cfg.n_dense_layers}")
-                for i in range(cfg.n_dense_layers):
-                    out[f"dense_blocks.{i}.{name}"] = arr[i].clone()
+                if arr.shape[0] != n:
+                    raise ValueError(f"{key}.{name} stacks {arr.shape[0]} "
+                                     f"layers, config has {n}")
+                for i in range(n):
+                    out[f"{key}.{i}.{name}"] = arr[i].clone()
         elif isinstance(sub, dict):
             for name, leaf in _flatten(sub, key + "."):
                 out[name] = _as_tensor(leaf)
@@ -176,23 +184,27 @@ def _nest(flat: dict) -> dict:
 def stack_layers(named: dict, cfg) -> dict:
     """The port's per-layer names ({name: tensor}: a ``state_dict``, the
     parameters or their gradients) -> the reference's tree: nested dicts by
-    path, each ``dense_blocks`` leaf stacked over the layers on axis 0
-    (``torch.stack``, a copy). The inverse of ``from_reference_params``."""
-    L = cfg.n_dense_layers
-    top, layers = {}, [dict() for _ in range(L)]
+    path, each ``dense_blocks``, ``moe_blocks`` and ``mtp`` leaf stacked
+    over its layers on axis 0 (``torch.stack``, a copy). The inverse of
+    ``from_reference_params``."""
+    stacks = _stacks(cfg)
+    top = {}
+    layers = {key: [dict() for _ in range(n)] for key, n in stacks.items()}
     for name, leaf in named.items():
-        if name.startswith("dense_blocks."):
+        key = name.split(".", 1)[0]
+        if key in stacks:
             _, i, rest = name.split(".", 2)
-            layers[int(i)][rest] = leaf
+            layers[key][int(i)][rest] = leaf
         else:
             top[name] = leaf
     tree = _nest(top)
-    if L:
-        if any(set(layer) != set(layers[0]) for layer in layers):
-            raise ValueError("dense_blocks layers hold different leaves")
-        tree["dense_blocks"] = _nest({
-            rest: torch.stack([layer[rest] for layer in layers])
-            for rest in layers[0]})
+    for key, stack in layers.items():
+        if not stack:
+            continue
+        if any(set(layer) != set(stack[0]) for layer in stack):
+            raise ValueError(f"{key} layers hold different leaves")
+        tree[key] = _nest({rest: torch.stack([layer[rest] for layer in stack])
+                           for rest in stack[0]})
     return tree
 
 
@@ -205,7 +217,13 @@ def bind_reference_layout(model, cfg) -> dict:
     so that Adam moments (the int8 blocks too, which the reference forms
     over the stacked leaf) have the reference's layout leaf for leaf. Bind
     after the model has moved to its device: ``Module.to`` replaces the
-    storage."""
+    storage. MoE blocks and the MTP head are refused: the LM's training,
+    which would update them, comes with ROADMAP.md Queue 1, item 9."""
+    if cfg.n_moe_layers or cfg.mtp_depth:
+        raise NotImplementedError(
+            "binding MoE blocks or the MTP head for training comes with LM "
+            "training (ROADMAP.md Queue 1, item 9: loss_fn, the MTP head's "
+            "loss and the lm family of launch/train.py)")
     tree = stack_layers({n: p.detach() for n, p in model.named_parameters()},
                         cfg)
     for i, layer in enumerate(model.dense_blocks):

@@ -1,28 +1,36 @@
-// Flash attention with a key-padding mask for Hopper (sm_90a).
+// Flash attention with a key-padding mask and a sliding window for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention.py
 // (flash_attention, body _flash_kernel) with its wrapper
 // src/repro/kernels/ops.py flash_attention, and computes what the
 // reference's attention core src/repro/models/attention.py
-// (_dense_attention, _chunked_attention) computes for the encoder:
+// (_dense_attention, _chunked_attention) computes for the encoder and for
+// every LM prefill:
 //
 //   o[b, i, h] = sum_j softmax_j(q[b, i, h] . k[b, j, h / rep] * scale) v[b, j, h / rep]
 //
 // over q (B, Sq, H, dh) and k, v (B, Sk, KV, dh), rep = H / KV (GQA by
 // indexing, no repeated copy), with a score set to -1e30 (the reference's
-// NEG_INF, not -inf) where kv_mask[b, j] is false or, causal, where j > i.
-// A fully masked row therefore averages v over all Sk keys, as the
-// reference's softmax of equal scores does, and never gives NaN. Keys past
-// Sk (the ragged last tile) take no part at all.
+// NEG_INF, not -inf) where kv_mask[b, j] is false, causal, where j > i, and
+// with a sliding window W > 0, where i - j >= W (attention.py:83-84 and
+// :128-129; the Pallas kernel has no window). A fully masked row therefore
+// averages v over all Sk keys, as the reference's softmax of equal scores
+// does, and never gives NaN. Keys past Sk (the ragged last tile) take no
+// part at all.
 //
 // The (Sq, Sk) scores never reach device memory: a block owns the query
 // rows of one (b, h), walks the keys in tiles of 64 staged in shared memory,
 // and keeps the online softmax's running max, denominator and output
-// accumulator in float32 registers (the TPU kernel's VMEM scratch). Under
-// causal the tiles strictly above the diagonal are skipped, as the TPU
-// kernel skips them; only when a row of the block has seen no unmasked key
-// by then (possible with kv_mask) does the block walk the rest, so that row
-// still averages over all Sk keys.
+// accumulator in float32 registers (the TPU kernel's VMEM scratch). A
+// block walks only its live tiles [lo, hi): under causal the tiles strictly
+// above the diagonal are skipped, as the TPU kernel skips them, and with a
+// window the tiles left of every row's window (lo: the tile of key
+// q0 - W + 1). Only when a row of the block has seen no unmasked key by
+// then (possible with kv_mask, or a window past Sk) does the block walk
+// the rest, tiles [0, lo) and then [hi, n_tiles), so that row still
+// averages over all Sk keys; for every other row those keys score -1e30
+// against a finite max and add nothing.
 //
 // bf16: warps of 16 rows (4 a block below Sq = 128, 8 from there); q.k^T
 // and p.v on mma.sync.m16n8k16 (bf16 in, float32 accumulate). The K/V
@@ -55,6 +63,27 @@ constexpr float kLog2e = 1.4426950408889634f;
 // Warps of a bf16 block, 16 query rows each: 8 from Sq = 128 on, so that a
 // staged K/V tile serves 128 rows, else 4.
 __host__ __device__ constexpr int bf16_warps(int Sq) { return Sq >= 128 ? 8 : 4; }
+
+// The walk over key tiles: the live tiles [lo, hi) first, then [0, lo),
+// then [hi, n_tiles). Step v of the walk reads tile tile_at(v).
+struct TileWalk {
+  int lo, hi, n_live;
+  __device__ __forceinline__ int tile_at(int v) const {
+    return v < n_live ? lo + v : v < hi ? v - n_live : v;
+  }
+};
+
+// The live tiles of the query rows [q0, q_last]: from the tile of key
+// q0 - window + 1 (window > 0) to the tile of key q_last (causal), else
+// every tile.
+__device__ __forceinline__ TileWalk tile_walk(int q0, int q_last, int n_tiles, int causal,
+                                              int window) {
+  TileWalk w;
+  w.hi = causal ? min(n_tiles, q_last / kTile + 1) : n_tiles;
+  w.lo = window > 0 ? min(w.hi, max(0, q0 - window + 1) / kTile) : 0;
+  w.n_live = w.hi - w.lo;
+  return w;
+}
 
 // key states staged beside each K/V tile
 constexpr unsigned char kPast = 0;    // j >= Sk: no part in the softmax
@@ -111,9 +140,9 @@ __device__ __forceinline__ void stage_key_states(unsigned char* state,
 
 // The score of (row i, key j) after masking, from the raw dot.
 __device__ __forceinline__ float masked_score(float dot, float scale, unsigned char st, int i,
-                                              int j, int causal) {
+                                              int j, int causal, int window) {
   if (st == kPast) return -INFINITY;
-  if (st == kMasked || (causal && j > i)) return kNegInf;
+  if (st == kMasked || (causal && j > i) || (window > 0 && i - j >= window)) return kNegInf;
   return dot * scale;
 }
 
@@ -189,7 +218,9 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // Fragments come from ldmatrix (x4 for Q and K, x4.trans for V); the Q
 // fragments are loaded into registers once, before the key loop, at
 // dh <= 128. Every k-step over DHMAX runs (columns past dh are zeros), and
-// the causal mask is compiled only into the CAUSAL kernels. A score is one
+// the causal mask is compiled only into the CAUSAL kernels; the window's
+// test runs only in tiles that reach left of a warp row's window. The ring
+// follows the walk (TileWalk): stage v % STAGES holds step v's tile. A score is one
 // FMA, dot * scale * log2 e plus its key's bias; exp2 of the shifted score
 // is one ex2.approx; the accumulator is rescaled only when a row max
 // moved.
@@ -198,7 +229,8 @@ __global__ void __launch_bounds__(NW * 32)
     flash_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          const unsigned char* __restrict__ kv_mask, __nv_bfloat16* __restrict__ out,
-                         int Sq, int Sk, int H, int KV, int dh, float scale_log2) {
+                         int Sq, int Sk, int H, int KV, int dh, int window,
+                         float scale_log2) {
   constexpr int NT = DHMAX / 8;  // 8-column tiles of the output
   constexpr int KC = DHMAX / 16;  // 16-wide k-steps over dh
   constexpr int BQ = 16 * NW;
@@ -231,8 +263,8 @@ __global__ void __launch_bounds__(NW * 32)
 
   // This thread's 16-byte chunks of a K (and V) tile, found once: chunk i
   // is (row, column) = (cp[i] >> 16, cp[i] & 0xffff); rows >= kTile mark
-  // none. Copying tile j into stage j % STAGES is then an add, a compare
-  // and a cp.async a chunk; keys past Sk are zero-filled.
+  // none. Copying tile j into a stage is then an add, a compare and a
+  // cp.async a chunk; keys past Sk are zero-filled.
   constexpr int kCopies = (kTile * (DHMAX / 8) + kThreads - 1) / kThreads;
   int cp[kCopies];
 #pragma unroll
@@ -243,9 +275,9 @@ __global__ void __launch_bounds__(NW * 32)
   }
   const size_t kv_base = (size_t)b * Sk * KV * dh + (size_t)kvh * dh;  // (b, 0, kvh, 0)
   const size_t kv_row = (size_t)KV * dh;
-  auto copy_tile = [&](int j) {
-    __nv_bfloat16* kd = Ks + (j % STAGES) * kTile * ld;
-    __nv_bfloat16* vd = Vs + (j % STAGES) * kTile * ld;
+  auto copy_tile = [&](int stage, int j) {
+    __nv_bfloat16* kd = Ks + stage * kTile * ld;
+    __nv_bfloat16* vd = Vs + stage * kTile * ld;
 #pragma unroll
     for (int i = 0; i < kCopies; ++i) {
       const int r = cp[i] >> 16, col = cp[i] & 0xffff;
@@ -267,13 +299,16 @@ __global__ void __launch_bounds__(NW * 32)
           make_uint4(0, 0, 0, 0);
     }
   }
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const TileWalk walk = tile_walk(q0, q_last, n_tiles, CAUSAL, window);
   copy_rows_async(Qs, ld, q, b, q0, BQ, Sq, H, h, dh, inv_chunks, tid, kThreads);
   cp_async_commit();
 #pragma unroll
-  for (int j = 0; j < STAGES - 1; ++j) {
-    if (j < n_tiles) {
-      copy_tile(j);
-      if (tid < kTile) kbias[j * kTile + tid] = key_bias(kv_mask, b, j * kTile + tid, Sk);
+  for (int v = 0; v < STAGES - 1; ++v) {
+    if (v < n_tiles) {
+      const int j = walk.tile_at(v);
+      copy_tile(v, j);
+      if (tid < kTile) kbias[v * kTile + tid] = key_bias(kv_mask, b, j * kTile + tid, Sk);
     }
     cp_async_commit();
   }
@@ -299,27 +334,30 @@ __global__ void __launch_bounds__(NW * 32)
   for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // l: this thread's part
 
-  const int q_last = min(q0 + BQ, Sq) - 1;
-  const int skip_from = CAUSAL ? min(n_tiles, q_last / kTile + 1) : n_tiles;
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    if (jt == skip_from) {
-      // past the diagonal: go on only for a row that has seen no unmasked key
+  // the window's test is needed where a tile reaches left of the window of
+  // the warp's last row
+  const int warp_last = q0 + warp * 16 + 15;
+  for (int vt = 0; vt < n_tiles; ++vt) {
+    if (vt == walk.n_live) {
+      // past the live tiles: go on only for a row that has seen no unmasked key
       const int empty = (row0 < Sq && m0 == kNegInf) || (row1 < Sq && m1 == kNegInf);
       if (!__syncthreads_or(empty)) break;
     }
-    const int k0 = jt * kTile;
-    cp_async_wait<STAGES - 2>();  // tile jt has landed
-    __syncthreads();              // for every thread; tile jt - 1 is read
-    const int nx = jt + STAGES - 1;
+    const int k0 = walk.tile_at(vt) * kTile;
+    cp_async_wait<STAGES - 2>();  // step vt's tile has landed
+    __syncthreads();              // for every thread; step vt - 1's is read
+    const int nx = vt + STAGES - 1;
     float next_bias = -INFINITY;
     if (nx < n_tiles) {
-      copy_tile(nx);
-      if (tid < kTile) next_bias = key_bias(kv_mask, b, nx * kTile + tid, Sk);
+      const int jn = walk.tile_at(nx);
+      copy_tile(nx % STAGES, jn);
+      if (tid < kTile) next_bias = key_bias(kv_mask, b, jn * kTile + tid, Sk);
     }
     cp_async_commit();
-    const __nv_bfloat16* Kb = Ks + (jt % STAGES) * kTile * ld;
-    const __nv_bfloat16* Vb = Vs + (jt % STAGES) * kTile * ld;
-    const float* kb = kbias + (jt % STAGES) * kTile;
+    const __nv_bfloat16* Kb = Ks + (vt % STAGES) * kTile * ld;
+    const __nv_bfloat16* Vb = Vs + (vt % STAGES) * kTile * ld;
+    const float* kb = kbias + (vt % STAGES) * kTile;
+    const bool win_tile = window > 0 && k0 + window <= warp_last;
 
     // scores of the warp's 16 rows against the 64 keys: 8 tiles of 16 x 8
     float s[8][4];
@@ -349,7 +387,7 @@ __global__ void __launch_bounds__(NW * 32)
 
     // masked scores in log2 units; under causal, keys past a row (but
     // before Sk) take NEG_INF, in the tiles that reach past the warp's
-    // first row
+    // first row, and so do keys left of a row's window
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
@@ -363,6 +401,11 @@ __global__ void __launch_bounds__(NW * 32)
           const int j = k0 + n * 8 + 2 * t + e;
           if (j > row0) s[n][e] = kNegInf;
           if (j > row1) s[n][2 + e] = kNegInf;
+        }
+        if (win_tile && kbe != -INFINITY) {
+          const int j = k0 + n * 8 + 2 * t + e;
+          if (row0 - j >= window) s[n][e] = kNegInf;
+          if (row1 - j >= window) s[n][2 + e] = kNegInf;
         }
         mx0 = fmaxf(mx0, s[n][e]);
         mx1 = fmaxf(mx1, s[n][2 + e]);
@@ -449,7 +492,7 @@ __global__ void __launch_bounds__(kThreadsF32)
     flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const unsigned char* __restrict__ kv_mask,
                         float* __restrict__ out, int Sq, int Sk, int H, int KV, int dh, int causal,
-                        float scale) {
+                        int window, float scale) {
   constexpr int NC = DHMAX / 16;  // float4 chunks a thread holds
   constexpr int kSub = 16;        // keys scored between two rescales
   extern __shared__ __align__(16) unsigned char smem[];
@@ -480,12 +523,12 @@ __global__ void __launch_bounds__(kThreadsF32)
 
   const int n_tiles = (Sk + kTile - 1) / kTile;
   const int q_last = min(q0 + kTile, Sq) - 1;
-  const int skip_from = causal ? min(n_tiles, q_last / kTile + 1) : n_tiles;
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    if (jt == skip_from) {
+  const TileWalk walk = tile_walk(q0, q_last, n_tiles, causal, window);
+  for (int vt = 0; vt < n_tiles; ++vt) {
+    if (vt == walk.n_live) {
       if (!__syncthreads_or(row < Sq && m == kNegInf)) break;
     }
-    const int k0 = jt * kTile;
+    const int k0 = walk.tile_at(vt) * kTile;
     __syncthreads();
     stage_rows(Ks, dh, k, b, k0, Sk, KV, kvh, dh, tid, kThreadsF32);
     stage_rows(Vs, dh, v, b, k0, Sk, KV, kvh, dh, tid, kThreadsF32);
@@ -511,7 +554,7 @@ __global__ void __launch_bounds__(kThreadsF32)
         }
         dot += __shfl_xor_sync(0xffffffffu, dot, 1);
         dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-        s[u] = masked_score(dot, scale, state[j0 + u], row, k0 + j0 + u, causal);
+        s[u] = masked_score(dot, scale, state[j0 + u], row, k0 + j0 + u, causal, window);
         mx = fmaxf(mx, s[u]);
       }
       const float mn = fmaxf(m, mx);
@@ -586,13 +629,14 @@ size_t flash_attention_smem(int dh, int Sq, int bf16) {
 // q (B, Sq, H, dh), k and v (B, Sk, KV, dh), all bf16 (bf16 = 1) or all
 // float32, contiguous and 16-byte aligned; kv_mask (B, Sk) bytes (0 =
 // padding) or null; out (B, Sq, H, dh) in q's type. dh a multiple of 16 up
-// to 256, H a multiple of KV, B and H at most 65535. Returns the CUDA error
-// code of the launch.
+// to 256, H a multiple of KV, B and H at most 65535; window 0 for none, else
+// the sliding window W (key j of row i scores only where i - j < W). Returns
+// the CUDA error code of the launch.
 int flash_attention_launch(const void* q, const void* k, const void* v, const void* kv_mask,
                            void* out, int B, int Sq, int Sk, int H, int KV, int dh, int causal,
-                           float scale, int bf16, void* stream) {
+                           int window, float scale, int bf16, void* stream) {
   if (dh < 16 || dh > 256 || dh % 16 != 0 || KV < 1 || H % KV != 0 || B < 1 || B > 65535 ||
-      H > 65535 || Sq < 1 || Sk < 1)
+      H > 65535 || Sq < 1 || Sk < 1 || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const size_t smem = flash_attention_smem(dh, Sq, bf16);
@@ -601,7 +645,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v, const vo
     const int nw = bf16_warps(Sq);
     const dim3 grid((Sq + 16 * nw - 1) / (16 * nw), H, B);
     using Kernel = void (*)(const __nv_bfloat16*, const __nv_bfloat16*, const __nv_bfloat16*,
-                            const unsigned char*, __nv_bfloat16*, int, int, int, int, int, float);
+                            const unsigned char*, __nv_bfloat16*, int, int, int, int, int, int,
+                            float);
     // [causal][warps 8][dh 64 / 128 / 256]
     static const Kernel kernels[2][2][3] = {
         {{flash_attention_bf16<64, 4, false>, flash_attention_bf16<128, 4, false>,
@@ -615,7 +660,8 @@ int flash_attention_launch(const void* q, const void* k, const void* v, const vo
     const Kernel kernel = kernels[causal ? 1 : 0][nw == 8][dh <= 64 ? 0 : dh <= 128 ? 1 : 2];
     return launch(kernel, grid, nw * 32, smem, st, static_cast<const __nv_bfloat16*>(q),
                   static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
-                  mask, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, dh, scale * kLog2e);
+                  mask, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV, dh, window,
+                  scale * kLog2e);
   }
   const dim3 grid((Sq + kTile - 1) / kTile, H, B);
   auto* kernel = dh <= 64    ? flash_attention_f32<64>
@@ -623,7 +669,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, const vo
                              : flash_attention_f32<256>;
   return launch(kernel, grid, kThreadsF32, smem, st, static_cast<const float*>(q),
                 static_cast<const float*>(k), static_cast<const float*>(v), mask,
-                static_cast<float*>(out), Sq, Sk, H, KV, dh, causal, scale);
+                static_cast<float*>(out), Sq, Sk, H, KV, dh, causal, window, scale);
 }
 
 const char* thistle_error_string(int code) {

@@ -1,4 +1,4 @@
-"""Attention with a key-padding mask: the CUDA kernel
+"""Attention with a key-padding mask and a sliding window: the CUDA kernel
 ``csrc/flash_attention.cu`` and its plain PyTorch version (port of
 ``repro.kernels.flash_attention`` with its ``ops.py`` wrapper).
 
@@ -9,7 +9,10 @@ H a multiple of KV (GQA: query head h reads KV head h // (H // KV)):
 
 A score is set to -1e30 (the reference's NEG_INF) where ``kv_mask`` (B, Sk)
 is False, where a causal row would look ahead, or outside a sliding
-window; a fully masked row therefore averages v. Scores, softmax and the
+window (key j of row i where i - j >= window, the model's rule,
+``repro.models.attention`` lines 83-84 and 128-129; the reference's
+Pallas kernel has none); a fully masked row therefore averages v over all
+Sk keys. Scores, softmax and the
 running sums are float32; with bf16 inputs p is rounded to bf16 before the
 p v product, as the reference rounds it.
 
@@ -36,7 +39,7 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "flash_attention_launch": ([_P] * 5 + [_I] * 7 + [ctypes.c_float, _I, _P], _I),
+    "flash_attention_launch": ([_P] * 5 + [_I] * 8 + [ctypes.c_float, _I, _P], _I),
 }
 
 
@@ -73,9 +76,9 @@ def _check(q, k, v, kv_mask, window) -> None:
             "no gradient back to q, k or v. Train through "
             "models.attention.dense_or_chunked_attention (the reference's "
             "differentiable rule), or call the kernel under torch.no_grad()")
-    if window is not None:
-        raise ValueError("flash_attention kernel has no sliding window "
-                         f"(got window={window}); only full attention")
+    if window is not None and (int(window) != window or window < 1):
+        raise ValueError(f"flash_attention kernel takes a window of at least "
+                         f"1 key, or None, got window={window}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash_attention takes q (B, Sq, H, dh) and k, v "
                          "(B, Sk, KV, dh)")
@@ -115,8 +118,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool, scale: float,
     code = lib.flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if mask is None else mask.data_ptr(), out.data_ptr(), B, Sq, Sk,
-        H, KV, dh, int(causal), float(scale), int(q.dtype == torch.bfloat16),
-        stream)
+        H, KV, dh, int(causal), int(window or 0), float(scale),
+        int(q.dtype == torch.bfloat16), stream)
     _build.check(lib, code, "flash_attention")
     LAUNCHES.n += 1
     return out

@@ -345,9 +345,10 @@ def flash_attention(q, k, v, *, causal: bool, scale=None, kv_mask=None,
                     window=None, use_kernel=None):
     """q: (B, Sq, H, dh); k/v: (B, Sk, KV, dh); kv_mask: (B, Sk) bool ->
     (B, Sq, H, dh) in q's dtype. GQA reads KV head h // (H // KV); masked
-    scores are -1e30, so a fully masked row averages v. The kernel takes
-    dh a multiple of 16 up to 256 and no ``window``, and raises otherwise;
-    the plain version takes both. The kernel is forward only: with grad
+    scores are -1e30, so a fully masked row averages v. ``window`` W keeps
+    key j of row i only where i - j < W. The kernel takes dh a multiple of
+    16 up to 256, and raises otherwise; the plain version takes any. The
+    kernel is forward only: with grad
     mode on and q, k or v requiring a gradient it raises a ValueError (the
     training path takes ``models.attention.dense_or_chunked_attention``)."""
     if scale is None:

@@ -1,3 +1,3 @@
 """Entry points (port of ``repro.launch``): the trainer CLI
 (``launch.train``). The mesh, sharding, step builders, dry run and
-roofline come with ROADMAP.md Queue 1, item 8."""
+roofline come with ROADMAP.md Queue 1, item 9."""

@@ -11,7 +11,8 @@ The encoder family trains as the reference's CLI trains it: TokenStream
 batches, the passage the query's tokens rolled by one, the contrastive
 loss, clip 1.0, cosine warmup 10, AdamW. The ``lm``, ``gnn`` and
 ``recsys`` families raise ``NotImplementedError`` naming their ROADMAP
-item. On the card the run is made deterministic
+item (the LM's serving is ported; its training, ``loss_fn`` and the MTP
+head's loss, is not). On the card the run is made deterministic
 (``torch.use_deterministic_algorithms``, with ``CUBLAS_WORKSPACE_CONFIG``
 set to ``:4096:8`` unless the environment sets it), so that a restart
 replays the lost steps bit for bit.
@@ -33,6 +34,13 @@ from repro_torch.ft.supervisor import Supervisor
 from repro_torch.train.sbert import EncoderJob
 
 
+# what each family's training still needs (ROADMAP.md Queue 1)
+TRAIN_PENDING = {
+    "lm": "loss_fn and the MTP head's loss: ROADMAP.md Queue 1, item 9 "
+          "(LM training)",
+    **{fam: f"its models: {where}" for fam, where in PENDING.items()}}
+
+
 def token_stream_batches(stream: TokenStream, batch: int, seq_len: int,
                          vocab_size: int):
     """The reference CLI's encoder batch: a TokenStream batch as the
@@ -51,8 +59,8 @@ class ArchJob(EncoderJob):
         fam = family(arch_id)
         if fam != "encoder":
             raise NotImplementedError(
-                f"training the {fam} family ({arch_id!r}) needs its models: "
-                f"{PENDING[fam]}")
+                f"training the {fam} family ({arch_id!r}) needs "
+                f"{TRAIN_PENDING[fam]}")
         e = get_arch(arch_id)
         self.arch_id, self.family = arch_id, e.family
         cfg = e.full if full else e.smoke

@@ -1,16 +1,28 @@
-"""Transformer stack (port of ``repro.models.transformer``: the dense-block
-forward, for serving and for training, and the pooled embedding the
-vector-DB tower reads).
+"""Transformer stack (port of ``repro.models.transformer``): the dense and
+MoE block stacks, the LM head's logits, serving (prefill and KV-cache
+decode) and the pooled embedding the vector-DB tower reads.
 
     init(cfg, generator, device=None, trainable=False)  -> Transformer
-    forward(params, cfg, tokens, kv_mask=None)          -> hidden (B, S, D)
+    forward(params, cfg, tokens, kv_mask=None)          -> (hidden (B, S, D), aux)
     forward(..., train=True, remat=False)               -> the same, with a graph
+    logits_from_hidden(params, cfg, h)                  -> (..., vocab)
+    init_cache(cfg, batch, max_len, device=None)        -> cache
+    prefill(params, cfg, tokens)                        -> (last logits, cache)
+    decode_step(params, cfg, token, cache, pos)         -> (logits, cache)
     embed_pooled(params, cfg, tokens, mask)             -> (B, D) float32
 
-The reference scans a stack of layer parameters; here ``dense_blocks`` is
-a ``ModuleList`` walked in order (``core.convert`` stacks and unstacks the
-layer axis). MoE blocks, the MTP head, the LM head's logits and
-``loss_fn``, prefill and decode come with ROADMAP.md Queue 1, item 8.
+The reference scans stacks of layer parameters; here ``dense_blocks``,
+``moe_blocks`` and ``mtp`` are ``ModuleList``s walked in order
+(``core.convert`` stacks and unstacks the layer axis). The cache keeps
+the reference's stacked layout, one array a kind over all layers:
+``{"k", "v"}`` of (L, B, C, KV, dh) for GQA, ``{"ckv", "krope"}`` of (L,
+B, C, kv_lora) and (L, B, C, qk_rope) for MLA; a sliding window's cache
+is a ring of C = window slots. Prefill and decode run the blocks in the
+sequential pre-norm form whatever ``parallel_residual`` says, as the
+reference's serving path does (no LM config sets it); ``forward`` honours
+it. The MTP head's leaves are held so that parameter trees cross leaf for
+leaf; its loss, with ``loss_fn``, comes with LM training (ROADMAP.md
+Queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -23,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import float32_bf16_sums, resolve_device
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (MLP, Embed, Norm, apply_embed, apply_mlp,
                                        apply_norm, dense_init)
 
@@ -30,83 +43,136 @@ from repro_torch.models.layers import (MLP, Embed, Norm, apply_embed, apply_mlp,
 
 
 class Block(nn.Module):
-    """One dense pre-norm block: ``attn_norm``, ``attn``, ``mlp_norm``, ``mlp``."""
+    """One pre-norm block: ``attn_norm``, ``attn``, ``mlp_norm`` and either
+    ``mlp`` (dense, d_ff ``dense_ff``) or ``moe``."""
 
-    def __init__(self, generator, cfg: LMConfig, dtype=torch.float32):
+    def __init__(self, generator, cfg: LMConfig, dtype=torch.float32, *,
+                 is_moe: bool = False):
         super().__init__()
         dev = generator.device
         self.attn_norm = Norm(cfg.norm, cfg.d_model, dtype, dev)
         self.attn = attn_lib.init_attention(generator, cfg, dtype)
         self.mlp_norm = Norm(cfg.norm, cfg.d_model, dtype, dev)
-        self.mlp = MLP(generator, cfg.d_model, cfg.dense_ff, cfg.gated_mlp, dtype)
+        if is_moe:
+            self.moe = moe_lib.MoE(generator, cfg, dtype)
+            self.mlp = None
+        else:
+            self.mlp = MLP(generator, cfg.d_model, cfg.dense_ff, cfg.gated_mlp,
+                           dtype)
+            self.moe = None
 
 
 class Head(nn.Module):
     """``w`` (d_model, vocab): the LM head the reference builds where
-    embeddings are untied. The encoder never reads it; it is kept so that
-    parameters, Adam moments and checkpoints hold the reference's leaves."""
+    embeddings are untied (the encoder never reads it)."""
 
     def __init__(self, generator, d: int, vocab: int, dtype=torch.float32):
         super().__init__()
         self.w = dense_init(generator, d, vocab, dtype)
 
 
+class MTP(nn.Module):
+    """One multi-token-prediction module (deepseek-v3): ``proj`` (2 d, d),
+    ``norm_h``, ``norm_e`` and a dense ``block``. Held for the parameter
+    tree; serving never reads it."""
+
+    def __init__(self, generator, cfg: LMConfig, dtype=torch.float32):
+        super().__init__()
+        dev = generator.device
+        self.proj = dense_init(generator, 2 * cfg.d_model, cfg.d_model, dtype)
+        self.norm_h = Norm(cfg.norm, cfg.d_model, dtype, dev)
+        self.norm_e = Norm(cfg.norm, cfg.d_model, dtype, dev)
+        self.block = Block(generator, cfg, dtype)
+
+
 class Transformer(nn.Module):
-    """``embed``, ``dense_blocks`` (one ``Block`` a layer), ``final_norm``
-    and, unless ``tie_embeddings``, ``lm_head``: the reference's parameter
-    tree under the same names, with the stacked layer axis unrolled into
-    the module list."""
+    """``embed``, ``dense_blocks``, ``moe_blocks`` (one ``Block`` a layer),
+    ``final_norm``, ``lm_head`` unless ``tie_embeddings``, and ``mtp``
+    with ``mtp_depth``: the reference's parameter tree under the same
+    names, with each stacked layer axis unrolled into a module list. Each
+    leaf is drawn on the generator's device in ``param_dtype``, one at a
+    time (a float32 draw of that leaf, then the cast)."""
 
     def __init__(self, cfg: LMConfig, generator: torch.Generator):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                "MoE blocks come with the LM stack (ROADMAP.md Queue 1, item "
-                "8); the port serves dense encoders so far")
-        if cfg.mtp_depth:
-            raise NotImplementedError(
-                "the MTP head is training-only and comes with the LM stack "
-                "(ROADMAP.md Queue 1, item 8)")
         dtype = getattr(torch, cfg.param_dtype)
         self.embed = Embed(generator, cfg.vocab_size, cfg.d_model, dtype)
         self.dense_blocks = nn.ModuleList(
             Block(generator, cfg, dtype) for _ in range(cfg.n_dense_layers))
+        self.moe_blocks = nn.ModuleList(
+            Block(generator, cfg, dtype, is_moe=True)
+            for _ in range(cfg.n_moe_layers))
         self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, generator.device)
         self.lm_head = (None if cfg.tie_embeddings else
                         Head(generator, cfg.d_model, cfg.vocab_size, dtype))
+        self.mtp = (nn.ModuleList(MTP(generator, cfg, dtype)
+                                  for _ in range(cfg.mtp_depth))
+                    if cfg.mtp_depth else None)
+
+    def layers(self):
+        """The blocks in the order the stack runs: dense, then MoE."""
+        return list(self.dense_blocks) + list(self.moe_blocks)
 
 
 def init(cfg: LMConfig, generator: torch.Generator, device=None, *,
          trainable: bool = False) -> Transformer:
-    """Parameters drawn from ``generator`` on its device, then moved to
-    ``device`` (the card unless given ``device="cpu"``). Frozen for
-    serving unless ``trainable``."""
-    model = Transformer(cfg, generator).to(resolve_device(device))
+    """Parameters drawn from ``generator`` on its device (a CUDA generator
+    builds them on the card), then moved to ``device`` (the card unless
+    given ``device="cpu"``; without a card, None raises before anything is
+    drawn). Frozen for serving unless ``trainable``."""
+    dev = resolve_device(device)
+    model = Transformer(cfg, generator).to(dev)
     return model.requires_grad_(trainable)
 
 
 # ================================================================ forward
 
 
+def _zero_aux(device) -> dict:
+    return {name: torch.zeros((), device=device)
+            for name in ("load_balance", "router_z", "dropped_frac")}
+
+
+def _router_score(cfg: LMConfig) -> str:
+    return "sigmoid" if (cfg.moe and cfg.moe.n_routed >= 256) else "softmax"
+
+
+def _attention(cfg: LMConfig):
+    return attn_lib.mla_attention if cfg.mla else attn_lib.gqa_attention
+
+
+def _ffn(cfg: LMConfig, p: Block, y_in, capacity_factor=None):
+    """The block's MLP or MoE on its normed input: (y, aux), aux the MoE's
+    (zeros for a dense block)."""
+    if p.moe is not None:
+        return moe_lib.apply_moe(p.moe, cfg, y_in,
+                                 capacity_factor=capacity_factor,
+                                 router_score=_router_score(cfg))
+    return apply_mlp(p.mlp, y_in, cfg.act), _zero_aux(y_in.device)
+
+
 def _block_fwd(cfg: LMConfig, p: Block, x, positions, kv_mask, *,
-               use_kernel=None, train: bool = False):
-    h = attn_lib.gqa_attention(p.attn, cfg, apply_norm(p.attn_norm, x),
-                               positions, kv_mask=kv_mask,
-                               use_kernel=use_kernel, train=train)
+               capacity_factor=None, use_kernel=None, train: bool = False):
+    """One block: (x, aux), aux the MoE's (zeros for a dense block)."""
+    h = _attention(cfg)(p.attn, cfg, apply_norm(p.attn_norm, x), positions,
+                        kv_mask=kv_mask, use_kernel=use_kernel, train=train)
     if cfg.parallel_residual:
         y_in = apply_norm(p.mlp_norm, x)
     else:
         x = x + h
         y_in = apply_norm(p.mlp_norm, x)
-    y = apply_mlp(p.mlp, y_in, cfg.act)
-    return x + y + h if cfg.parallel_residual else x + y
+    y, aux = _ffn(cfg, p, y_in, capacity_factor)
+    return (x + y + h if cfg.parallel_residual else x + y), aux
 
 
 @float32_bf16_sums()
 def forward(params: Transformer, cfg: LMConfig, tokens, *, kv_mask=None,
-            use_kernel=None, train: bool = False, remat: bool = False):
-    """tokens: (B, S) int -> hidden (B, S, D) in cfg.dtype; bf16 products
-    summed in float32, as XLA sums them (``device.float32_bf16_sums``).
+            use_kernel=None, train: bool = False, remat: bool = False,
+            capacity_factor=None):
+    """tokens: (B, S) int -> (hidden (B, S, D) in cfg.dtype, aux): aux sums
+    the MoE blocks' ``load_balance`` and ``router_z`` and averages their
+    ``dropped_frac`` (float32 scalars). bf16 products are summed in
+    float32, as XLA sums them (``device.float32_bf16_sums``).
 
     Serving (``train=False``) runs under ``torch.no_grad()`` with the
     attention kernel on a CUDA tensor. ``train=True`` builds the graph
@@ -122,14 +188,124 @@ def forward(params: Transformer, cfg: LMConfig, tokens, *, kv_mask=None,
     with contextlib.nullcontext() if train else torch.no_grad():
         x = apply_embed(params.embed, tokens, dtype)
         positions = torch.arange(S, device=x.device)
-        for block in params.dense_blocks:
+        aux = _zero_aux(x.device)
+        for block in params.layers():
             if train and remat:
-                x = checkpoint(_block_fwd, cfg, block, x, positions, kv_mask,
-                               train=True, use_reentrant=False)
+                x, a = checkpoint(_block_fwd, cfg, block, x, positions,
+                                  kv_mask, capacity_factor=capacity_factor,
+                                  train=True, use_reentrant=False)
             else:
-                x = _block_fwd(cfg, block, x, positions, kv_mask,
-                               use_kernel=use_kernel, train=train)
-    return x
+                x, a = _block_fwd(cfg, block, x, positions, kv_mask,
+                                  capacity_factor=capacity_factor,
+                                  use_kernel=use_kernel, train=train)
+            aux = {name: aux[name] + a[name] for name in aux}
+        aux["dropped_frac"] = aux["dropped_frac"] / max(cfg.n_moe_layers, 1)
+    return x, aux
+
+
+@float32_bf16_sums()
+def logits_from_hidden(params: Transformer, cfg: LMConfig, h):
+    """final_norm, then the LM head (the embedding's transpose when tied),
+    in h's dtype."""
+    h = apply_norm(params.final_norm, h)
+    w = (params.embed.table.T if cfg.tie_embeddings else params.lm_head.w)
+    return h @ w.to(h.dtype)
+
+
+# ================================================================ serving
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
+               device=None) -> dict:
+    """An empty decode cache (zeros) in the reference's layout: a sliding
+    window's is a ring of min(max_len, window) slots, else max_len."""
+    dtype = dtype or cfg.dtype
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    dev = resolve_device(device)
+    C = min(max_len, cfg.window) if cfg.window else max_len
+    L = cfg.n_layers
+    if cfg.mla:
+        shapes = {"ckv": (L, batch, C, cfg.mla.kv_lora_rank),
+                  "krope": (L, batch, C, cfg.mla.qk_rope_dim)}
+    else:
+        shapes = {name: (L, batch, C, cfg.n_kv_heads, cfg.head_dim)
+                  for name in ("k", "v")}
+    return {name: torch.zeros(shape, dtype=dtype, device=dev)
+            for name, shape in shapes.items()}
+
+
+def _cache_names(cfg: LMConfig):
+    return ("ckv", "krope") if cfg.mla else ("k", "v")
+
+
+@torch.no_grad()
+@float32_bf16_sums()
+def prefill(params: Transformer, cfg: LMConfig, tokens, *, use_kernel=None):
+    """Full forward emitting the KV cache; returns (last-token logits
+    (B, 1, vocab), cache). The cache holds every position, (L, B, S, ...);
+    with a sliding window W only the last W positions are kept, in the ring
+    layout: for S > W rolled by S % W so that position i sits at slot
+    i % W, for S <= W padded with zeros to W slots. MoE blocks route at the
+    config's capacity factor, as ``forward`` does."""
+    dtype = getattr(torch, cfg.dtype)
+    B, S = tokens.shape
+    x = apply_embed(params.embed, tokens, dtype)
+    positions = torch.arange(S, device=x.device)
+    names = _cache_names(cfg)
+    cache = None
+    for i, p in enumerate(params.layers()):
+        h, kv = _attention(cfg)(p.attn, cfg, apply_norm(p.attn_norm, x),
+                                positions, return_kv=True,
+                                use_kernel=use_kernel)
+        if cache is None:
+            cache = {n: t.new_empty((cfg.n_layers,) + tuple(t.shape))
+                     for n, t in zip(names, kv)}
+        for n, t in zip(names, kv):
+            cache[n][i] = t
+        x = x + h
+        x = x + _ffn(cfg, p, apply_norm(p.mlp_norm, x))[0]
+    if cfg.window:
+        W = cfg.window
+        if S > W:
+            # positions S-W..S-1 live at slots (S-W..S-1) % W: a roll puts them right
+            cache = {n: torch.roll(c[:, :, -W:], S % W, dims=2)
+                     for n, c in cache.items()}
+        else:
+            cache = {n: pad_slots(c, W) for n, c in cache.items()}
+    return logits_from_hidden(params, cfg, x[:, -1:]), cache
+
+
+def pad_slots(c, n: int):
+    """Zero slots appended on the cache's slot axis (2) up to n."""
+    pad = n - c.shape[2]
+    if pad <= 0:
+        return c
+    return torch.cat([c, c.new_zeros(c.shape[:2] + (pad,) + c.shape[3:])],
+                     dim=2)
+
+
+@torch.no_grad()
+@float32_bf16_sums()
+def decode_step(params: Transformer, cfg: LMConfig, token, cache: dict, pos):
+    """token: (B, 1) int; pos: the token's position (the next one after
+    the cache's). Returns (logits (B, 1, vocab), cache), the cache written
+    in place: GQA at slot pos % C (a ring for a window, a wrap otherwise),
+    MLA at pos clamped to C - 1 (``attention.mla_decode``). The first
+    ``n_dense_layers`` cache layers go with the dense blocks, the rest with
+    the MoE blocks, which route at the config's capacity factor (C >= 4
+    slots, so a batch of up to 4 tokens is never dropped)."""
+    dtype = getattr(torch, cfg.dtype)
+    pos = int(pos)
+    x = apply_embed(params.embed, token, dtype)
+    a, b = _cache_names(cfg)
+    decode = attn_lib.mla_decode if cfg.mla else attn_lib.gqa_decode
+    for i, p in enumerate(params.layers()):
+        h, _ = decode(p.attn, cfg, apply_norm(p.attn_norm, x), cache[a][i],
+                      cache[b][i], pos)
+        x = x + h
+        x = x + _ffn(cfg, p, apply_norm(p.mlp_norm, x))[0]
+    return logits_from_hidden(params, cfg, x), cache
 
 
 # ================================================================ vector-DB tower
@@ -143,8 +319,8 @@ def embed_pooled(params: Transformer, cfg: LMConfig, tokens, mask=None, *,
     Without a graph unless ``train`` (see ``forward``).
     """
     with contextlib.nullcontext() if train else torch.no_grad():
-        h = forward(params, cfg, tokens, kv_mask=mask, use_kernel=use_kernel,
-                    train=train, remat=remat)
+        h, _ = forward(params, cfg, tokens, kv_mask=mask, use_kernel=use_kernel,
+                       train=train, remat=remat)
         h = apply_norm(params.final_norm, h).float()
         if mask is None:
             mask = torch.ones(tokens.shape, dtype=torch.bool, device=h.device)

@@ -236,12 +236,21 @@ def test_from_reference_params_unstacks_layers_and_drops_lm_head():
 
 
 def test_init_refuses_mla_and_moe():
+    """MLA and MoE blocks are built since the LM serving slice; what is
+    still refused is binding them for training (the LM's training item)."""
     from repro_torch.configs.base import MLAConfig, MoEConfig
+    from repro_torch.core.convert import bind_reference_layout
     g = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        penc.init(dataclasses.replace(pcfg.SMOKE, mla=MLAConfig()), g, "cpu")
+    mla = penc.init(dataclasses.replace(pcfg.SMOKE, mla=MLAConfig(
+        kv_lora_rank=32, qk_nope_dim=16, qk_rope_dim=8, v_head_dim=16)), g,
+        "cpu")
+    assert mla.dense_blocks[0].attn.wkv_b.shape == (32, 4, 32)
+    cfg = dataclasses.replace(pcfg.SMOKE, moe=MoEConfig(4, 2, d_ff_expert=32),
+                              first_k_dense=1)
+    moe = penc.init(cfg, g, "cpu")
+    assert moe.moe_blocks[0].moe.experts.w_up.shape == (4, 64, 32)
     with pytest.raises(NotImplementedError, match="MoE"):
-        penc.init(dataclasses.replace(pcfg.SMOKE, moe=MoEConfig(4, 2)), g, "cpu")
+        bind_reference_layout(moe, cfg)
 
 
 # ----------------------------------------------------------- text path

@@ -153,15 +153,20 @@ def test_dense_and_chunked_plain_versions_agree_with_window(dtype):
 
 
 def test_kernel_limits_are_named():
-    """The kernel wrapper refuses a head dim it does not take, a window and
-    mixed dtypes before anything touches the card."""
+    """The kernel wrapper refuses a head dim it does not take, a window
+    below one key and mixed dtypes before anything touches the card; a
+    window of one key or more passes its checks."""
     q = torch.zeros((1, 8, 2, 64))
     for dh in (8, 72, 272):
         x = torch.zeros((1, 8, 2, dh))
         with pytest.raises(ValueError, match=f"up to {FA.MAX_HEAD_DIM}"):
             FA.flash_attention_cuda(x, x, x, causal=False, scale=1.0)
-    with pytest.raises(ValueError, match="sliding window"):
-        FA.flash_attention_cuda(q, q, q, causal=True, scale=1.0, window=16)
+    for window in (0, -4, 2.5):
+        with pytest.raises(ValueError, match="window of at least 1 key"):
+            FA.flash_attention_cuda(q, q, q, causal=True, scale=1.0,
+                                    window=window)
+    for window in (None, 1, 16, 4096):
+        FA._check(q, q, q, None, window)
     with pytest.raises(ValueError, match="bfloat16"):
         FA.flash_attention_cuda(q, q.to(torch.bfloat16), q, causal=False,
                                 scale=1.0)

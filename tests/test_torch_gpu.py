@@ -825,16 +825,74 @@ def test_flash_attention_kernel_matches_plain(B, Sq, Sk, H, KV, dh, causal,
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+FLASH_WINDOW_CASES = [
+    # (B, S, H, KV, dh, causal, window, mask): mask "ragged" (lengths
+    # 1..S, the last row empty) or "hole" (keys S/3..2S/3 padded: the rows
+    # whose window lies inside the hole are fully masked there)
+    (2, 200, 4, 2, 64, True, 1, "ragged"),
+    (2, 200, 4, 2, 64, False, 1, None),
+    (2, 333, 4, 4, 64, True, 17, "hole"),
+    (2, 333, 4, 4, 64, False, 17, "hole"),
+    (3, 257, 2, 1, 32, True, 64, "ragged"),
+    (3, 257, 2, 1, 32, False, 64, None),
+    (2, 130, 2, 2, 16, True, 129, "hole"),
+    (2, 130, 2, 2, 16, False, 129, "ragged"),
+    (1, 300, 32, 8, 80, True, 64, "hole"),
+    (1, 520, 16, 16, 192, True, 100, "ragged"),
+    (1, 520, 16, 16, 192, False, None, "hole"),
+    (1, 96, 16, 16, 192, True, None, None),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,KV,dh,causal,window,mask",
+                         FLASH_WINDOW_CASES)
+def test_flash_attention_window_matches_plain(B, S, H, KV, dh, causal,
+                                              window, mask, dtype):
+    """The sliding window (W in {1, 17, 64, S - 1, 100}) on ragged S,
+    causal and not, with key-padding masks that leave rows fully masked
+    inside their window (they average v over all S keys, the skipped
+    tiles included), danube's heads (32/8, dh 80) and MLA's (16, dh
+    192), against the plain version at 2e-5 / 2e-2."""
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain)
+    dev = _card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(B * S + dh + (window or 0))
+    q = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, S, KV, dh, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, S, KV, dh, generator=gen, device=dev).to(dt)
+    kv_mask = None
+    if mask == "ragged":
+        lengths = torch.randint(1, S + 1, (B,), generator=gen, device=dev)
+        lengths[-1] = 0
+        kv_mask = torch.arange(S, device=dev)[None, :] < lengths[:, None]
+    elif mask == "hole":
+        pos = torch.arange(S, device=dev)
+        kv_mask = ((pos < S // 3) | (pos >= 2 * S // 3))[None].repeat(B, 1)
+    kw = dict(causal=causal, scale=dh ** -0.5, kv_mask=kv_mask, window=window)
+    ops.reset_launch_counts()
+    got = flash_attention_cuda(q, k, v, **kw)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, **kw)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 def test_flash_attention_limits_on_the_card():
-    """dh outside the kernel's range and a sliding window raise on CUDA
-    tensors; nothing falls back to the plain version."""
+    """dh outside the kernel's range and a window below one key raise on
+    CUDA tensors; nothing falls back to the plain version. A window of
+    one or more keys launches."""
     dev = _card()
     x = torch.zeros((1, 8, 2, 72), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="256"):
         ops.flash_attention(x, x, x, causal=False)
     y = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="window"):
-        ops.flash_attention(y, y, y, causal=True, window=4)
+        ops.flash_attention(y, y, y, causal=True, window=0)
+    ops.reset_launch_counts()
+    ops.flash_attention(y, y, y, causal=True, window=4)
+    assert ops.launch_counts()["flash_attention"] == 1
 
 
 def test_encode_ignores_the_callers_bf16_reduction_flag():
@@ -1363,3 +1421,39 @@ def test_int8_adam_on_the_card_matches_cpu():
         else:
             torch.testing.assert_close(a, b, rtol=1e-6, atol=0)
     assert same >= 0.9999 * n
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "stablelm-1.6b"])
+def test_lm_prefill_launches_flash_attention_on_the_card(arch):
+    """An LM prefill on the card (danube's window at S past it) runs the
+    kernel once a layer and agrees with the same prefill through the
+    plain attention: float32 copy of the SMOKE config, logits and every
+    cache array; the greedy DecodeLoop equals the CPU's."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serve import DecodeLoop
+    dev = _card()
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    model = transformer.init(cfg, torch.Generator().manual_seed(0),
+                             device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 48), generator=gen,
+                           device=dev)
+    ops.reset_launch_counts()
+    got, cache = transformer.prefill(model, cfg, tokens)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    want, want_cache = transformer.prefill(model, cfg, tokens,
+                                           use_kernel=False)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    for name in cache:
+        torch.testing.assert_close(cache[name], want_cache[name], atol=1e-4,
+                                   rtol=1e-4)
+    cpu = transformer.init(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    on_card = DecodeLoop(model, cfg, max_len=64).generate(tokens[:, :20],
+                                                          n_new=6)
+    on_cpu = DecodeLoop(cpu, cfg, max_len=64, device="cpu").generate(
+        tokens[:, :20].cpu(), n_new=6)
+    assert torch.equal(on_card.cpu(), on_cpu)

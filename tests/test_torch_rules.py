@@ -2,9 +2,10 @@
 
 1. Importing ``repro_torch`` (its serving, checkpoint, WAL, fault and
    search modules too) loads neither JAX, ml_dtypes nor the JAX package.
-2. No module of ``src/repro_torch``, not ``chip_smoke.py`` and neither
-   ``tools/ivf_dispatch.py`` nor ``tools/ivf_kernels.py`` imports ``jax``,
-   ``ml_dtypes`` or ``repro``.
+2. No module of ``src/repro_torch``, not ``chip_smoke.py`` and none of
+   ``tools/ivf_dispatch.py``, ``tools/ivf_kernels.py`` and
+   ``tools/train_step_profile.py`` imports ``jax``, ``ml_dtypes`` or
+   ``repro``.
 3. Entry points run on the card: ``VectorDB()`` without a device raises
    when there is none.
 4. Kernel dispatch follows the tensor: ``use_kernel=True`` on a CPU tensor
@@ -33,14 +34,15 @@ from repro_torch.kernels import ops  # noqa: E402
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "tools" / "ivf_dispatch.py",
-    REPO / "tools" / "ivf_kernels.py"]
+    REPO / "tools" / "ivf_kernels.py", REPO / "tools" / "train_step_profile.py"]
 
 
 def test_import_loads_no_jax():
     code = ("import json, sys, repro_torch, repro_torch.core.convert, "
             "repro_torch.core.distributed, "
             "repro_torch.serve, repro_torch.checkpoint, repro_torch.core.wal, "
-            "repro_torch.ft, repro_torch.search; "
+            "repro_torch.ft, repro_torch.search, repro_torch.serve.decode, "
+            "repro_torch.models.moe; "
             "print(json.dumps([m for m in sys.modules if m.split('.')[0] "
             "in ('jax', 'jaxlib', 'repro', 'ml_dtypes')]))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -155,7 +157,11 @@ def test_flat_query_runs_the_plain_version_on_cpu():
 NEW_PORT_MODULES = ["configs/base.py", "configs/thistle_sbert.py",
                     "data/marco.py", "models/layers.py", "models/attention.py",
                     "models/transformer.py", "models/encoder.py",
-                    "kernels/flash_attention.py"]
+                    "kernels/flash_attention.py", "models/moe.py",
+                    "serve/decode.py", "configs/h2o_danube_1_8b.py",
+                    "configs/deepseek_v2_lite_16b.py",
+                    "configs/deepseek_v3_671b.py", "configs/stablelm_1_6b.py",
+                    "configs/stablelm_3b.py"]
 
 
 @pytest.mark.parametrize("module", NEW_PORT_MODULES)

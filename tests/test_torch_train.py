@@ -523,13 +523,19 @@ def test_registry_lists_every_reference_arch():
         preg.get_arch("bert-large")
 
 
-@pytest.mark.parametrize("arch,item", [("stablelm-1.6b", "item 8"),
-                                       ("graphsage-reddit", "item 8"),
-                                       ("fm", "item 8")])
+@pytest.mark.parametrize("arch,item", [("stablelm-1.6b", "item 9"),
+                                       ("graphsage-reddit", "item 9"),
+                                       ("fm", "item 9")])
 def test_unported_families_name_their_item(arch, item):
+    """gnn and recsys have no configs yet; the lm family's configs and
+    serving are ported, its training is not. Each refusal names the
+    ROADMAP item that brings what is missing."""
     from repro_torch.launch.train import ArchJob
-    with pytest.raises(NotImplementedError, match=item):
-        preg.get_arch(arch)
+    if preg.family(arch) == "lm":
+        assert preg.get_arch(arch).family == "lm"
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            preg.get_arch(arch)
     with pytest.raises(NotImplementedError, match=item):
         ArchJob(arch, full=False, batch=4, seq_len=8, lr=1e-3, total_steps=2,
                 device="cpu")
