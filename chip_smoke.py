@@ -2,7 +2,10 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
 
     python3 chip_smoke.py [--n ROWS] [--seed S] [--rank R] [--min-recall X]
-                          [--snapshot-dir DIR]
+                          [--snapshot-dir DIR] [--phases LIST]
+
+``--phases 4,12-13`` runs phases 1 and 2 and those (each makes its own
+data from ``--seed``; 7 runs inside 6); every phase by default.
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. header: the card's name, power limit and top SM clock (nvidia-smi),
@@ -221,23 +224,23 @@ Phases, in order; any failure raises and the script exits non-zero:
      p50/p99 at Q = 1, 32, 512 for each engine and mesh;
  10. training at full width (examples/train_sbert.py --preset full's
      settings: MarcoLike 2,000 passages at seq 24, batch 64, lr 3e-4 with
-     warmup 20 and cosine decay, clip 1.0, weight decay 0.01, 200 steps
+     warmup 20 and cosine decay, clip 1.0, weight decay 0.01, 80 steps
      (the example's 300 cut to keep the script inside its time limit),
-     a checkpoint every 50 in ``--snapshot-dir``): one contrastive_loss
+     a checkpoint every 20 in ``--snapshot-dir``): one contrastive_loss
      step's gradients at B = 8 on the card against the CPU from one seeded
      state, in bf16 and in a float32 copy of the config (the CPU tests'
      bounds); the run through the port's ``Supervisor`` and
-     ``CheckpointStore`` with failures injected at steps 75 and 180,
+     ``CheckpointStore`` with failures injected at steps 30 and 70,
      against an uninterrupted run (parameters and Adam moments bit-equal;
      ``torch.use_deterministic_algorithms`` on for the phase's training,
      with ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set at the start of the
-     script): loss and in-batch accuracy every 50 steps, step p50 / p99,
+     script): loss and in-batch accuracy every 20 steps, step p50 / p99,
      tokens/s, peak device memory, each checkpoint's copy and write
      seconds; retrieval top-1 before and after (the example's
      ``retrieval_accuracy``: ``encode`` through ``flash_attention`` and
      ``VectorDB("flat", metric="cosine")`` through ``topk_distance``, their
      launches; after must beat before), the trained tower's kernel encode
-     against ``use_kernel=False`` (row cosine >= 0.999); 100 steps with
+     against ``use_kernel=False`` (row cosine >= 0.999); 80 steps with
      int8 Adam state (its loss curve beside float32's, the moments' bytes
      against ``adam_state_bytes``); the loss's last-20-step mean below its
      first-20 in both; ``gradient_accumulation`` on a batch of 64 at
@@ -248,11 +251,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      h2o-danube-1.8b FULL (GQA 32/8, dh 80, window 4,096, float32
      parameters): prefill at B = 2, S = 8,192 (the kernel's window and
      tile skip; the cache rolled into a ring of 4,096), a 4,000-token
-     prompt at B = 2 greedily decoded for 160 steps (the ring wraps), and
+     prompt at B = 2 greedily decoded for 100 steps (the ring wraps), and
      ``embed_pooled`` on a padded batch (lengths 5,120 to 1); then
      deepseek-v2-lite-16b FULL with bf16 parameters (MLA through the
      kernel at dh 192, 64 experts top-6 + 2 shared): prefill at B = 4,
-     S = 1,024 and 32 greedy steps. Each: prefill seconds and tokens/s,
+     S = 1,024 and 16 greedy steps. Each: prefill seconds and tokens/s,
      decode step p50 / p99 and tokens/s, the cache's bytes, peak GB, the
      MoE's dropped_frac, ``flash_attention``'s launches and its time at
      the prefill's shape beside its bound, its plain version's and
@@ -269,7 +272,41 @@ Phases, in order; any failure raises and the script exits non-zero:
      capacity (C = t) in bf16, with the tokens that change expert between
      kernel and plain attention counted; its gates hold the dropless
      capacity, the kernel one with float32 activations;
- 12. a JSON line of the kernels (phases 9, 10 and 11's launches added),
+ 12. LM training at full width (``transformer.loss_fn`` through the
+     trainer's step: clip 1.0, cosine warmup 10, AdamW float32, lr 1e-3,
+     TokenStream batches): h2o-danube-1.8b FULL at B = 2, S = 4,096 with
+     remat, 20 steps; deepseek-v2-lite-16b FULL cut to its first (dense)
+     layer and 2 MoE layers at full width, B = 4, S = 1,024, 10 steps;
+     deepseek-v3 SMOKE with its MTP head. Gates: danube's step-0 loss and
+     every leaf's gradient with bf16 activations against float32 on the
+     card (1e-2 relative, cosine >= 0.99), card against CPU in float32 at
+     B = 1, S = 32 (1e-5, cosine >= 0.9999); v2-lite's load_balance and
+     router_z finite and positive, card against CPU float32 dropless at
+     B = 1, S = 64 (1e-4, cosine >= 0.99); v3's loss with ``mtp_ce`` card
+     against CPU (1e-5, cosine >= 0.99999); each loss falls (the mean of
+     the first 5 steps above the last 5's). Step p50 / p99, tokens/s,
+     6 N tokens over the step time against 989 TFLOP/s, one step's
+     device-busy ms (profiler), peak GB, the parameters' and moments' GB,
+     v2-lite's dropped_frac;
+ 13. recsys and GNN: fm, deepfm, autoint (39 sparse + 13 dense fields,
+     33,001,472 table rows) and sasrec (1,000,001 items, seq 50) FULL, 30
+     steps each of 65,536 rows (``ClickLogs``), each card against CPU in
+     float32 on 1,024 rows at the full tables (1e-5, cosine >= 0.99999),
+     its loss falling, step p50 and examples/s; retrieval through
+     ``VectorDB("flat", metric="dot")``: the trained fm's item field 0
+     (9,016,073 items, d = 11), sasrec's item table (1,000,448 x 50),
+     autoint's (d = 64), each at Q = 1 and 512 (p50, ``topk_distance``
+     against its plain version on the engine's padded buffer, kernel,
+     plain and ``torch.matmul`` + ``torch.topk`` ms beside the bound,
+     launches), fm's MIPS top item for 8 users against ``fm_forward``
+     re-scored over every item; GraphSAGE-reddit FULL on
+     ``sbm_graph`` at reddit's 232,965 nodes (avg_degree ``GNN_DEGREE``),
+     50 ``block_loss`` steps of 1,024 sampled seeds (fanouts 25, 10)
+     with features on the card, card against CPU on one batch (1e-5,
+     cosine >= 0.99999), held-out accuracy > 0.5, the sampler's host ms
+     beside the step's device ms; ``node_loss`` at cora's shape and
+     ``graph_loss`` on ``molecule_batch(128)``, 20 steps each;
+ 14. a JSON line of the kernels (phases 8-11 and 13's launches added),
      then the result line.
 
 It needs one CUDA card and the repository's ``src/`` beside it, and it
@@ -468,6 +505,11 @@ def device_us(fn, reps: int = 5) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    return device_times(prof, reps)
+
+
+def device_times(prof, reps: int) -> dict:
+    """{kernel name: device us a call} from a profile over ``reps`` calls."""
     out = {}
     for e in prof.key_averages():
         # a kernel's own device time; a host op's kernels are its children
@@ -4634,11 +4676,11 @@ def phase_mesh(n: int, seed: int, device, rank: int, rates: dict) -> dict:
 TRAIN_PASSAGES = 2000        # examples/train_sbert.py --preset full's data
 TRAIN_BATCH = 64
 TRAIN_SEQ = 24
-TRAIN_STEPS = 200            # the example runs 300; cut to keep the whole
-                             # script well inside its time limit
-TRAIN_CKPT_EVERY = 50
-TRAIN_FAILS = (75, 180)
-TRAIN_INT8_STEPS = 100       # the loss rises through the warmup (steps
+TRAIN_STEPS = 80             # the example runs 300; cut to keep the whole
+                             # script inside its time limit (PERF.md section 4)
+TRAIN_CKPT_EVERY = 20
+TRAIN_FAILS = (30, 70)
+TRAIN_INT8_STEPS = 80        # the loss rises through the warmup (steps
                              # 20-50) in either state, then falls
 TRAIN_GRAD_B = 8             # the card-against-CPU gradient check's batch
 TRAIN_WINDOW = 20            # steps averaged at each end of a loss curve
@@ -4959,10 +5001,10 @@ LM_COS_KERNEL = 0.999       # kernel against plain attention, as phase 5
 LM_COS_DECODE = 0.99        # decode at S against prefill(S + 1)
 DANUBE_PREFILL = (2, 8192)  # (B, S): twice the window
 DANUBE_PROMPT = (2, 4000)   # decoded past the window: the ring wraps
-DANUBE_NEW = 160
+DANUBE_NEW = 100            # 4,000 + 100 tokens: the ring of 4,096 wraps
 DANUBE_EMBED = (5120, 4300, 700, 1)  # embed_pooled's lengths, S past the window
 V2_PREFILL = (4, 1024)
-V2_NEW = 32
+V2_NEW = 16
 
 
 def attention_pairs(S: int, causal: bool, window) -> int:
@@ -5401,8 +5443,640 @@ def phase_lm(seed: int, device) -> dict:
     return out
 
 
+# ------------------------------------------------------------- phase 12
+LM_TRAIN_SHAPE = (2, 4096)   # danube's step: past the chunk threshold, at the window
+LM_TRAIN_STEPS = 20
+LM_TRAIN_LR = 1e-3           # the trainer CLI's default; warmup 10, cosine
+LM_CPU_SHAPE = (1, 32)       # card against CPU, float32 (the dense path)
+V2_TRAIN_LAYERS = 3          # the first (dense) layer and 2 MoE layers
+V2_TRAIN_SHAPE = (4, 1024)
+V2_TRAIN_STEPS = 10
+V2_CPU_SHAPE = (1, 64)
+LM_WINDOW = 5                # steps averaged at each end of a loss curve
+
+
+def leaf_cosines(got: dict, want: dict) -> tuple:
+    """(worst cosine, its leaf) over the leaves both hold, in float64 on
+    the first one's device; a leaf zero on both sides counts 1."""
+    import torch
+    worst, where = 1.0, None
+    for name, w in want.items():
+        g = got[name].double()
+        w = w.to(g.device).double()
+        den = float(g.norm() * w.norm())
+        cos = 1.0 if den == 0 and not g.any() and not w.any() else (
+            float((g * w).sum()) / den if den else 0.0)
+        if cos < worst:
+            worst, where = cos, name
+    return worst, where
+
+
+def grads_on(model, loss, batch, device):
+    """((loss, metrics), {name: grad}) of ``loss(model, batch)`` with the
+    batch's arrays moved to ``device``."""
+    from repro_torch.train.accum import value_and_grad
+    from repro_torch.train.job import to_device
+    return value_and_grad(loss, model, to_device(batch, device))
+
+
+def card_against_cpu(model, loss, batch, device, label: str, *, rel: float,
+                     cos_min: float) -> dict:
+    """The loss and gradients of one batch on the card, then with the
+    model moved to the host (the same weights), then back: the loss within
+    ``rel`` relative, every leaf's gradient cosine >= ``cos_min``."""
+    import torch
+    t0 = time.perf_counter()
+    (l_gpu, m_gpu), g_gpu = grads_on(model, loss, batch, device)
+    l_gpu = float(l_gpu)
+    model.to("cpu")
+    (l_cpu, _), g_cpu = grads_on(model, loss, batch, torch.device("cpu"))
+    model.to(device)
+    l_cpu = float(l_cpu)
+    err = abs(l_gpu - l_cpu) / max(abs(l_cpu), 1e-30)
+    cos, where = leaf_cosines(g_gpu, g_cpu)  # on the card, a leaf at a time
+    n_leaves = len(g_cpu)
+    del g_gpu, g_cpu
+    log(f"  {label}: loss card {l_gpu:.7f} vs CPU {l_cpu:.7f} (rel "
+        f"{err:.3e}, bound {rel:g}); worst leaf cosine {cos:.7f} ({where}; "
+        f"bound {cos_min}); {n_leaves} leaves; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not err <= rel or not cos >= cos_min:
+        raise AssertionError(f"{label}: card and CPU differ")
+    return {"rel": err, "cos": cos,
+            "metrics": {k: float(v) for k, v in m_gpu.items()}}
+
+
+def curve_falls(metrics, label: str, window: int = LM_WINDOW) -> tuple:
+    """(first, last) ``window``-step mean losses; the last must be lower."""
+    losses = [m["loss"] for m in metrics]
+    first = sum(losses[:window]) / window
+    last = sum(losses[-window:]) / window
+    log(f"  {label}: loss {', '.join(f'{x:.4f}' for x in losses)}; mean of "
+        f"the first {window} {first:.4f}, of the last {window} {last:.4f}")
+    if not (math.isfinite(last) and last < first):
+        raise AssertionError(f"{label}: the loss did not fall")
+    return first, last
+
+
+def busy_ms(fn) -> tuple:
+    """(device-busy ms of one fn() call by the profiler, its top kernels);
+    the call is not repeated: fn must be warm."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    # device activity alone: host op tracing would cost tens of seconds
+    # over a training step's 100,000 launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = device_times(prof, 1)
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:4]
+    return sum(us.values()) / 1e3, ", ".join(f"{k} {v / 1e3:.2f} ms"
+                                             for k, v in top)
+
+
+def lm_train_model(cfg, seed: int, device, label: str):
+    import torch
+    from repro_torch.models import transformer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = transformer.init(cfg, torch.Generator(device=device)
+                             .manual_seed(seed), device=device, trainable=True)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"  {label} init on the card: {time.perf_counter() - t0:.2f} s, {n} "
+        f"parameters ({cfg.param_dtype}, {n * 4 / 1e9:.2f} GB)")
+    return model, n
+
+
+def lm_train_run(model, cfg, n_params: int, batch_fn, steps: int,
+                 label: str, remat: bool) -> dict:
+    """``steps`` trainer-CLI steps (clip 1.0, cosine warmup 10, AdamW over
+    the reference layout); step p50 / p99, tokens/s, the 6 N tokens rate
+    against 989 TFLOP/s, one step's device-busy ms, peak and state GB."""
+    import torch
+    from repro_torch.models import transformer
+    from repro_torch.train.job import ModelJob
+    from repro_torch.train.optim import state_bytes
+    job = ModelJob(cfg, model,
+                   lambda m, b: transformer.loss_fn(m, cfg, b, remat=remat),
+                   batch_fn, lr=LM_TRAIN_LR, warmup=10, total_steps=steps,
+                   log_every=0)
+    t0 = time.perf_counter()
+    for s in range(steps - 1):
+        job.run_step(s)
+    # the last step under the profiler (not in the p50 / p99)
+    busy, top = busy_ms(lambda: job.run_step(steps - 1))
+    secs = time.perf_counter() - t0
+    B, S = batch_fn(0)["tokens"].shape
+    st = job.step_seconds[1:steps - 1]
+    p50, p99 = percentile(st, 50), percentile(st, 99)
+    flops = 6.0 * n_params * B * S
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    state = (sum(p.numel() * p.element_size() for p in model.parameters())
+             + state_bytes(job.opt)) / 1e9
+    log(f"  {label}: {steps} steps in {secs:.1f} s; step p50 {p50 * 1e3:.1f} "
+        f"ms, p99 {p99 * 1e3:.1f} ms (the first {job.step_seconds[0]:.2f} s), "
+        f"{B * S / p50:.0f} tokens/s at the p50; 6 N tokens / step "
+        f"{flops / p50 / 1e12:.1f} TFLOP/s = {flops / p50 / BF16_OPS_PER_S:.3f} "
+        f"of 989; one step's device busy {busy:.1f} ms of {p50 * 1e3:.1f} "
+        f"(profiler; top: {top}); peak {peak:.2f} GB, parameters and "
+        f"moments {state:.2f} GB")
+    return {"job": job, "p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3,
+            "tokens_per_s": B * S / p50, "mfu": flops / p50 / BF16_OPS_PER_S,
+            "busy_ms": busy, "peak_gb": peak, "state_gb": state,
+            "losses": [m["loss"] for m in job.metrics[:steps]]}
+
+
+def phase_lm_train(seed: int, device) -> dict:
+    """Phase 12: LM training at full width. Returns the phase's numbers."""
+    import copy
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import (deepseek_v2_lite_16b, deepseek_v3_671b,
+                                     h2o_danube_1_8b)
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import lm_batches
+    from repro_torch.models import transformer
+    out = {}
+    ops.reset_launch_counts()
+
+    def lm_loss(cfg, remat=False):
+        return lambda m, b: transformer.loss_fn(m, cfg, b, remat=remat)
+
+    # ---- h2o-danube-1.8b FULL, remat, B = 2, S = 4,096
+    cfg = h2o_danube_1_8b.FULL
+    B, S = LM_TRAIN_SHAPE
+    log(f"phase 12: LM training, {cfg.name} FULL (layers {cfg.n_layers}, "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, window "
+        f"{cfg.window}, {cfg.param_dtype} parameters, {cfg.dtype} "
+        f"activations, seeded random weights): B={B}, S={S} (chunk "
+        f"threshold {cfg.attn_chunk_threshold}), remat, TokenStream batches, "
+        f"lr {LM_TRAIN_LR} (warmup 10, cosine), clip 1.0, AdamW float32, "
+        f"{LM_TRAIN_STEPS} steps")
+    t_model = time.perf_counter()
+    model, n = lm_train_model(cfg, seed, device, "danube")
+    batches = lm_batches(TokenStream(vocab_size=cfg.vocab_size), B, S,
+                         cfg.vocab_size)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    small = lm_batches(TokenStream(vocab_size=cfg.vocab_size, seed=1),
+                       *LM_CPU_SHAPE, cfg.vocab_size)(0)
+    out["danube_cpu"] = card_against_cpu(
+        model, lm_loss(cfg32), small, device,
+        f"danube float32 B={LM_CPU_SHAPE[0]} S={LM_CPU_SHAPE[1]}, card "
+        f"against CPU", rel=1e-5, cos_min=0.9999)
+    (l16, m16), g16 = grads_on(model, lm_loss(cfg, True), batches(0), device)
+    (l32, _), g32 = grads_on(model, lm_loss(cfg32, True), batches(0), device)
+    rel = abs(float(l16) - float(l32)) / abs(float(l32))
+    cos, where = leaf_cosines(g16, g32)
+    del g16, g32
+    log(f"  danube step 0 at B={B} S={S}, bf16 activations against float32 "
+        f"on the card (same weights, remat): loss {float(l16):.6f} vs "
+        f"{float(l32):.6f} (rel {rel:.3e}, bound 1e-2); worst leaf cosine "
+        f"{cos:.6f} ({where}; bound 0.99)")
+    if not (rel <= 1e-2 and cos >= 0.99):
+        raise AssertionError("danube: bf16 gradients differ from float32's")
+    torch.cuda.empty_cache()
+    run = lm_train_run(model, cfg, n, batches, LM_TRAIN_STEPS, "danube",
+                       remat=True)
+    out["danube"] = {k: v for k, v in run.items() if k != "job"}
+    out["danube"]["loss_first_last"] = curve_falls(
+        run["job"].metrics[:LM_TRAIN_STEPS], "danube")
+    out["danube"].update(bf16_rel=rel, bf16_cos=cos)
+    del run, model
+    torch.cuda.empty_cache()
+    log(f"  [danube: {time.perf_counter() - t_model:.1f} s]")
+
+    # ---- deepseek-v2-lite-16b FULL cut to 3 layers: MLA, 64 experts top-6
+    cfg = dataclasses.replace(deepseek_v2_lite_16b.FULL,
+                              n_layers=V2_TRAIN_LAYERS)
+    B, S = V2_TRAIN_SHAPE
+    log(f"phase 12: {cfg.name} FULL cut to {cfg.n_layers} layers ("
+        f"{cfg.n_dense_layers} dense, {cfg.n_moe_layers} MoE; full width: "
+        f"d_model {cfg.d_model}, MLA kv_lora {cfg.mla.kv_lora_rank}, "
+        f"{cfg.moe.n_routed} experts top-{cfg.moe.top_k} + "
+        f"{cfg.moe.n_shared} shared, capacity factor "
+        f"{cfg.moe.capacity_factor}): B={B}, S={S}, {V2_TRAIN_STEPS} steps")
+    t_model = time.perf_counter()
+    model, n = lm_train_model(cfg, seed, device, "v2-lite cut")
+    batches = lm_batches(TokenStream(vocab_size=cfg.vocab_size), B, S,
+                         cfg.vocab_size)
+    dropless = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_routed / cfg.moe.top_k))
+    small = lm_batches(TokenStream(vocab_size=cfg.vocab_size, seed=1),
+                       *V2_CPU_SHAPE, cfg.vocab_size)(0)
+    out["v2_cpu"] = card_against_cpu(
+        model, lm_loss(dropless), small, device,
+        f"v2-lite cut float32 dropless B={V2_CPU_SHAPE[0]} "
+        f"S={V2_CPU_SHAPE[1]}, card against CPU", rel=1e-4, cos_min=0.99)
+    with torch.no_grad():
+        tok = torch.as_tensor(batches(0)["tokens"]).to(device)
+        _, aux = transformer.forward(model, cfg, tok)
+    aux = {k: float(v) for k, v in aux.items()}
+    log(f"  v2-lite cut at B={B} S={S}: load_balance {aux['load_balance']:.6e}, "
+        f"router_z {aux['router_z']:.6e}, dropped_frac "
+        f"{aux['dropped_frac']:.6f} (capacity factor "
+        f"{cfg.moe.capacity_factor})")
+    if not all(math.isfinite(aux[k]) and aux[k] > 0
+               for k in ("load_balance", "router_z")):
+        raise AssertionError("v2-lite: aux losses not finite and positive")
+    run = lm_train_run(model, cfg, n, batches, V2_TRAIN_STEPS, "v2-lite cut",
+                       remat=False)
+    out["v2_lite"] = {k: v for k, v in run.items() if k != "job"}
+    out["v2_lite"]["loss_first_last"] = curve_falls(
+        run["job"].metrics[:V2_TRAIN_STEPS], "v2-lite cut")
+    out["v2_lite"].update(aux)
+    out["v2_lite"]["dropped_frac_steps"] = [
+        m["dropped_frac"] for m in run["job"].metrics[:V2_TRAIN_STEPS]]
+    del run, model
+    torch.cuda.empty_cache()
+    log(f"  [v2-lite cut: {time.perf_counter() - t_model:.1f} s]")
+
+    # ---- deepseek-v3 SMOKE with its MTP head: card against CPU
+    cfg = dataclasses.replace(deepseek_v3_671b.SMOKE, dtype="float32")
+    model = transformer.init(cfg, torch.Generator().manual_seed(seed),
+                             device=device, trainable=True)
+    tb = lm_batches(TokenStream(vocab_size=cfg.vocab_size), 2, 16,
+                    cfg.vocab_size)(0)
+    out["v3_mtp"] = card_against_cpu(
+        copy.deepcopy(model), lm_loss(cfg), tb, device,
+        "deepseek-v3 SMOKE with its MTP head, float32, card against CPU",
+        rel=1e-5, cos_min=0.99999)
+    if "mtp_ce" not in out["v3_mtp"]["metrics"]:
+        raise AssertionError("v3: no mtp_ce in the metrics")
+    counts = ops.launch_counts()
+    log(f"  launches on phase 12's path: {counts} (training differentiates "
+        f"the attention's plain rule, as the reference does: no TPU kernel "
+        f"on this path)")
+    return out
+
+
+# ------------------------------------------------------------- phase 13
+RECSYS_BATCH = 65_536        # the reference's RECSYS_SHAPES["train_batch"]
+RECSYS_STEPS = 30
+RECSYS_LR = 3e-3             # examples/recsys_retrieval.py's rate
+RECSYS_CPU_BATCH = 1024
+RECSYS_KINDS = ("fm", "deepfm", "autoint", "sasrec")
+RETRIEVAL_QS = (1, 512)
+RETRIEVAL_USERS = 8
+RETRIEVAL_REPS = {1: 20, 512: 5}
+GNN_NODES = 232_965          # reddit
+GNN_EDGES = 114_615_892      # reddit's directed edges: avg_degree 492
+GNN_DEGREE = 232             # the largest avg_degree whose graph and CSR
+                             # the host builds in 40 s (PERF.md section 4)
+GNN_SEEDS = 1024
+GNN_STEPS = 50
+GNN_LR = 3e-3
+GNN_EVAL = 4096              # held-out nodes scored after training
+
+
+def host_batches(fn, steps: int) -> list:
+    """fn(step) for each step, made on host threads (numpy releases the
+    GIL in its draws); each step's batch is a function of the step alone."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(fn, range(steps)))
+
+
+def retrieval_topk(db, q, label: str, launches: dict) -> dict:
+    """The engine's answers at each Q of RETRIEVAL_QS (p50 of ``db.query``,
+    one batch repeated), its kernel against the plain version on the
+    engine's own padded buffer, the kernel's, the plain version's and
+    torch.matmul + torch.topk's times beside the bound."""
+    import torch
+    from repro_torch.core import distances as D
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.topk_distance import (topk_distance_cuda,
+                                                   topk_distance_plain)
+    scan = db.index._scan
+    N, dp = scan.shape
+    bias = torch.zeros(N, dtype=torch.float32, device=scan.device)
+    out = {}
+    for Q in RETRIEVAL_QS:
+        qq = q[:Q]
+        ops.reset_launch_counts()
+        db.query(qq, k=10)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(RETRIEVAL_REPS[Q]):
+            t0 = time.perf_counter()
+            s, i = db.query(qq, k=10)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        n = ops.launch_counts()["topk_distance"]
+        launches["topk_distance"] = launches.get("topk_distance", 0) + n
+        if n != len(times) + 1:
+            raise AssertionError(f"{label} Q={Q}: {n} topk_distance launches "
+                                 f"for {len(times) + 1} queries")
+        qp = D.pad_width(qq)
+        err = compare_topk(scan, qp, "dot", 10, f"{label} Q={Q} kernel "
+                           f"against plain on the engine's buffer")
+        ms = gpu_ms(lambda: topk_distance_cuda(scan, qp, bias, k=10,
+                                               l2=False), 5)
+        plain_ms = gpu_ms(lambda: topk_distance_plain(scan, qp, bias, k=10,
+                                                      l2=False), 1)
+        lib_ms = gpu_ms(lambda: library_topk(scan, qp, 10), 2)
+        # the bound is the function's, at its own width d; the zero
+        # columns up to dp are the engine's padding, no work the answer needs
+        b = topk_bound(N, db.index.d, Q, 10, False)
+        b_pad = topk_bound(N, dp, Q, 10, False)
+        p50 = percentile(times, 50)
+        log(f"  {label} Q={Q}: p50 {p50 * 1e3:.3f} ms (n={len(times)}); "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.matmul+"
+            f"torch.topk {lib_ms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}) at "
+            f"d={db.index.d}; N={N}, padded to {dp}, which costs the bound "
+            f"{b_pad[0] - b[0]:.3f} ms ({b_pad[0]:.3f} ms, {b_pad[1]})")
+        out[Q] = {"p50_ms": p50 * 1e3, "ms": ms, "plain_ms": plain_ms,
+                  "library_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1],
+                  "padded_bound_ms": b_pad[0],
+                  "max_abs_err": err, "N": N, "d": db.index.d, "d_scan": dp,
+                  "ids": i}
+    return out
+
+
+def recsys_model(cfg, seed: int, device):
+    import torch
+    from repro_torch.models import recsys
+    t0 = time.perf_counter()
+    model = recsys.init(cfg, torch.Generator(device=device).manual_seed(seed),
+                        device=device, trainable=True)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    log(f"  {cfg.name} init on the card: {time.perf_counter() - t0:.2f} s, "
+        f"{n} parameters ({n * 4 / 1e9:.2f} GB)")
+    return model
+
+
+def phase_recsys_gnn(seed: int, device) -> dict:
+    """Phase 13: the recsys family trained at full size, retrieval through
+    ``flat``, then GraphSAGE at reddit's size. Returns {"launches":
+    topk_distance's on the retrieval path, ...}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import ClickLogs, molecule_batch, sbm_graph
+    from repro_torch.models import gnn, recsys
+    from repro_torch.train import recsys as rtrain
+    from repro_torch.train.job import ModelJob, to_device
+    out = {"launches": {}, "recsys": {}, "retrieval": {}}
+    torch.cuda.empty_cache()
+
+    # ---- recsys: four kinds at FULL, 30 steps of 65,536 rows
+    criteo = ClickLogs(get_arch("fm").full)
+    t0 = time.perf_counter()
+    rows = host_batches(lambda s: criteo.batch(RECSYS_BATCH, s), RECSYS_STEPS)
+    log(f"phase 13: recsys at FULL, {RECSYS_STEPS} steps of {RECSYS_BATCH} "
+        f"rows (ClickLogs: {criteo.cfg.n_sparse} sparse + "
+        f"{criteo.cfg.n_dense} dense fields, "
+        f"{sum(criteo.cfg.field_vocab_sizes())} table rows; batches made "
+        f"once on 8 host threads in {time.perf_counter() - t0:.1f} s, shared "
+        f"by fm, deepfm and autoint, whose field sizes are equal), lr "
+        f"{RECSYS_LR} (warmup 10, cosine), clip 1.0, AdamW")
+    trained = {}
+    for kind in RECSYS_KINDS:
+        t_kind = time.perf_counter()
+        cfg = get_arch(kind).full
+        logs = ClickLogs(cfg)
+        if kind == "sasrec":
+            t0 = time.perf_counter()
+            data = host_batches(lambda s: logs.sequence_batch(RECSYS_BATCH, s),
+                                RECSYS_STEPS)
+            log(f"  sasrec sequence batches ({cfg.n_items} items, seq "
+                f"{cfg.seq_len}): {time.perf_counter() - t0:.1f} s")
+            small = logs.sequence_batch(RECSYS_CPU_BATCH, 1000)
+        else:
+            data = rows
+            small = logs.batch(RECSYS_CPU_BATCH, 1000)
+        model = recsys_model(cfg, seed, device)
+
+        def loss(m, b, cfg=cfg):
+            return recsys.loss_fn(m, cfg, b)
+
+        cpu = card_against_cpu(model, loss, small, device,
+                               f"{kind} float32 {RECSYS_CPU_BATCH} rows at "
+                               f"the full tables, card against CPU",
+                               rel=1e-5, cos_min=0.99999)
+        job = ModelJob(cfg, model, loss, lambda s: data[s], lr=RECSYS_LR,
+                       warmup=10, total_steps=RECSYS_STEPS, log_every=0)
+        for s in range(RECSYS_STEPS - 1):
+            job.run_step(s)
+        busy, top = busy_ms(lambda: job.run_step(RECSYS_STEPS - 1))
+        st = job.step_seconds[1:RECSYS_STEPS - 1]
+        p50 = percentile(st, 50)
+        first, last = curve_falls(job.metrics, kind)
+        log(f"  {kind}: step p50 {p50 * 1e3:.2f} ms, p99 "
+            f"{percentile(st, 99) * 1e3:.2f} ms, "
+            f"{RECSYS_BATCH / p50:.0f} examples/s at the p50 (the first step "
+            f"{job.step_seconds[0]:.2f} s); the last step's device busy "
+            f"{busy:.2f} ms (profiler; top: {top}); "
+            f"{time.perf_counter() - t_kind:.1f} s")
+        out["recsys"][kind] = {"p50_ms": p50 * 1e3, "busy_ms": busy,
+                               "examples_per_s": RECSYS_BATCH / p50,
+                               "loss_first_last": (first, last),
+                               "cpu_rel": cpu["rel"], "cpu_cos": cpu["cos"]}
+        if kind in ("fm", "sasrec", "autoint"):
+            trained[kind] = (cfg, model)
+        del job, data
+        torch.cuda.empty_cache()
+    del rows
+
+    # ---- retrieval through VectorDB("flat", metric="dot")
+    for kind in ("fm", "sasrec", "autoint"):
+        cfg, model = trained.pop(kind)
+        t0 = time.perf_counter()
+        db = rtrain.retrieval_db(model, cfg)
+        torch.cuda.synchronize()
+        logs = ClickLogs(cfg)
+        users = (logs.sequence_batch(max(RETRIEVAL_QS), 10_000)
+                 if kind == "sasrec" else
+                 logs.batch(max(RETRIEVAL_QS), 10_000))
+        users = to_device(users, device)
+        q = rtrain.user_vectors(model, cfg, users)
+        log(f"  {kind} retrieval: item tower ({db.index.corpus.shape[0]} x "
+            f"{db.index.d}) into "
+            f"VectorDB('flat', metric='dot') in {time.perf_counter() - t0:.2f} "
+            f"s")
+        res = retrieval_topk(db, q, f"{kind} retrieval", out["launches"])
+        if kind == "fm":
+            u = RETRIEVAL_USERS
+            few = {k: v[:u] for k, v in users.items()}
+            t0 = time.perf_counter()
+            full = rtrain.fm_rescore(model, cfg, few)
+            mips = res[max(RETRIEVAL_QS)]["ids"][:u, 0].long()
+            best = full.max(dim=1)
+            got = full[torch.arange(u, device=full.device), mips]
+            tol = 1e-5 * float(full.abs().max()) + 1e-6
+            exact = int((mips == best.indices).sum())
+            log(f"  fm: the MIPS top item of {u} users against fm_forward "
+                f"re-scored over all {full.shape[1]} items "
+                f"({time.perf_counter() - t0:.2f} s): {exact} of {u} the "
+                f"argmax itself, max score gap "
+                f"{float((best.values - got).max()):.3e} (bound {tol:.3e}: "
+                f"ties aside)")
+            if not bool((best.values - got <= tol).all()):
+                raise AssertionError("fm: the MIPS top item is not the full "
+                                     "model's argmax")
+        out["retrieval"][kind] = {Q: {k: v for k, v in r.items() if k != "ids"}
+                                  for Q, r in res.items()}
+        del db, model, q
+        torch.cuda.empty_cache()
+
+    # ---- GraphSAGE at reddit's size
+    cfg = get_arch("graphsage-reddit").full
+    t0 = time.perf_counter()
+    g = sbm_graph(GNN_NODES, cfg.n_classes, cfg.d_in, avg_degree=GNN_DEGREE,
+                  seed=seed)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sampler = gnn.NeighborSampler(g["edges"], GNN_NODES, cfg.sample_sizes,
+                                  seed=seed)
+    t_csr = time.perf_counter() - t0
+    log(f"phase 13: {cfg.name} FULL (d_in {cfg.d_in}, hidden {cfg.d_hidden}, "
+        f"{cfg.n_classes} classes, {cfg.aggregator}, fanouts "
+        f"{cfg.sample_sizes}) on sbm_graph({GNN_NODES} nodes, avg_degree "
+        f"{GNN_DEGREE}: {g['edges'].shape[1]} directed edges; reddit has "
+        f"{GNN_EDGES}): graph {t_graph:.1f} s, CSR {t_csr:.1f} s on the host")
+    feats = torch.as_tensor(g["feats"]).to(device)
+    labels = torch.as_tensor(g["labels"]).to(device)
+    train_nodes = np.nonzero(g["label_mask"])[0]
+    held = np.nonzero(~g["label_mask"])[0]
+    fan = list(cfg.sample_sizes)
+    sample_s = []
+
+    def block_batch(seeds):
+        t0 = time.perf_counter()
+        nodes, blocks = sampler.sample(seeds)
+        nodes, blocks = gnn.pad_sample(nodes, blocks, len(seeds), fan)
+        sample_s.append(time.perf_counter() - t0)
+        return {"feats": feats[torch.as_tensor(nodes).to(device)],
+                "blocks": to_device(blocks, device),
+                "labels": labels[torch.as_tensor(seeds).to(device)]}
+
+    def seeds_of(step):
+        return np.random.default_rng((seed, step)).choice(
+            train_nodes, GNN_SEEDS, replace=False)
+
+    model = gnn.init(cfg, torch.Generator(device=device).manual_seed(seed),
+                     device=device, trainable=True)
+
+    def bloss(m, b):
+        return gnn.block_loss(m, cfg, b)
+
+    cpu = card_against_cpu(model, bloss, block_batch(seeds_of(10_000)),
+                           device, f"graphsage float32 one sampled batch of "
+                           f"{GNN_SEEDS} seeds, card against CPU", rel=1e-5,
+                           cos_min=0.99999)
+    sample_s.clear()
+    job = ModelJob(cfg, model, bloss, lambda s: block_batch(seeds_of(s)),
+                   lr=GNN_LR, warmup=10, total_steps=GNN_STEPS, log_every=0)
+    for s in range(GNN_STEPS - 1):
+        job.run_step(s)
+    b = block_batch(seeds_of(GNN_STEPS - 1))
+    job.batch_fn = lambda s: b  # the last step's batch sampled before it
+    busy, top = busy_ms(lambda: job.run_step(GNN_STEPS - 1))
+    first, last = curve_falls(job.metrics, "graphsage block_loss")
+    with torch.no_grad():
+        correct = 0
+        for a in range(0, GNN_EVAL, GNN_SEEDS):
+            ev = held[a:a + GNN_SEEDS]
+            eb = block_batch(ev)
+            logits = gnn.forward_blocks(model, cfg, eb["feats"], eb["blocks"])
+            correct += int((logits.argmax(-1) == eb["labels"]).sum())
+    acc = correct / GNN_EVAL
+    st = job.step_seconds[1:GNN_STEPS - 1]
+    log(f"  graphsage: step p50 {percentile(st, 50) * 1e3:.2f} ms, p99 "
+        f"{percentile(st, 99) * 1e3:.2f} ms (host clock, the sampler "
+        f"included); the sampler's host ms a step p50 "
+        f"{percentile(sample_s, 50) * 1e3:.2f}; the last step's device "
+        f"busy {busy:.2f} ms (profiler, its batch sampled before it; top: "
+        f"{top}); "
+        f"held-out accuracy {acc:.4f} over {GNN_EVAL} nodes (bound > 0.5; "
+        f"chance {1 / cfg.n_classes:.3f})")
+    if not acc > 0.5:
+        raise AssertionError("graphsage: held-out accuracy at or below 0.5")
+    out["gnn"] = {"graph_s": t_graph, "csr_s": t_csr, "edges":
+                  int(g["edges"].shape[1]), "avg_degree": GNN_DEGREE,
+                  "step_p50_ms": percentile(st, 50) * 1e3,
+                  "sampler_ms": percentile(sample_s, 50) * 1e3,
+                  "busy_ms": busy, "held_out_acc": acc,
+                  "loss_first_last": (first, last), "cpu_rel": cpu["rel"],
+                  "cpu_cos": cpu["cos"]}
+    del job, model, feats, g, sampler
+    torch.cuda.empty_cache()
+
+    # ---- node_loss at cora's shape, graph_loss on molecule_batch(128)
+    for label, gcfg, data, lossfn in (
+            ("node_loss at cora's shape (2,708 nodes, 1,433 features, 7 "
+             "classes)", dataclasses.replace(cfg, d_in=1433, n_classes=7),
+             sbm_graph(2708, 7, 1433, seed=seed), gnn.node_loss),
+            ("graph_loss on molecule_batch(128)",
+             dataclasses.replace(cfg, d_in=16, n_classes=2),
+             molecule_batch(128, seed=seed), gnn.graph_loss)):
+        m = gnn.init(gcfg, torch.Generator(device=device).manual_seed(seed),
+                     device=device, trainable=True)
+        dev_data = to_device(data, device)
+        job = ModelJob(gcfg, m, lambda mm, bb, c=gcfg, f=lossfn: f(mm, c, bb),
+                       lambda s: dev_data, lr=GNN_LR, warmup=10,
+                       total_steps=20, log_every=0)
+        for s in range(20):
+            job.run_step(s)
+        out["gnn"][label.split()[0]] = curve_falls(job.metrics, label)
+    return out
+
+
+ALL_PHASES = tuple(range(3, 14))
+
+
+def parse_phases(text) -> tuple:
+    """"4,12-13" -> (4, 12, 13): the phases after the header and the build
+    (1 and 2 always run); None -> every phase. Phase 7 runs inside phase
+    6, so either selects both."""
+    if text is None:
+        return ALL_PHASES
+    chosen = set()
+    for part in text.split(","):
+        a, _, b = part.strip().partition("-")
+        lo, hi = int(a), int(b or a)
+        chosen.update(range(lo, hi + 1))
+    chosen -= {1, 2}
+    if chosen & {6, 7}:
+        chosen |= {6, 7}
+    bad = chosen - set(ALL_PHASES)
+    if bad:
+        raise SystemExit(f"chip_smoke: no phase {sorted(bad)}; phases are "
+                         f"1-13")
+    return tuple(sorted(chosen))
+
+
+def timed_phase(label: str, fn):
+    t0 = time.perf_counter()
+    result = fn()
+    log(f"[{label}: {time.perf_counter() - t0:.1f} s]")
+    return result
+
+
+def add_launches(kernels, name: str, n: int, key: str, extra=None) -> None:
+    """Add a later phase's launches of ``name`` to its kernels-line entry."""
+    for entry in kernels:
+        if entry["name"] == name:
+            entry["launches"] += n
+            entry[key] = dict(extra or {}, launches=n)
+
+
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(
+        description=__doc__.splitlines()[0],
+        epilog="Phases 1 (header) and 2 (build) always run. Each selected "
+               "phase makes its own data from --seed, so any subset runs "
+               "alone; phase 7 runs inside phase 6 (selecting either runs "
+               "both), and the kernels line holds the entries of the "
+               "phases that ran (phases 4 and 5 make rows 1-7; phase 13 "
+               "alone makes topk_distance's from its own shapes).")
     ap.add_argument("--n", type=int, default=MARCO_PASSAGES,
                     help="corpus rows of the main phase")
     ap.add_argument("--seed", type=int, default=0)
@@ -5419,7 +6093,11 @@ def main(argv=None) -> int:
                          "checkpoints (a directory of their own inside, "
                          "removed after); the system's temporary directory "
                          "by default")
+    ap.add_argument("--phases", default=None,
+                    help="the phases to run after 1 and 2, as a list such "
+                         "as 4,12-13; every phase (3-13) by default")
     args = ap.parse_args(argv)
+    phases = parse_phases(args.phases)
 
     import torch
     if not torch.cuda.is_available():
@@ -5435,67 +6113,83 @@ def main(argv=None) -> int:
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import tempfile
+    snap_root = args.snapshot_dir or tempfile.gettempdir()
 
     t_start = time.perf_counter()
     smi, rates = phase_header()
-    t0 = time.perf_counter()
-    phase_build()
-    log(f"[phase 2: {time.perf_counter() - t0:.1f} s]")
-    t0 = time.perf_counter()
-    phase_mid(args.seed, device, args.rank)
-    log(f"[phase 3: {time.perf_counter() - t0:.1f} s]")
-    t0 = time.perf_counter()
-    kernels, recalls = phase_main(args.n, args.seed, device, args.rank,
-                                  args.min_recall, rates)
-    log(f"[phase 4: {time.perf_counter() - t0:.1f} s]")
-    t0 = time.perf_counter()
-    kernels.append(phase_text(args.seed, device))
-    log(f"[phase 5: {time.perf_counter() - t0:.1f} s]")
-    t0 = time.perf_counter()
-    import tempfile
-    mutated, durable = phase_mutation(
-        args.n, args.seed, device, args.rank, rates, args.min_recall,
-        recalls["ivf_pq"], args.snapshot_dir or tempfile.gettempdir())
-    for entry in kernels:
-        if entry["name"] in mutated:
-            entry["mutation_phase"] = mutated[entry["name"]]
-        entry["durability_phase"] = {"launches": durable.get(entry["name"],
-                                                             0)}
-    log(f"[phases 6 and 7: {time.perf_counter() - t0:.1f} s]")
-    engines = phase_engines(args.n, args.seed, device, args.rank,
-                            args.min_recall)
-    for entry in kernels:
-        if entry["name"] == "topk_distance":
-            entry["launches"] += engines["launches"]
-            entry["engines_phase"] = engines
-    mesh = phase_mesh(args.n, args.seed, device, args.rank, rates)
-    for entry in kernels:
-        if entry["name"] in P9_KERNELS:
-            n_p9 = mesh["launches"].get(entry["name"], 0)
-            entry["launches"] += n_p9
-            entry["mesh_phase"] = {"launches": n_p9}
-    log("phase 9 summary: " + json.dumps(
-        {k: v for k, v in mesh.items() if k != "launches"}, default=str))
-    train = phase_train(args.seed, device,
-                        args.snapshot_dir or tempfile.gettempdir())
-    for entry in kernels:
-        if entry["name"] in train["launches"]:
-            n_p10 = train["launches"][entry["name"]]
-            entry["launches"] += n_p10
-            entry["train_phase"] = {"launches": n_p10}
-    log("phase 10 summary: " + json.dumps(
-        {k: v for k, v in train.items() if k != "launches"}, default=str))
-    t0 = time.perf_counter()
-    lm = phase_lm(args.seed, device)
-    for entry in kernels:
-        if entry["name"] == "flash_attention":
-            entry["launches"] += lm["launches"]
-            shapes = [m["flash"] for m in lm["models"].values()]
-            entry["max_abs_err"] = max([entry["max_abs_err"]]
-                                       + [f["max_abs_err"] for f in shapes])
-            entry["lm_phase"] = {"launches": lm["launches"], "shapes": shapes}
-    log("phase 11 summary: " + json.dumps(lm["models"], default=str))
-    log(f"[phase 11: {time.perf_counter() - t0:.1f} s]")
+    log(f"phases: 1, 2, {', '.join(str(p) for p in phases)}")
+    timed_phase("phase 2", phase_build)
+    kernels, recalls = [], {"ivf_pq": float("nan")}
+    if 3 in phases:
+        timed_phase("phase 3", lambda: phase_mid(args.seed, device,
+                                                 args.rank))
+    if 4 in phases:
+        kernels, recalls = timed_phase("phase 4", lambda: phase_main(
+            args.n, args.seed, device, args.rank, args.min_recall, rates))
+    if 5 in phases:
+        kernels.append(timed_phase("phase 5", lambda: phase_text(
+            args.seed, device)))
+    if 6 in phases:
+        mutated, durable = timed_phase("phases 6 and 7", lambda: phase_mutation(
+            args.n, args.seed, device, args.rank, rates, args.min_recall,
+            recalls["ivf_pq"], snap_root))
+        for entry in kernels:
+            if entry["name"] in mutated:
+                entry["mutation_phase"] = mutated[entry["name"]]
+            entry["durability_phase"] = {"launches": durable.get(
+                entry["name"], 0)}
+    if 8 in phases:
+        engines = phase_engines(args.n, args.seed, device, args.rank,
+                                args.min_recall)
+        add_launches(kernels, "topk_distance", engines["launches"],
+                     "engines_phase", engines)
+    if 9 in phases:
+        mesh = phase_mesh(args.n, args.seed, device, args.rank, rates)
+        for name in P9_KERNELS:
+            add_launches(kernels, name, mesh["launches"].get(name, 0),
+                         "mesh_phase")
+        log("phase 9 summary: " + json.dumps(
+            {k: v for k, v in mesh.items() if k != "launches"}, default=str))
+    if 10 in phases:
+        train = phase_train(args.seed, device, snap_root)
+        for name, n_p10 in train["launches"].items():
+            add_launches(kernels, name, n_p10, "train_phase")
+        log("phase 10 summary: " + json.dumps(
+            {k: v for k, v in train.items() if k != "launches"}, default=str))
+    if 11 in phases:
+        lm = timed_phase("phase 11", lambda: phase_lm(args.seed, device))
+        for entry in kernels:
+            if entry["name"] == "flash_attention":
+                entry["launches"] += lm["launches"]
+                shapes = [m["flash"] for m in lm["models"].values()]
+                entry["max_abs_err"] = max([entry["max_abs_err"]]
+                                           + [f["max_abs_err"] for f in shapes])
+                entry["lm_phase"] = {"launches": lm["launches"],
+                                     "shapes": shapes}
+        log("phase 11 summary: " + json.dumps(lm["models"], default=str))
+    if 12 in phases:
+        lm_train = timed_phase("phase 12", lambda: phase_lm_train(
+            args.seed, device))
+        log("phase 12 summary: " + json.dumps(lm_train, default=str))
+    if 13 in phases:
+        rec = timed_phase("phase 13", lambda: phase_recsys_gnn(args.seed,
+                                                               device))
+        n13 = rec["launches"].get("topk_distance", 0)
+        shapes = {f"{kind} Q={Q}": r for kind, by_q in rec["retrieval"].items()
+                  for Q, r in by_q.items()}
+        if not any(e["name"] == "topk_distance" for e in kernels):
+            r = shapes[f"fm Q={max(RETRIEVAL_QS)}"]
+            kernels.append(kernel_entry(
+                "topk_distance", "src/repro_torch/csrc/topk_distance.cu",
+                "src/repro/kernels/topk_distance.py:77", 0, r["max_abs_err"],
+                r["ms"], r["plain_ms"], (r["bound_ms"], r["bound_by"]),
+                r["library_ms"], f"fm retrieval N={r['N']} d={r['d']} (scan width "
+                f"{r['d_scan']}) Q={max(RETRIEVAL_QS)}"))
+        add_launches(kernels, "topk_distance", n13, "recsys_phase",
+                     {"shapes": shapes})
+        log("phase 13 summary: " + json.dumps(
+            {k: v for k, v in rec.items() if k != "launches"}, default=str))
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]
@@ -5508,7 +6202,6 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,13 +1,13 @@
-"""Config dataclasses of the transformer family (port of
-``repro.configs.base``: ``MLAConfig``, ``MoEConfig``, ``LMConfig`` and
-``EncoderConfig``, copied field for field so that a config compares equal
-to the reference's). The GNN and recsys configs come with their models
-(ROADMAP.md Queue 1, item 9); ``configs.registry`` lists every arch id.
+"""Config dataclasses of every model family (port of
+``repro.configs.base``: ``MLAConfig``, ``MoEConfig``, ``LMConfig``,
+``EncoderConfig``, ``GNNConfig`` and ``RecsysConfig``, copied field for
+field so that a config compares equal to the reference's);
+``configs.registry`` lists every arch id.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,3 +174,89 @@ class EncoderConfig(LMConfig):
     pool: str = "mean"
     project_dim: int = 0  # optional projection after pooling (0 = off)
     normalize: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str = "graphsage"
+    n_layers: int = 2
+    d_hidden: int = 128
+    d_in: int = 602
+    n_classes: int = 41
+    aggregator: str = "mean"  # "mean" | "max" | "sum"
+    sample_sizes: Tuple[int, ...] = (25, 10)
+    dtype: str = "float32"
+    param_dtype: str = "float32"
+    # wire precision of neighbor messages: the gather over shard boundaries is
+    # the dominant collective on full-graph cells; bf16 halves it while the
+    # segment reduction still accumulates in f32 (§Perf ogb_products)
+    message_dtype: str = "float32"
+
+    def n_params(self) -> int:
+        total = 0
+        d_prev = self.d_in
+        for _ in range(self.n_layers):
+            total += 2 * d_prev * self.d_hidden + self.d_hidden  # self + neigh + bias
+            d_prev = self.d_hidden
+        total += d_prev * self.n_classes + self.n_classes
+        return total
+
+
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str = "fm"
+    kind: str = "fm"  # "fm" | "deepfm" | "autoint" | "sasrec"
+    n_sparse: int = 39
+    n_dense: int = 13
+    embed_dim: int = 10
+    # per-field vocab sizes; () => synthesized power-law table sizes
+    vocab_sizes: Tuple[int, ...] = ()
+    total_vocab: int = 33_000_000
+    mlp_dims: Tuple[int, ...] = ()
+    # autoint
+    n_attn_layers: int = 0
+    n_attn_heads: int = 0
+    d_attn: int = 0
+    # sasrec
+    n_items: int = 0
+    seq_len: int = 0
+    n_blocks: int = 0
+    dtype: str = "float32"
+    param_dtype: str = "float32"
+
+    def field_vocab_sizes(self) -> Tuple[int, ...]:
+        if self.vocab_sizes:
+            return self.vocab_sizes
+        # deterministic power-law split of total_vocab across fields (criteo-like:
+        # a few huge ID tables, a long tail of small ones). The unified table's
+        # total is rounded up to a 2048 multiple so its rows shard evenly over
+        # any production mesh (256/512 devices); pad rows are never indexed.
+        n = self.n_sparse
+        if n == 0:  # sequence models (sasrec) have no sparse fields
+            return ()
+        weights = [1.0 / (i + 1) ** 1.1 for i in range(n)]
+        s = sum(weights)
+        sizes = [max(4, int(self.total_vocab * w / s)) for w in weights]
+        pad = (-sum(sizes)) % 2048
+        sizes[0] += pad
+        return tuple(sizes)
+
+    def n_params(self) -> int:
+        if self.kind == "sasrec":
+            d = self.embed_dim
+            per_block = 4 * d * d + 2 * d * d + 4 * d + 2 * d  # attn + pffn + norms
+            return (self.n_items + 1) * d + self.seq_len * d + self.n_blocks * per_block
+        total = sum(self.field_vocab_sizes()) * self.embed_dim  # V embedding
+        total += sum(self.field_vocab_sizes())  # first-order weights
+        total += self.n_dense * self.embed_dim + self.n_dense  # dense projections
+        d_in = (self.n_sparse + self.n_dense) * self.embed_dim
+        for h in self.mlp_dims:
+            total += d_in * h + h
+            d_in = h
+        if self.mlp_dims:
+            total += d_in + 1
+        if self.n_attn_layers:
+            d = self.embed_dim
+            da = self.d_attn * self.n_attn_heads
+            total += self.n_attn_layers * (3 * d * da + da * d)
+        return total

@@ -1,11 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution (port of
 ``repro.configs.registry``).
 
-Every arch id of the reference is listed with its family. The port has
-config modules for the encoder family (``thistle-sbert``) and the five
-``lm`` archs; ``get_arch`` of a ``gnn`` or ``recsys`` id raises
-``NotImplementedError`` naming the ROADMAP item that brings its configs
-and models.
+Every arch id of the reference is listed with its family (``lm``,
+``encoder``, ``gnn``, ``recsys``), with the port's config module of the
+same name.
 """
 from __future__ import annotations
 
@@ -27,12 +25,6 @@ _MODULES = {
     "thistle-sbert": ("thistle_sbert", "encoder"),
 }
 
-PORTED_FAMILIES = ("encoder", "lm")
-# where each family's configs and models come (ROADMAP.md Queue 1)
-PENDING = {"gnn": "ROADMAP.md Queue 1, item 9 (models/gnn.py)",
-           "recsys": "ROADMAP.md Queue 1, item 9 (models/recsys.py)"}
-
-
 @dataclasses.dataclass(frozen=True)
 class ArchEntry:
     arch_id: str
@@ -52,10 +44,6 @@ def family(arch_id: str) -> str:
 
 def get_arch(arch_id: str) -> ArchEntry:
     fam = family(arch_id)
-    if fam not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{arch_id!r} is of the {fam} family, whose configs and models "
-            f"the port does not have yet: {PENDING[fam]}")
     if arch_id not in _CACHE:
         mod = importlib.import_module(
             f"repro_torch.configs.{_MODULES[arch_id][0]}")

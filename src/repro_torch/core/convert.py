@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from repro_torch.search.meta import STATE_PREFIX
+from repro_torch.train.optim import tree_build
 
 
 MESH_ENGINES = ("dist_flat", "dist_pq", "dist_ivf_pq")
@@ -109,9 +110,12 @@ def from_reference_state(state) -> dict:
 
 
 def _flatten(tree, prefix=""):
-    for key, value in tree.items():
+    """(dotted name, leaf) of a tree of dicts and lists, a list item named
+    by its index (``attn.0.wq``, as a ``ModuleList`` names it)."""
+    items = enumerate(tree) if isinstance(tree, (list, tuple)) else tree.items()
+    for key, value in items:
         name = f"{prefix}{key}"
-        if isinstance(value, dict):
+        if isinstance(value, (dict, list, tuple)):
             yield from _flatten(value, name + ".")
         elif value is not None:
             yield name, value
@@ -119,19 +123,24 @@ def _flatten(tree, prefix=""):
 
 def _stacks(cfg) -> dict:
     """{stacked subtree: its layer count}: the reference's ``jax.vmap``
-    inits stack these leaves over axis 0."""
+    inits stack these leaves over axis 0. Only the transformer stacks
+    layers; the recsys and GNN trees hold their layers in lists."""
+    if not hasattr(cfg, "n_dense_layers"):
+        return {}
     return {"dense_blocks": cfg.n_dense_layers,
             "moe_blocks": cfg.n_moe_layers,
             "mtp": cfg.mtp_depth}
 
 
 def from_reference_params(tree: dict, cfg) -> dict:
-    """The reference transformer's (or encoder's) parameter tree, as nested
-    dicts of numpy arrays (or tensors), -> the port's ``state_dict``.
+    """A reference model's parameter tree (the transformer's, the
+    encoder's, a recsys or GNN model's), as nested dicts and lists of
+    numpy arrays (or tensors), -> the port's ``state_dict``.
 
-    Names are the tree's paths joined by dots. The reference stacks the
-    ``dense_blocks``, ``moe_blocks`` and ``mtp`` leaves over their layers
-    on axis 0 (one ``jax.vmap`` init each); they become
+    Names are the tree's paths joined by dots, a list item by its index.
+    The reference stacks the transformer's ``dense_blocks``,
+    ``moe_blocks`` and ``mtp`` leaves over their layers on axis 0 (one
+    ``jax.vmap`` init each); they become
     ``<stack>.<i>.<path>``, one entry a layer (an MoE layer's expert axis
     kept: ``moe_blocks.<i>.moe.experts.w_up`` is (E, d, f)). Every leaf
     keeps its layout ((d, h, dh) for ``wq``, (h, dh, d) for ``wo``) and
@@ -151,7 +160,7 @@ def from_reference_params(tree: dict, cfg) -> dict:
                                      f"layers, config has {n}")
                 for i in range(n):
                     out[f"{key}.{i}.{name}"] = arr[i].clone()
-        elif isinstance(sub, dict):
+        elif isinstance(sub, (dict, list, tuple)):
             for name, leaf in _flatten(sub, key + "."):
                 out[name] = _as_tensor(leaf)
         else:
@@ -170,15 +179,11 @@ def _as_tensor(leaf) -> torch.Tensor:
 
 
 def _nest(flat: dict) -> dict:
-    """{"a.b.c": x} -> {"a": {"b": {"c": x}}}."""
-    out = {}
-    for name, leaf in flat.items():
-        *path, last = name.split(".")
-        node = out
-        for part in path:
-            node = node.setdefault(part, {})
-        node[last] = leaf
-    return out
+    """{"a.b.c": x} -> {"a": {"b": {"c": x}}}; a level named by indices
+    (a ``ModuleList``'s "0", "1", ...) becomes a list."""
+    return tree_build((tuple(int(p) if p.isdigit() else p
+                             for p in name.split(".")), leaf)
+                      for name, leaf in flat.items())
 
 
 def stack_layers(named: dict, cfg) -> dict:
@@ -210,36 +215,36 @@ def stack_layers(named: dict, cfg) -> dict:
 
 def bind_reference_layout(model, cfg) -> dict:
     """The model's parameters as the reference's tree, sharing storage:
-    each ``dense_blocks`` leaf becomes one (L, ...) tensor and every
+    each ``dense_blocks``, ``moe_blocks`` and ``mtp`` leaf becomes one
+    (L, ...) tensor (an MoE leaf keeps its expert axis after L) and every
     layer's parameter is re-registered as a view of its slice; the other
-    leaves are the parameters themselves (detached aliases). A write into
-    the tree is a write into the model. The optimizer runs over this tree,
-    so that Adam moments (the int8 blocks too, which the reference forms
-    over the stacked leaf) have the reference's layout leaf for leaf. Bind
-    after the model has moved to its device: ``Module.to`` replaces the
-    storage. MoE blocks and the MTP head are refused: the LM's training,
-    which would update them, comes with ROADMAP.md Queue 1, item 9."""
-    if cfg.n_moe_layers or cfg.mtp_depth:
-        raise NotImplementedError(
-            "binding MoE blocks or the MTP head for training comes with LM "
-            "training (ROADMAP.md Queue 1, item 9: loss_fn, the MTP head's "
-            "loss and the lm family of launch/train.py)")
+    leaves are the parameters themselves (detached aliases), in dicts and
+    lists as the reference nests them (a recsys or GNN model has no
+    stacks). A write into the tree is a write into the model. The
+    optimizer runs over this tree, so that Adam moments (the int8 blocks
+    too, which the reference forms over the stacked leaf) have the
+    reference's layout leaf for leaf. Bind after the model has moved to
+    its device: ``Module.to`` replaces the storage."""
     tree = stack_layers({n: p.detach() for n, p in model.named_parameters()},
                         cfg)
-    for i, layer in enumerate(model.dense_blocks):
-        for rest, param in list(layer.named_parameters()):
-            stacked = tree["dense_blocks"]
-            for part in rest.split("."):
-                stacked = stacked[part]
-            owner_path, _, leaf = rest.rpartition(".")
-            setattr(layer.get_submodule(owner_path), leaf,
-                    nn.Parameter(stacked[i], requires_grad=param.requires_grad))
+    for key in _stacks(cfg):
+        for i, layer in enumerate(getattr(model, key, None) or ()):
+            for rest, param in list(layer.named_parameters()):
+                stacked = tree[key]
+                for part in rest.split("."):
+                    stacked = stacked[part]
+                owner_path, _, leaf = rest.rpartition(".")
+                setattr(layer.get_submodule(owner_path), leaf,
+                        nn.Parameter(stacked[i],
+                                     requires_grad=param.requires_grad))
     return tree
 
 
 def _map_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn) for k, v in tree.items() if v is not None}
+    if isinstance(tree, (list, tuple)):
+        return [_map_tree(v, fn) for v in tree]
     return fn(tree)
 
 
@@ -276,16 +281,15 @@ def to_reference_train_state(state: dict, cfg) -> dict:
 
 
 def _check_layers(state: dict, cfg) -> None:
-    """Every ``dense_blocks`` leaf of the parameters and moments stacks
-    ``cfg``'s layer count, but a flat int8 block list, which spans the
-    whole stack."""
-    for sub in (state["params"].get("dense_blocks"),
-                state["opt"]["mu"].get("dense_blocks")):
-        for name, leaf in _flatten(sub or {}):
-            flat_int8 = (leaf.ndim == 1 and name.rsplit(".", 1)[-1]
-                         in ("m_q", "m_s", "v_q", "v_s"))
-            if not flat_int8 and (leaf.ndim == 0
-                                  or leaf.shape[0] != cfg.n_dense_layers):
-                raise ValueError(f"dense_blocks.{name} of shape "
-                                 f"{tuple(leaf.shape)} does not stack "
-                                 f"{cfg.n_dense_layers} layers")
+    """Every ``dense_blocks``, ``moe_blocks`` and ``mtp`` leaf of the
+    parameters and moments stacks ``cfg``'s layer count of its kind, but a
+    flat int8 block list, which spans the whole stack."""
+    for key, n in _stacks(cfg).items():
+        for sub in (state["params"].get(key), state["opt"]["mu"].get(key)):
+            for name, leaf in _flatten(sub or {}):
+                flat_int8 = (leaf.ndim == 1 and name.rsplit(".", 1)[-1]
+                             in ("m_q", "m_s", "v_q", "v_s"))
+                if not flat_int8 and (leaf.ndim == 0 or leaf.shape[0] != n):
+                    raise ValueError(f"{key}.{name} of shape "
+                                     f"{tuple(leaf.shape)} does not stack "
+                                     f"{n} layers")

@@ -18,11 +18,24 @@ import torch
 from repro_torch.device import strict_fp32
 
 METRICS = ("dot", "cosine", "l2")
+KERNEL_WIDTH = 8  # topk_distance takes d a multiple of 8 (16-byte bf16 rows)
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
     norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
     return x / torch.clamp(norm, min=eps)
+
+
+def pad_width(x: torch.Tensor) -> torch.Tensor:
+    """x (..., d) with zero columns appended up to the next multiple of
+    ``KERNEL_WIDTH``, the width the ``topk_distance`` kernel takes; x
+    itself when d is one. Zero columns change no dot, l2 or cosine score
+    (nor a norm), so an engine pads its scan buffer once at load and
+    write, and each query batch."""
+    pad = (-x.shape[-1]) % KERNEL_WIDTH
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
 
 
 def preprocess_corpus(corpus: torch.Tensor, metric: str):

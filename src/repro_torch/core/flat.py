@@ -13,6 +13,11 @@ reference's ``FlatIndex(dtype=jnp.bfloat16)`` does: rows are normalized
 to bf16 before they are normalized, and bf16 products are summed in
 float32.
 
+The scan buffer's rows are zero-padded to a multiple of 8 columns, the
+width the kernel takes (``distances.pad_width``), once at load and at each
+write, and each query batch; ``corpus`` is the (N, d) view of it that
+holds the rows as loaded.
+
 Mutation follows the reference: the corpus is an id-indexed buffer with a
 live mask; inserts append, deletes clear the mask, upserts overwrite in
 place, all on the device. A bf16 engine stores each written row as the
@@ -71,7 +76,8 @@ class FlatIndex(MutationMixin):
         self.dtype = corpus_dtype(dtype)
         self.device = resolve_device(device)
         self.corpus = self.corpus_sq = self.valid = None
-        self._corpus = self._sq = self._valid = None
+        self._corpus = self._sq = self._valid = self._scan = None
+        self.d = 0
         self._mut_init(0)
 
     @property
@@ -83,7 +89,8 @@ class FlatIndex(MutationMixin):
         return (0 if self._corpus is None else self._corpus.capacity,)
 
     def _init_storage(self, corpus, sq, live) -> None:
-        self._corpus = GrowableRows.from_array(corpus)
+        self.d = corpus.shape[1]
+        self._corpus = GrowableRows.from_array(D.pad_width(corpus))
         self._sq = None if sq is None else GrowableRows.from_array(sq)
         self._valid = GrowableRows.from_array(live)
         self._mut_init(corpus.shape[0])
@@ -116,7 +123,8 @@ class FlatIndex(MutationMixin):
 
     def _write_rows(self, ids, rows, sq) -> None:
         live = torch.ones_like(ids, dtype=torch.bool)
-        self._write_mirrors(ids, ((self._corpus, rows), (self._sq, sq),
+        self._write_mirrors(ids, ((self._corpus, D.pad_width(rows)),
+                                  (self._sq, sq),
                                   (self._valid, live)))
 
     def insert(self, vectors, ids=None) -> torch.Tensor:
@@ -155,7 +163,9 @@ class FlatIndex(MutationMixin):
     def _sync(self) -> None:
         if not self._dirty:
             return
-        self.corpus = self._corpus.data
+        self._scan = self._corpus.data
+        self.corpus = (self._scan if self._scan.shape[1] == self.d
+                       else self._scan[:, :self.d])
         self.corpus_sq = None if self._sq is None else self._sq.data
         self.valid = self._valid.data.clone()
         self.valid[self._valid.n:] = False
@@ -169,15 +179,16 @@ class FlatIndex(MutationMixin):
         q = torch.atleast_2d(torch.as_tensor(q, dtype=torch.float32,
                                              device=self.device))
         valid = kops.and_allowed(self.valid, allowed, self.valid.shape[0])
-        return flat_search(self.corpus, q.to(self.dtype), metric=self.metric,
-                           k=k, corpus_sq=self.corpus_sq, valid=valid)
+        return flat_search(self._scan, D.pad_width(q).to(self.dtype),
+                           metric=self.metric, k=k, corpus_sq=self.corpus_sq,
+                           valid=valid)
 
     # ------------------------------------------------------- persistence
     def state_dict(self) -> dict:
         n = self.next_id
         state = {"engine": "flat", "metric": self.metric,
                  "dtype": str(self.dtype).replace("torch.", ""),
-                 "corpus": self._corpus.data[:n],
+                 "corpus": self._corpus.data[:n, :self.d],
                  "live": self._valid.data[:n],
                  "generation": self.generation}
         if self._sq is not None:

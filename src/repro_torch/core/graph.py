@@ -63,12 +63,15 @@ def build_knn_graph(corpus, *, degree: int, metric: str = "cosine",
     """
     N = corpus.shape[0]
     dev = corpus.device
+    # the kernel's width (``distances.pad_width``): one copy for the build
+    # when d is not a multiple of 8; |c|^2 is taken before, the same
+    sq = (torch.sum(torch.square(corpus.float()), dim=-1)
+          if metric == "l2" else None)
+    corpus = D.pad_width(corpus)
     subsample = max_candidates is not None and N > max_candidates
     deg = min(degree, (max_candidates if subsample else N) - 1)
     rng = np.random.default_rng(seed) if subsample else None
     nbrs = torch.empty((N, deg), dtype=torch.int32, device=dev)
-    sq = (torch.sum(torch.square(corpus.float()), dim=-1)
-          if metric == "l2" else None)
     draw_s = 0.0
     spans = [] if stats is not None and dev.type == "cuda" else None
     t0 = time.perf_counter()
@@ -155,8 +158,9 @@ def _dedup_topk(ids, scores, k: int):
 
 def entry_rows(corpus, corpus_sq, stride: int):
     """The entry scan's rows: a contiguous copy of corpus[::stride] (and
-    its |c|^2)."""
-    rows = corpus[::stride].contiguous()
+    its |c|^2), zero-padded to the kernel's width
+    (``distances.pad_width``)."""
+    rows = D.pad_width(corpus[::stride].contiguous())
     return rows, None if corpus_sq is None else corpus_sq[::stride].contiguous()
 
 
@@ -180,7 +184,7 @@ def beam_search(corpus, neighbors, q, *, metric: str, k: int, beam: int = 32,
     rows, rows_sq = entry if entry is not None else entry_rows(
         corpus, corpus_sq, entry_stride)
     n_e = min(n_entry, rows.shape[0])
-    _, e_pos = kops.topk_distance(rows, q, k=n_e, metric=metric,
+    _, e_pos = kops.topk_distance(rows, D.pad_width(q), k=n_e, metric=metric,
                                   corpus_sq=rows_sq, use_kernel=use_kernel)
     seeds = e_pos.long() * entry_stride                         # (Q, n_e)
     beam_ids = torch.cat([seeds, seeds[:, -1:].expand(Q, beam - n_e)], dim=1)

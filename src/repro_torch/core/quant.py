@@ -65,13 +65,17 @@ def int8_search(codes, scales, q, *, metric: str, k: int, corpus_sq=None,
         q = D.l2_normalize(q)  # rows were normalized before quantization
         metric = "dot"
     chunk = min(N, scan_rows(d))
-    scratch = torch.empty((chunk, d), dtype=torch.float32, device=q.device)
+    # rows dequantized into the first d columns of a zeroed scratch as wide
+    # as the kernel takes (``distances.pad_width``); q padded to match
+    q = D.pad_width(q)
+    scratch = torch.zeros((chunk, q.shape[1]), dtype=torch.float32,
+                          device=q.device)
     best = None
     for a in range(0, N, chunk):
         b = min(N, a + chunk)
-        rows = dequantize_rows(codes[a:b], scales[a:b], out=scratch[:b - a])
+        dequantize_rows(codes[a:b], scales[a:b], out=scratch[:b - a, :d])
         s, i = kops.topk_distance(
-            rows, q, k=min(k, b - a), metric=metric,
+            scratch[:b - a], q, k=min(k, b - a), metric=metric,
             corpus_sq=None if corpus_sq is None else corpus_sq[a:b],
             valid=None if valid is None else valid[a:b],
             use_kernel=use_kernel)

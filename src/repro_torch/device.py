@@ -51,6 +51,23 @@ def strict_fp32():
 
 
 @contextlib.contextmanager
+def bf16_exact_tf32():
+    """TF32 products for ``torch.matmul`` on the card inside the block,
+    for float32 operands that hold bf16 values: TF32's 10-bit significand
+    holds a bf16 value exactly, so the products lose nothing, and the
+    tensor cores sum them in float32, in their own order and rounding (not
+    IEEE float32's bit for bit): the result lies within the float32
+    summation bound of the strict float32 product, at tensor-core rate.
+    The caller's setting is restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@contextlib.contextmanager
 def float32_bf16_sums():
     """bf16 products on the card summed in float32 inside the block, as
     XLA sums them for the reference: cuBLAS's reduced-precision bf16

@@ -3,23 +3,33 @@ registry, its data, the train step, AdamW, the checkpoint store and the
 fault-tolerant supervisor, on the card unless ``--device cpu``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch thistle-sbert --steps 30
-    ... --full            # the full config (12 layers, d_model 768)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b --steps 30
+    PYTHONPATH=src python -m repro_torch.launch.train --arch fm --steps 50
+    PYTHONPATH=src python -m repro_torch.launch.train --arch graphsage-reddit --steps 20
+    ... --full            # the full config (real-cluster scale)
     ... --device cpu      # the plain PyTorch versions on the host
     ... --fail-at 10 20   # inject node failures; the supervisor restarts
+    ... --remat           # lm: checkpoint each block (recomputed backward)
 
-The encoder family trains as the reference's CLI trains it: TokenStream
-batches, the passage the query's tokens rolled by one, the contrastive
-loss, clip 1.0, cosine warmup 10, AdamW. The ``lm``, ``gnn`` and
-``recsys`` families raise ``NotImplementedError`` naming their ROADMAP
-item (the LM's serving is ported; its training, ``loss_fn`` and the MTP
-head's loss, is not). On the card the run is made deterministic
-(``torch.use_deterministic_algorithms``, with ``CUBLAS_WORKSPACE_CONFIG``
-set to ``:4096:8`` unless the environment sets it), so that a restart
-replays the lost steps bit for bit.
+Every family trains as the reference's CLI trains it: clip 1.0, cosine
+warmup 10, AdamW, one step (``train.job.ModelJob``) over the family's loss
+and data. ``lm``: ``TokenStream`` batches (tokens and labels mod the
+vocabulary) through ``transformer.loss_fn`` (``--remat`` passes
+``remat=True``, which the reference's ``loss_fn`` takes and its CLI does
+not set). ``encoder``: the same batches, the passage the query's tokens
+rolled by one, through ``contrastive_loss``. ``gnn``: full-graph
+``node_loss`` on ``sbm_graph(400, 4, 16)`` (d_in 16 and 4 classes replace
+the config's). ``recsys``: ``ClickLogs`` batches (``sequence_batch`` for
+SASRec) through ``recsys.loss_fn``. Parameters are drawn from
+``torch.Generator().manual_seed(0)`` on the host. On the card the run is
+made deterministic (``torch.use_deterministic_algorithms``, with
+``CUBLAS_WORKSPACE_CONFIG`` set to ``:4096:8`` unless the environment sets
+it), so that a restart replays the lost steps bit for bit.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 
@@ -27,18 +37,16 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointStore
-from repro_torch.configs.registry import PENDING, family, get_arch
-from repro_torch.data.lm import TokenStream
+from repro_torch.configs.registry import get_arch
+from repro_torch.data import ClickLogs, TokenStream, sbm_graph
+from repro_torch.device import resolve_device
 from repro_torch.ft.faults import FailureInjector
 from repro_torch.ft.supervisor import Supervisor
-from repro_torch.train.sbert import EncoderJob
-
-
-# what each family's training still needs (ROADMAP.md Queue 1)
-TRAIN_PENDING = {
-    "lm": "loss_fn and the MTP head's loss: ROADMAP.md Queue 1, item 9 "
-          "(LM training)",
-    **{fam: f"its models: {where}" for fam, where in PENDING.items()}}
+from repro_torch.models import encoder as enc_lib
+from repro_torch.models import gnn as gnn_lib
+from repro_torch.models import recsys as rec_lib
+from repro_torch.models import transformer
+from repro_torch.train.job import ModelJob
 
 
 def token_stream_batches(stream: TokenStream, batch: int, seq_len: int,
@@ -51,25 +59,60 @@ def token_stream_batches(stream: TokenStream, batch: int, seq_len: int,
     return batch_fn
 
 
-class ArchJob(EncoderJob):
-    """The reference's ``ArchJob`` for the families the port has."""
+def lm_batches(stream: TokenStream, batch: int, seq_len: int,
+               vocab_size: int):
+    """The reference CLI's LM batch: a TokenStream batch, tokens and labels
+    taken mod the vocabulary."""
+    def batch_fn(step: int) -> dict:
+        return {k: v % vocab_size
+                for k, v in stream.batch(batch, seq_len, step).items()}
+    return batch_fn
+
+
+def family_job(family: str, cfg, *, batch: int, seq_len: int,
+               remat: bool = False):
+    """(cfg, init, loss(model, batch), batch_fn) of a family, as the
+    reference's ``ArchJob`` makes its data and loss (the GNN's config takes
+    the graph's d_in and class count)."""
+    if family == "lm":
+        return (cfg, transformer.init,
+                lambda m, b: transformer.loss_fn(m, cfg, b, remat=remat),
+                lm_batches(TokenStream(vocab_size=cfg.vocab_size), batch,
+                           seq_len, cfg.vocab_size))
+    if family == "encoder":
+        return (cfg, enc_lib.init,
+                lambda m, b: enc_lib.contrastive_loss(m, cfg, b),
+                token_stream_batches(TokenStream(vocab_size=cfg.vocab_size),
+                                     batch, seq_len, cfg.vocab_size))
+    if family == "gnn":
+        graph = sbm_graph(400, 4, 16, seed=0)
+        cfg = dataclasses.replace(cfg, d_in=16, n_classes=4)
+        return (cfg, gnn_lib.init,
+                lambda m, b: gnn_lib.node_loss(m, cfg, b),
+                lambda step: graph)
+    logs = ClickLogs(cfg)
+    sample = logs.sequence_batch if cfg.kind == "sasrec" else logs.batch
+    return (cfg, rec_lib.init, lambda m, b: rec_lib.loss_fn(m, cfg, b),
+            lambda step: sample(batch, step))
+
+
+class ArchJob(ModelJob):
+    """The reference's ``ArchJob``: any arch id of the registry."""
 
     def __init__(self, arch_id: str, *, full: bool, batch: int, seq_len: int,
-                 lr: float, total_steps: int, fail_at=(), device=None):
-        fam = family(arch_id)
-        if fam != "encoder":
-            raise NotImplementedError(
-                f"training the {fam} family ({arch_id!r}) needs "
-                f"{TRAIN_PENDING[fam]}")
+                 lr: float, total_steps: int, fail_at=(), device=None,
+                 remat: bool = False):
         e = get_arch(arch_id)
         self.arch_id, self.family = arch_id, e.family
-        cfg = e.full if full else e.smoke
-        batches = token_stream_batches(TokenStream(vocab_size=cfg.vocab_size),
-                                       batch, seq_len, cfg.vocab_size)
-        super().__init__(cfg, batches, lr=lr, warmup=10,
+        cfg, init, loss, batch_fn = family_job(
+            e.family, e.full if full else e.smoke, batch=batch,
+            seq_len=seq_len, remat=remat)
+        model = init(cfg, torch.Generator().manual_seed(0),
+                     device=resolve_device(device), trainable=True)
+        super().__init__(cfg, model, loss, batch_fn, lr=lr, warmup=10,
                          total_steps=total_steps,
                          injector=FailureInjector(fail_at=fail_at),
-                         device=device, log_every=10)
+                         log_every=10)
 
 
 def main(argv=None) -> int:
@@ -80,6 +123,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--full", action="store_true")
+    ap.add_argument("--remat", action="store_true",
+                    help="lm: checkpoint each block (recompute it in the "
+                         "backward pass)")
     ap.add_argument("--device", default=None,
                     help="cpu for the plain PyTorch versions; the card by "
                          "default")
@@ -93,7 +139,7 @@ def main(argv=None) -> int:
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     job = ArchJob(args.arch, full=args.full, batch=args.batch,
                   seq_len=args.seq_len, lr=args.lr, total_steps=args.steps,
-                  fail_at=args.fail_at, device=args.device)
+                  fail_at=args.fail_at, device=args.device, remat=args.remat)
     if job.device.type == "cuda":
         torch.use_deterministic_algorithms(True)
     store = CheckpointStore(os.path.join(args.ckpt_dir, args.arch), keep=2)

@@ -1,2 +1,4 @@
-"""Models (port of ``repro.models``): the shared layers, GQA attention, the
-dense transformer stack and the sentence encoder that the text path serves."""
+"""Models (port of ``repro.models``): the shared layers, GQA and MLA
+attention, the MoE, the transformer stack (LM serving and training), the
+sentence encoder that the text path serves, the recsys towers and
+GraphSAGE."""

@@ -27,6 +27,7 @@ kernel included.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -36,7 +37,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
-from repro_torch.device import kernel_path, strict_fp32
+from repro_torch.device import bf16_exact_tf32, kernel_path, strict_fp32
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
 from repro_torch.models.layers import Norm, apply_norm, apply_rope, dense_init
@@ -115,11 +116,15 @@ def _dense_attention(q, k, v, *, scale, causal, window, q_offset, kv_mask=None):
     return o.reshape(B, Sq, KV, rep, dh)
 
 
-def _kv_step(m, l, acc, q_blk, k_blk, v_blk, keep, kvm, scale):
+def _kv_step(m, l, acc, q_blk, k_blk, v_blk, keep, kvm, scale, bf16=False):
     """One kv chunk of the online softmax: (m, l, acc) -> (m, l, acc).
     ``keep`` (qc, kc) is the causal/window mask, ``kvm`` (B, kc) the
-    padding mask or None."""
-    s = torch.einsum("bqnrd,bknd->bnrqk", q_blk, k_blk.float()) * scale
+    padding mask or None. ``bf16``: q, k and v hold bf16 values, so the
+    two products run as TF32 on the card (``bf16_exact_tf32``: the
+    products exact, the sums float32 in the tensor cores' order); float32
+    operands keep the caller's full float32."""
+    with bf16_exact_tf32() if bf16 else contextlib.nullcontext():
+        s = torch.einsum("bqnrd,bknd->bnrqk", q_blk, k_blk.float()) * scale
     s = torch.where(keep, s, NEG_INF)
     if kvm is not None:
         s = torch.where(kvm[:, None, None, None, :], s, NEG_INF)
@@ -127,8 +132,9 @@ def _kv_step(m, l, acc, q_blk, k_blk, v_blk, keep, kvm, scale):
     p = torch.exp(s - m_new[..., None])
     corr = torch.exp(m - m_new)
     l_new = l * corr + p.sum(dim=-1)
-    pv = torch.einsum("bnrqk,bknd->bnrqd", p.to(v_blk.dtype).float(),
-                      v_blk.float()).to(v_blk.dtype)
+    with bf16_exact_tf32() if bf16 else contextlib.nullcontext():
+        pv = torch.einsum("bnrqk,bknd->bnrqd", p.to(v_blk.dtype).float(),
+                          v_blk.float()).to(v_blk.dtype)
     return m_new, l_new, acc * corr[..., None] + pv.float()
 
 
@@ -143,6 +149,14 @@ def _chunked_attention(q, k, v, *, scale, causal, window, q_offset, q_chunk,
     each kv step is checkpointed (``use_reentrant=False``), as the
     reference's ``jax.checkpoint(kv_step)``: the backward pass recomputes
     the (qc, kc) score block instead of keeping all of them.
+
+    Without a padding mask or an offset (Sq <= Sk), a (q chunk, kv
+    chunk) pair that the causal mask or the window masks whole is skipped:
+    its scores are NEG_INF, so it adds exact zeros after a live chunk and
+    is wiped by the first live chunk's rescale (exp(NEG_INF - m) = 0)
+    before one (every row's own key is live, in a chunk that is never
+    skipped). Skipping changes no bit; TF32 for bf16 inputs (``_kv_step``)
+    changes the float32 sums' rounding only.
     """
     B, Sq, KV, rep, dh = q.shape
     Sk = k.shape[1]
@@ -151,6 +165,8 @@ def _chunked_attention(q, k, v, *, scale, causal, window, q_offset, q_chunk,
     assert Sq % q_chunk == 0 and Sk % k_chunk == 0, (Sq, q_chunk, Sk, k_chunk)
     dev = q.device
     remat = torch.is_grad_enabled()
+    bf16 = q.dtype == k.dtype == v.dtype == torch.bfloat16
+    may_skip = kv_mask is None and q_offset == 0 and Sq <= Sk
     outs = []
     for q0 in range(0, Sq, q_chunk):
         q_blk = q[:, q0:q0 + q_chunk].float()
@@ -158,7 +174,13 @@ def _chunked_attention(q, k, v, *, scale, causal, window, q_offset, q_chunk,
         m = torch.full((B, KV, rep, q_chunk), NEG_INF, device=dev)
         l = torch.zeros((B, KV, rep, q_chunk), device=dev)
         acc = torch.zeros((B, KV, rep, q_chunk, dh), device=dev)
+        q_first = q_offset + q0
         for k0 in range(0, Sk, k_chunk):
+            if may_skip and (
+                    (causal and k0 > q_first + q_chunk - 1)
+                    or (window is not None
+                        and q_first - (k0 + k_chunk - 1) >= window)):
+                continue
             k_pos = k0 + torch.arange(k_chunk, device=dev)
             keep = (q_pos[:, None] >= k_pos[None, :] if causal else
                     torch.ones((q_chunk, k_chunk), dtype=torch.bool, device=dev))
@@ -166,7 +188,7 @@ def _chunked_attention(q, k, v, *, scale, causal, window, q_offset, q_chunk,
                 keep &= q_pos[:, None] - k_pos[None, :] < window
             kvm = None if kv_mask is None else kv_mask[:, k0:k0 + k_chunk]
             args = (m, l, acc, q_blk, k[:, k0:k0 + k_chunk],
-                    v[:, k0:k0 + k_chunk], keep, kvm, scale)
+                    v[:, k0:k0 + k_chunk], keep, kvm, scale, bf16)
             m, l, acc = (checkpoint(_kv_step, *args, use_reentrant=False)
                          if remat else _kv_step(*args))
         out = acc / torch.clamp(l, min=1e-30)[..., None]

@@ -1,11 +1,13 @@
 """Transformer stack (port of ``repro.models.transformer``): the dense and
-MoE block stacks, the LM head's logits, serving (prefill and KV-cache
-decode) and the pooled embedding the vector-DB tower reads.
+MoE block stacks, the LM head's logits, the training loss with the MoE's
+aux losses and the MTP head, serving (prefill and KV-cache decode) and the
+pooled embedding the vector-DB tower reads.
 
     init(cfg, generator, device=None, trainable=False)  -> Transformer
     forward(params, cfg, tokens, kv_mask=None)          -> (hidden (B, S, D), aux)
     forward(..., train=True, remat=False)               -> the same, with a graph
     logits_from_hidden(params, cfg, h)                  -> (..., vocab)
+    loss_fn(params, cfg, batch, remat=False)            -> (loss, metrics)
     init_cache(cfg, batch, max_len, device=None)        -> cache
     prefill(params, cfg, tokens)                        -> (last logits, cache)
     decode_step(params, cfg, token, cache, pos)         -> (logits, cache)
@@ -20,9 +22,7 @@ B, C, kv_lora) and (L, B, C, qk_rope) for MLA; a sliding window's cache
 is a ring of C = window slots. Prefill and decode run the blocks in the
 sequential pre-norm form whatever ``parallel_residual`` says, as the
 reference's serving path does (no LM config sets it); ``forward`` honours
-it. The MTP head's leaves are held so that parameter trees cross leaf for
-leaf; its loss, with ``loss_fn``, comes with LM training (ROADMAP.md
-Queue 1, item 9).
+it. Serving never reads the MTP head; ``loss_fn`` adds its loss.
 """
 from __future__ import annotations
 
@@ -73,8 +73,8 @@ class Head(nn.Module):
 
 class MTP(nn.Module):
     """One multi-token-prediction module (deepseek-v3): ``proj`` (2 d, d),
-    ``norm_h``, ``norm_e`` and a dense ``block``. Held for the parameter
-    tree; serving never reads it."""
+    ``norm_h``, ``norm_e`` and a dense ``block``. ``loss_fn`` reads the
+    first; serving never reads it."""
 
     def __init__(self, generator, cfg: LMConfig, dtype=torch.float32):
         super().__init__()
@@ -210,6 +210,59 @@ def logits_from_hidden(params: Transformer, cfg: LMConfig, h):
     h = apply_norm(params.final_norm, h)
     w = (params.embed.table.T if cfg.tie_embeddings else params.lm_head.w)
     return h @ w.to(h.dtype)
+
+
+# ================================================================ training
+
+
+def _masked_ce(logits, labels):
+    """Mean of -log p[label] over the positions whose label is >= 0 (-100
+    ignores one), the denominator max(count, 1). logsumexp minus the
+    label's logit, gathered: the reference sums a one-hot mask over the
+    vocabulary (so that its sharded vocab axis reduces locally), which
+    picks the same logit."""
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0).long()
+    picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = torch.logsumexp(logits, dim=-1) - picked
+    denom = torch.clamp(valid.sum(), min=1)
+    return torch.where(valid, nll, 0.0).sum() / denom
+
+
+@float32_bf16_sums()
+def loss_fn(params: Transformer, cfg: LMConfig, batch, *, remat: bool = False):
+    """batch: {"tokens": (B, S), "labels": (B, S) with -100 = ignore} ->
+    (loss, metrics), with a graph (``forward(train=True)``). The loss is
+    the cross entropy over float32 logits plus the MoE's ``load_balance``
+    and ``router_z``, and with ``mtp_depth`` the depth-1 MTP head's cross
+    entropy times ``mtp_loss_weight``: an extra dense block reads
+    [norm_h(h_t) ; norm_e(embed(tok_{t+1}))] @ proj at positions 0..S-2
+    and predicts ``labels[:, 1:]`` through the shared head. metrics:
+    ``ce``, ``dropped_frac``, ``loss`` and, with the head, ``mtp_ce``.
+    ``remat`` checkpoints each block of the stack (not the MTP block, as
+    in the reference)."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    h, aux = forward(params, cfg, tokens, train=True, remat=remat)
+    ce = _masked_ce(logits_from_hidden(params, cfg, h).float(), labels)
+    metrics = {"ce": ce, "dropped_frac": aux["dropped_frac"]}
+    loss = ce + aux["load_balance"] + aux["router_z"]
+    if cfg.mtp_depth and params.mtp is not None:
+        mtp = params.mtp[0]  # depth 1
+        dtype = getattr(torch, cfg.dtype)
+        S = tokens.shape[1]
+        emb_next = apply_embed(params.embed, tokens[:, 1:], dtype)
+        h_in = torch.cat([apply_norm(mtp.norm_h, h[:, :-1]),
+                          apply_norm(mtp.norm_e, emb_next)], dim=-1)
+        h_in = h_in @ mtp.proj.to(dtype)
+        h_mtp, _ = _block_fwd(cfg, mtp.block, h_in,
+                              torch.arange(S - 1, device=h.device), None,
+                              train=True)
+        mtp_ce = _masked_ce(logits_from_hidden(params, cfg, h_mtp).float(),
+                            labels[:, 1:])
+        loss = loss + cfg.mtp_loss_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 # ================================================================ serving

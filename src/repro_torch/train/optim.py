@@ -1,8 +1,9 @@
 """AdamW with optional int8-blockwise moment state (port of
 ``repro.train.optim``: functions over trees of tensors).
 
-A tree is nested dicts of tensors (None entries are empty subtrees); its
-leaves are taken in the reference's order, dict keys sorted. The formula
+A tree is nested dicts and lists of tensors (None entries are empty
+subtrees), as a JAX pytree is; its leaves are taken in the reference's
+order, dict keys sorted, list items by index. The formula
 and its order of operations are the reference's:
 
     m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
@@ -31,15 +32,20 @@ BLOCK = 128
 
 
 def tree_paths(tree, prefix=()) -> list:
-    """[(path, leaf)] in the reference's flatten order (keys sorted, None
-    skipped). ``path`` is a tuple of keys."""
+    """[(path, leaf)] in the reference's flatten order (keys sorted, list
+    items by index, None skipped). ``path`` is a tuple of keys, a list
+    item's key its int index."""
     if tree is None:
         return []
-    if not isinstance(tree, dict):
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
         return [(prefix, tree)]
     out = []
-    for key in sorted(tree):
-        out.extend(tree_paths(tree[key], prefix + (key,)))
+    for key, sub in items:
+        out.extend(tree_paths(sub, prefix + (key,)))
     return out
 
 
@@ -50,13 +56,23 @@ def tree_get(tree, path):
 
 
 def tree_build(pairs) -> dict:
-    """The inverse of ``tree_paths``: [(path, value)] -> nested dicts."""
+    """The inverse of ``tree_paths``: [(path, value)] -> nested dicts, a
+    node whose keys are ints a list in index order."""
     out = {}
     for path, value in pairs:
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = value
+    return _listify(out)
+
+
+def _listify(node):
+    if not isinstance(node, dict):
+        return node
+    out = {k: _listify(v) for k, v in node.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return [out[i] for i in range(len(out))]
     return out
 
 

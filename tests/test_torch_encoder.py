@@ -236,8 +236,9 @@ def test_from_reference_params_unstacks_layers_and_drops_lm_head():
 
 
 def test_init_refuses_mla_and_moe():
-    """MLA and MoE blocks are built since the LM serving slice; what is
-    still refused is binding them for training (the LM's training item)."""
+    """MLA and MoE blocks are built since the LM serving slice, and since
+    the LM training slice they bind for training too: each MoE layer's
+    expert leaf becomes a view of the stacked (L, E, d, f) tensor."""
     from repro_torch.configs.base import MLAConfig, MoEConfig
     from repro_torch.core.convert import bind_reference_layout
     g = torch.Generator().manual_seed(0)
@@ -249,8 +250,12 @@ def test_init_refuses_mla_and_moe():
                               first_k_dense=1)
     moe = penc.init(cfg, g, "cpu")
     assert moe.moe_blocks[0].moe.experts.w_up.shape == (4, 64, 32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        bind_reference_layout(moe, cfg)
+    tree = bind_reference_layout(moe, cfg)
+    stacked = tree["moe_blocks"]["moe"]["experts"]["w_up"]
+    assert stacked.shape == (1, 4, 64, 32)
+    with torch.no_grad():
+        stacked[0, 1].fill_(3.0)
+    assert bool((moe.moe_blocks[0].moe.experts.w_up[1] == 3.0).all())
 
 
 # ----------------------------------------------------------- text path

@@ -1457,3 +1457,220 @@ def test_lm_prefill_launches_flash_attention_on_the_card(arch):
     on_cpu = DecodeLoop(cpu, cfg, max_len=64, device="cpu").generate(
         tokens[:, :20].cpu(), n_new=6)
     assert torch.equal(on_card.cpu(), on_cpu)
+
+
+# ----------------------------------------------------------- LM training,
+# recsys and GNN on the card
+
+
+def _card_against_cpu(model, loss, batch, dev):
+    """(card loss, CPU loss, worst leaf cosine) of one batch, the model
+    moved to the host and back between the two."""
+    from repro_torch.train.accum import value_and_grad
+    from repro_torch.train.job import to_device
+    (lg, _), gg = value_and_grad(loss, model, to_device(batch, dev))
+    gg = {k: v.cpu().double() for k, v in gg.items()}
+    model.to("cpu")
+    (lc, _), gc = value_and_grad(loss, model, to_device(batch, "cpu"))
+    model.to(dev)
+    worst = 1.0
+    for k, w in gc.items():
+        w = w.double()
+        den = float(gg[k].norm() * w.norm())
+        if den:
+            worst = min(worst, float((gg[k] * w).sum()) / den)
+        else:
+            assert not gg[k].any() and not w.any(), k
+    return float(lg), float(lc), worst
+
+
+@pytest.mark.parametrize("K", [64, 512])
+def test_tf32_products_of_bf16_values_within_the_float32_sum_bound(K):
+    """bf16_exact_tf32's claim: on bf16-valued float32 operands TF32 loses
+    nothing in the products, so a product under it and one under
+    strict_fp32 each lie within the float32 summation bound of its K terms
+    (K 2^-23 sum |a b|) of the float64 product. K = 64 is the scores'
+    head width, 512 the p v product's chunk."""
+    from repro_torch.device import bf16_exact_tf32, strict_fp32
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(K)
+    a = torch.randn(8, 512, K, generator=g, device=dev).bfloat16().float()
+    b = torch.randn(8, K, 256, generator=g, device=dev).bfloat16().float()
+    if K == 512:  # probabilities, as the p v product sees them
+        a = torch.rand(8, 512, K, generator=g, device=dev).bfloat16().float()
+    exact = a.double() @ b.double()
+    bound = K * 2.0 ** -23 * (a.abs().double() @ b.abs().double())
+    for ctx in (bf16_exact_tf32, strict_fp32):
+        with ctx():
+            got = (a @ b).double()
+        assert bool(((got - exact).abs() <= bound).all()), (
+            ctx.__name__, float(((got - exact).abs() / bound).max()))
+
+
+@pytest.mark.parametrize("window", [None, 1024])
+def test_chunked_attention_bf16_fast_path_matches_strict(window, monkeypatch):
+    """bf16 _chunked_attention as the card runs it in training (hidden
+    chunk pairs skipped, the bf16-valued products as TF32) against the
+    same call with nothing skipped (an all-true padding mask turns the
+    skip off) and every product in strict float32. The two differ only in
+    the float32 sums' order and rounding, so the bf16 outputs and the
+    gradients of q, k and v lie within half a bf16 rounding of each other
+    (normwise 2^-8) and the gradients' cosine is >= 0.99999. At S = 2,048,
+    chunk 512, the window skips pairs both before a row's first live chunk
+    and after its last."""
+    from repro_torch.device import strict_fp32
+    from repro_torch.models import attention as pattn
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(11)
+    B, S, KV, rep, dh = 2, 2048, 2, 4, 64
+    q = torch.randn(B, S, KV, rep, dh, generator=g, device=dev)
+    k = torch.randn(B, S, KV, dh, generator=g, device=dev)
+    v = torch.randn(B, S, KV, dh, generator=g, device=dev)
+    do = torch.randn(B, S, KV, rep, dh, generator=g, device=dev).bfloat16()
+    q, k, v = (x.bfloat16().requires_grad_() for x in (q, k, v))
+    kw = dict(scale=dh ** -0.5, causal=True, window=window, q_offset=0,
+              q_chunk=512, k_chunk=512)
+
+    def run(kv_mask):
+        with strict_fp32():
+            o = pattn._chunked_attention(q, k, v, kv_mask=kv_mask, **kw)
+            return [o.detach()] + list(torch.autograd.grad(o, (q, k, v), do))
+
+    fast = run(None)
+    monkeypatch.setattr(pattn, "bf16_exact_tf32", strict_fp32)
+    strict = run(torch.ones(B, S, dtype=torch.bool, device=dev))
+    for name, f, s in zip(("out", "dq", "dk", "dv"), fast, strict):
+        f, s = f.double(), s.double()
+        rel = float((f - s).norm() / s.norm())
+        cos = float((f * s).sum() / (f.norm() * s.norm()))
+        assert rel <= 2.0 ** -8 and cos >= 0.99999, (name, rel, cos)
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "deepseek-v3-671b"])
+def test_lm_loss_on_the_card_matches_cpu(arch):
+    """transformer.loss_fn's value and gradients on the card against the
+    CPU, float32 copies of the SMOKE configs (v3 with its MTP head), at
+    S = 64 (the chunked attention) with remat: loss within 1e-5, every
+    leaf's cosine >= 0.99999."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.launch.train import lm_batches
+    from repro_torch.models import transformer
+    dev = _card()
+    cfg = dataclasses.replace(get_arch(arch).smoke, dtype="float32")
+    model = transformer.init(cfg, torch.Generator().manual_seed(0), dev,
+                             trainable=True)
+    batch = lm_batches(TokenStream(vocab_size=cfg.vocab_size), 2, 64,
+                       cfg.vocab_size)(3)
+    lg, lc, cos = _card_against_cpu(
+        model, lambda m, b: transformer.loss_fn(m, cfg, b, remat=True), batch,
+        dev)
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and cos >= 0.99999, (lg, lc, cos)
+
+
+@pytest.mark.parametrize("kind", ["fm", "deepfm", "autoint", "sasrec"])
+def test_recsys_loss_on_the_card_matches_cpu(kind):
+    from repro_torch.configs import get_arch
+    from repro_torch.data import ClickLogs
+    from repro_torch.models import recsys
+    dev = _card()
+    cfg = get_arch(kind).smoke
+    model = recsys.init(cfg, torch.Generator().manual_seed(0), dev,
+                        trainable=True)
+    logs = ClickLogs(cfg)
+    batch = logs.sequence_batch(64, 2) if kind == "sasrec" else \
+        logs.batch(64, 2)
+    lg, lc, cos = _card_against_cpu(
+        model, lambda m, b: recsys.loss_fn(m, cfg, b), batch, dev)
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and cos >= 0.99999, (lg, lc, cos)
+
+
+@pytest.mark.parametrize("agg", ["mean", "max", "sum"])
+def test_gnn_losses_on_the_card_match_cpu(agg):
+    """node_loss (edge mask), block_loss (sampled, padded) and graph_loss
+    on the card against the CPU: loss within 1e-5, cosine >= 0.99999."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.data import molecule_batch, sbm_graph
+    from repro_torch.models import gnn
+    dev = _card()
+    g = sbm_graph(300, 4, 8, seed=0)
+    g["edge_mask"] = np.random.default_rng(1).random(g["edges"].shape[1]) < .8
+    cfg = dataclasses.replace(get_arch("graphsage-reddit").smoke, d_in=8,
+                              n_classes=4, aggregator=agg)
+    fan = list(cfg.sample_sizes)
+    nodes, blocks = gnn.NeighborSampler(g["edges"], 300, fan, seed=2).sample(
+        np.arange(32))
+    nodes, blocks = gnn.pad_sample(nodes, blocks, 32, fan)
+    mol = molecule_batch(16, seed=3)
+    cases = [(cfg, gnn.node_loss, g),
+             (cfg, gnn.block_loss, {"feats": g["feats"][nodes],
+                                    "blocks": blocks,
+                                    "labels": g["labels"][:32]}),
+             (dataclasses.replace(cfg, d_in=16, n_classes=2), gnn.graph_loss,
+              mol)]
+    for c, fn, batch in cases:
+        model = gnn.init(c, torch.Generator().manual_seed(0), dev,
+                         trainable=True)
+        lg, lc, cos = _card_against_cpu(
+            model, lambda m, b, c=c, fn=fn: fn(m, c, b), batch, dev)
+        assert abs(lg - lc) <= 1e-5 * abs(lc) and cos >= 0.99999, (
+            fn.__name__, lg, lc, cos)
+
+
+@pytest.mark.parametrize("metric", ["dot", "cosine", "l2"])
+@pytest.mark.parametrize("d", [11, 50])
+def test_flat_at_a_width_off_the_kernel_multiple_on_the_card(d, metric):
+    """VectorDB("flat") at d = 11 and 50 serves through topk_distance (its
+    buffer padded to the kernel's width) within the f32 bound of its plain
+    version, ids equal but for near-ties; the kernel is launched."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(d)
+    x = torch.randn(40_000, d, generator=g, device=dev)
+    q = torch.randn(33, d, generator=g, device=dev)
+    db = VectorDB("flat", metric=metric, device=dev).load(x)
+    ops.reset_launch_counts()
+    ks, ki = db.query(q, k=10)
+    assert ops.launch_counts()["topk_distance"] == 1
+    scan = db.index._scan
+    qp = D.pad_width(D.l2_normalize(q) if metric == "cosine" else q)
+    m = "l2" if metric == "l2" else "dot"
+    ps, pi = ops.topk_distance(scan, qp, k=10, metric=m,
+                               corpus_sq=db.index.corpus_sq, use_kernel=False)
+    cf, qf = scan.float(), qp.float()
+    scale = (torch.linalg.vector_norm(qf, dim=1)[:, None]
+             * torch.linalg.vector_norm(cf, dim=1).max())
+    tol = (2 if m == "l2" else 1) * 2 * scan.shape[1] * 2.0 ** -24 * scale
+    _topk_near_ties(cf, qf, ks, ki, ps, pi.to(ki.dtype), m,
+                    tol + 1e-6 * ps.abs())
+
+
+def test_lm_cli_restart_replays_bit_for_bit_on_the_card(tmp_path,
+                                                        monkeypatch):
+    """The trainer CLI's lm job (deepseek-v2-lite SMOKE: MLA and the MoE)
+    with failures at steps 3 and 6, checkpoints every 2, deterministic
+    algorithms on: the restored run ends bit-equal to an uninterrupted
+    one."""
+    from repro_torch.checkpoint import CheckpointStore
+    from repro_torch.ft import Supervisor
+    from repro_torch.launch.train import ArchJob
+    from repro_torch.train.optim import tree_get, tree_paths
+    dev = _card()
+    kw = dict(full=False, batch=2, seq_len=16, lr=1e-3, total_steps=8,
+              device=dev)
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = ArchJob("deepseek-v2-lite-16b", **kw)
+        for s in range(8):
+            plain.run_step(s)
+        job = ArchJob("deepseek-v2-lite-16b", fail_at=[3, 6], **kw)
+        store = CheckpointStore(str(tmp_path), keep=2)
+        out = Supervisor(job, store, total_steps=8, checkpoint_every=2).run()
+        store.wait()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert out["final_step"] == 8 and out["n_retries"] == 2
+    for path, x in tree_paths(job.state):
+        assert torch.equal(x, tree_get(plain.state, path)), path

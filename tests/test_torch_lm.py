@@ -171,8 +171,8 @@ def test_parameter_counts_match_the_reference(arch):
 def test_moe_and_mtp_trees_cross_leaf_for_leaf(arch):
     """Every reference leaf reaches the port's state_dict (strict load),
     the expert axis kept, and ``stack_layers`` gives the reference's tree
-    back array for array; binding the layout for training is refused,
-    naming the LM training item."""
+    back array for array; binding the layout for training stacks the MoE
+    and MTP leaves too, each layer's parameter a view of its slice."""
     jp, model = models(arch)
     cfg = jreg.get_arch(arch).smoke
     sd = model.state_dict()
@@ -192,8 +192,27 @@ def test_moe_and_mtp_trees_cross_leaf_for_leaf(arch):
     assert n == len(jax.tree.leaves(jp))
     if cfg.mtp_depth:
         assert sd["mtp.0.proj"].shape == (2 * cfg.d_model, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        bind_reference_layout(model, cfg)
+    fresh = port_model(jp, cfg)
+    bound = bind_reference_layout(fresh, cfg)
+    w_up = bound["moe_blocks"]["moe"]["experts"]["w_up"]
+    assert w_up.shape == (cfg.n_moe_layers, m.n_routed, cfg.d_model,
+                          m.d_ff_expert)
+    with torch.no_grad():
+        w_up[1, 2].fill_(0.5)
+        if cfg.mtp_depth:
+            bound["mtp"]["proj"][0].fill_(0.25)
+    assert bool((fresh.moe_blocks[1].moe.experts.w_up[2] == 0.5).all())
+    if cfg.mtp_depth:
+        assert bool((fresh.mtp[0].proj == 0.25).all())
+    for path, leaf in flat_j.items():
+        node = bound
+        for k in path:
+            node = node[k.key]
+        if path[0].key == "moe_blocks" and path[-1].key == "w_up":
+            continue
+        if path[0].key == "mtp" and path[-1].key == "proj":
+            continue
+        np.testing.assert_array_equal(node.numpy(), np.asarray(leaf))
 
 
 def test_stack_count_mismatch_is_refused():
@@ -513,9 +532,10 @@ def test_embed_pooled_matches_reference(arch, dtype):
 
 
 def test_registry_ports_the_lm_family():
-    assert "lm" in preg.PORTED_FAMILIES
     for arch in LM_ARCHS:
         assert preg.get_config(arch, smoke=True).name.endswith("-smoke")
-    for arch in ("graphsage-reddit", "sasrec"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            preg.get_arch(arch)
+    # every arch of the reference registry resolves, in its own family
+    for arch in jreg.list_archs():
+        e, je = preg.get_arch(arch), jreg.get_arch(arch)
+        assert e.family == je.family
+        assert dataclasses.asdict(e.full) == dataclasses.asdict(je.full)

@@ -42,7 +42,9 @@ def test_import_loads_no_jax():
             "repro_torch.core.distributed, "
             "repro_torch.serve, repro_torch.checkpoint, repro_torch.core.wal, "
             "repro_torch.ft, repro_torch.search, repro_torch.serve.decode, "
-            "repro_torch.models.moe; "
+            "repro_torch.models.moe, repro_torch.models.recsys, "
+            "repro_torch.models.gnn, repro_torch.data, repro_torch.train.job, "
+            "repro_torch.train.recsys, repro_torch.launch.train; "
             "print(json.dumps([m for m in sys.modules if m.split('.')[0] "
             "in ('jax', 'jaxlib', 'repro', 'ml_dtypes')]))")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
@@ -161,7 +163,12 @@ NEW_PORT_MODULES = ["configs/base.py", "configs/thistle_sbert.py",
                     "serve/decode.py", "configs/h2o_danube_1_8b.py",
                     "configs/deepseek_v2_lite_16b.py",
                     "configs/deepseek_v3_671b.py", "configs/stablelm_1_6b.py",
-                    "configs/stablelm_3b.py"]
+                    "configs/stablelm_3b.py", "configs/fm.py",
+                    "configs/deepfm.py", "configs/autoint.py",
+                    "configs/sasrec.py", "configs/graphsage_reddit.py",
+                    "models/recsys.py", "models/gnn.py", "data/clicks.py",
+                    "data/graphs.py", "train/job.py", "train/recsys.py",
+                    "launch/train.py"]
 
 
 @pytest.mark.parametrize("module", NEW_PORT_MODULES)
@@ -309,3 +316,24 @@ def test_build_failure_names_the_source(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="topk_distance.cu"):
         _build.build_all(["topk_distance", "ivf_adc"])
     assert not list((tmp_path / "build").glob("*.so"))
+
+
+def test_chip_smoke_phase_selector(monkeypatch, capsys):
+    """``chip_smoke.py --phases``: a list of phases and ranges after the
+    header and the build (which always run), every phase by default,
+    phase 7 with 6; without a card the script exits non-zero and prints
+    no result."""
+    sys.path.insert(0, str(REPO))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(REPO))
+    assert chip_smoke.parse_phases("4,12-13") == (4, 12, 13)
+    assert chip_smoke.parse_phases(None) == tuple(range(3, 14))
+    assert chip_smoke.parse_phases("1-3") == (3,)
+    assert chip_smoke.parse_phases("7") == (6, 7)
+    with pytest.raises(SystemExit):
+        chip_smoke.parse_phases("14")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert chip_smoke.main(["--phases", "12-13"]) != 0
+    assert '"ok"' not in capsys.readouterr().out
