@@ -306,8 +306,29 @@ Phases, in order; any failure raises and the script exits non-zero:
      cosine >= 0.99999), held-out accuracy > 0.5, the sampler's host ms
      beside the step's device ms; ``node_loss`` at cora's shape and
      ``graph_loss`` on ``molecule_batch(128)``, 20 steps each;
- 14. a JSON line of the kernels (phases 8-11 and 13's launches added),
-     then the result line.
+ 14. ``launch/`` on ``torch.distributed``: a world of one rank over NCCL,
+     a (1, 1) ("data", "model") ``DeviceMesh``, each cell's program from
+     ``launch.steps`` on DTensors: h2o-danube-1.8b FULL ``prefill_32k``
+     cut to B = 2, S = 8,192 (phase 11's shape; the last-token logits
+     against the unsharded ``transformer.prefill``, row cosine >= 0.999,
+     with ``flash_attention`` on each rank's local heads), 16
+     ``make_lm_decode`` steps after it against ``decode_step`` (>= 0.99),
+     ``train_4k`` cut to global batch 2, S = 4,096, 2 micro-batches,
+     remat, float32 AdamW, 2 steps (after step 1 the loss within rel 1e-6
+     and every leaf within rel 1e-6 and cosine >= 0.99999 of the
+     single-process ``gradient_accumulation`` + clip + ``adamw_update``
+     from the same state), sasrec FULL ``serve_p99`` (B = 512, the
+     two-level search with ``topk_distance`` on the local shard; ids
+     against ``flat_search`` over the item table, ties aside), fm FULL
+     ``retrieval_cand`` (ids and scores against the matmul and top-k on
+     one card), graphsage FULL ``full_graph_sm`` (one ``make_gnn_train``
+     step, and ``make_partitioned_loss`` against ``node_loss``), and
+     ``gspmd_flat_search`` over 1,000,000 x 768 rows at Q = 32 against
+     ``flat_search``; each step's p50, the collectives DTensor ran
+     (``CommDebugMode``), peak GB; then ``flash_attention`` and
+     ``topk_distance`` at the phase's shapes against their plain versions;
+ 15. a JSON line of the kernels (phases 8-11, 13 and 14's launches
+     added), then the result line.
 
 It needs one CUDA card and the repository's ``src/`` beside it, and it
 imports nothing of the JAX package.
@@ -6029,7 +6050,409 @@ def phase_recsys_gnn(seed: int, device) -> dict:
     return out
 
 
-ALL_PHASES = tuple(range(3, 14))
+P14_PREFILL = (2, 8192)      # prefill_32k's 32 x 32,768 cut to phase 11's shape
+P14_DECODE = 16              # make_lm_decode steps after the prefill
+P14_TRAIN = (2, 4096)        # train_4k cut to global batch 2
+P14_TRAIN_STEPS = 2
+P14_SERVE_B = 512            # sasrec serve_p99's batch
+P14_GSPMD = (1_000_000, 768, 32, 10)   # (rows, d, Q, k)
+P14_REPS = 3
+P14_COS_PREFILL = 0.999
+P14_COS_DECODE = 0.99
+P14_TRAIN_REL = 1e-6
+P14_TRAIN_COS = 0.99999
+
+
+def p14_world(backend: str = "nccl"):
+    """A world of one rank (NCCL on the card) and the (1, 1) ("data",
+    "model") mesh over it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+    return init_device_mesh("cuda" if backend == "nccl" else "cpu", (1, 1),
+                            mesh_dim_names=("data", "model"))
+
+
+def p14_counted(out: dict, fn):
+    """fn() on the phase's main path: the launch counts set to 0 before it
+    and read after it, added to ``out["launches"]``; CommDebugMode's
+    collectives added to ``out["collectives"]``."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    with CommDebugMode() as comm:
+        result = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    for name, n in ops.launch_counts().items():
+        out["launches"][name] = out["launches"].get(name, 0) + n
+    for op, n in comm.get_comm_counts().items():
+        key = str(op)
+        out["collectives"][key] = out["collectives"].get(key, 0) + n
+    return result
+
+
+def p14_timed(out: dict, label: str, fn, reps: int = P14_REPS):
+    """fn() ``reps`` times on the main path (counted); its p50 wall ms
+    (each run ends in a synchronize), logged; returns the last result."""
+    times, result = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        result = p14_counted(out, fn)
+        times.append(time.perf_counter() - t0)
+    out["p50_ms"][label] = percentile(times, 50) * 1e3
+    log(f"  {label}: p50 {out['p50_ms'][label]:.2f} ms over {reps} runs")
+    return result
+
+
+def p14_leaves_close(got: dict, want: dict, label: str) -> tuple:
+    """Every leaf of a sharded step's new state against the single-process
+    step's (``want`` on the host): max |d| / max |want| <= P14_TRAIN_REL
+    and cosine >= P14_TRAIN_COS. Returns (worst rel, least cosine)."""
+    import torch
+    worst_rel, least_cos = 0.0, 1.0
+    for name, g in got.items():
+        g = (g.full_tensor() if hasattr(g, "full_tensor") else g).double()
+        w = want[name].to(g.device).double()
+        rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        den = float(g.norm() * w.norm())
+        cos = float((g * w).sum()) / den if den else 1.0
+        worst_rel, least_cos = max(worst_rel, rel), min(least_cos, cos)
+        if not (rel <= P14_TRAIN_REL and cos >= P14_TRAIN_COS):
+            raise AssertionError(f"{label} {name}: rel {rel:.3e}, cosine "
+                                 f"{cos:.7f}")
+    return worst_rel, least_cos
+
+
+def p14_lm(out: dict, seed: int, device, mesh) -> None:
+    """danube FULL: prefill, decode and two train steps on the mesh."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import convert
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.shapes import Spec
+    from repro_torch.models import transformer
+    from repro_torch.train import (adamw_init, adamw_update,
+                                   clip_by_global_norm, cosine_schedule,
+                                   gradient_accumulation)
+    arch = "h2o-danube-1.8b"
+    cfg = get_arch(arch).full
+    gen = torch.Generator(device=device).manual_seed(seed + 14)
+    model, _ = lm_train_model(cfg, seed, device, f"{arch} FULL")
+    tree = convert.bind_reference_layout(model, cfg)
+
+    # ---- prefill_32k, cut
+    B, S_ = P14_PREFILL
+    tokens = torch.randint(0, cfg.vocab_size, (B, S_), generator=gen,
+                           device=device)
+    built = S.make_lm_prefill(cfg, mesh, arch, {"tokens": Spec((B, S_),
+                                                               torch.int32)})
+    args = built.distribute(tree, tokens)
+    logits, cache = p14_timed(out, f"prefill B={B} S={S_}",
+                              lambda: built.fn(*args))
+    logits = logits.full_tensor()
+    want, cache_ref = transformer.prefill(model, cfg, tokens)
+    cos = row_cosine(logits[:, -1], want[:, -1])
+    diff = float((logits.float() - want.float()).abs().max())
+    lm_gate(f"sharded prefill against prefill (max |d| {diff:.3e}, "
+            f"bit-equal {bool(torch.equal(logits, want))})", cos,
+            P14_COS_PREFILL)
+    out["prefill"] = {"cosine": cos, "max_abs_diff": diff,
+                      "bit_equal": bool(torch.equal(logits, want))}
+
+    # ---- decode: P14_DECODE steps after the prefill
+    cache_d = {n: c.full_tensor() for n, c in cache.items()}
+    specs = {n: Spec(tuple(c.shape), c.dtype) for n, c in cache_d.items()}
+    built_d = S.make_lm_decode(cfg, mesh, arch, {"token": Spec((B, 1),
+                                                               torch.int32),
+                                                 "cache": specs})
+    tok = want[:, -1].argmax(-1)[:, None].int()
+    params_d, _, cache_dd, _ = built_d.distribute(tree, tok, cache_d, 0)
+    t_spec = sh.batch_pspecs(tok, mesh)
+    times, least = [], 1.0
+    for step in range(P14_DECODE):
+        from torch.distributed.tensor import distribute_tensor
+        tok_d = distribute_tensor(tok, mesh, sh.placements(t_spec, mesh),
+                                  src_data_rank=None)
+        t0 = time.perf_counter()
+        got, _ = p14_counted(out, lambda: built_d.fn(params_d, tok_d,
+                                                     cache_dd, S_ + step))
+        times.append(time.perf_counter() - t0)
+        got = got.full_tensor()
+        ref, _ = transformer.decode_step(model, cfg, tok, cache_ref, S_ + step)
+        least = min(least, row_cosine(got[:, -1], ref[:, -1]))
+        tok = got[:, -1].argmax(-1)[:, None].int()
+    out["p50_ms"]["decode step"] = percentile(times, 50) * 1e3
+    log(f"  decode: {P14_DECODE} steps, p50 {out['p50_ms']['decode step']:.2f}"
+        f" ms a step")
+    lm_gate("sharded decode against decode_step", least, P14_COS_DECODE)
+    out["decode_cosine"] = least
+    del logits, cache, cache_d, cache_dd, cache_ref, args, params_d, want
+
+    # ---- train_4k, cut: the sharded step against the single-process one
+    Bt, St = P14_TRAIN
+    batches = [{"tokens": t, "labels": t} for t in (
+        torch.randint(0, cfg.vocab_size, (Bt, St), generator=gen,
+                      device=device) for _ in range(P14_TRAIN_STEPS))]
+    opt = adamw_init(tree)
+    opt["step"] = torch.tensor(1000, dtype=torch.int32)  # past lr = 0
+    opts = {"n_micro": 2, "int8_opt": False, "remat": True}
+    grads, loss_ref, _ = gradient_accumulation(
+        lambda p, b: transformer.loss_fn(p, cfg, b, remat=True), model,
+        batches[0], opts["n_micro"])
+    grads, _ = clip_by_global_norm(convert.stack_layers(grads, cfg), 1.0)
+    lr = cosine_schedule(opt["step"], base_lr=3e-4, warmup=2000,
+                         total=100_000)
+    p_ref, o_ref = adamw_update(grads, opt, tree, lr=lr)
+    want = {n: t.detach().cpu() for n, t in
+            sh.leaves({"params": p_ref, "opt": o_ref}) if n != "opt.step"}
+    loss_ref = float(loss_ref)
+    del grads, p_ref, o_ref
+    torch.cuda.empty_cache()
+    inputs = {k: Spec((Bt, St), torch.int32) for k in ("tokens", "labels")}
+    built_t = S.make_lm_train(cfg, mesh, arch, inputs, opts=opts)
+    state, batch = built_t.distribute({"params": tree, "opt": opt}, batches[0])
+    times = []
+    t0 = time.perf_counter()
+    new, metrics = p14_counted(out, lambda: built_t.fn(state, batch))
+    times.append(time.perf_counter() - t0)
+    loss = float(metrics["loss"].full_tensor())
+    rel = abs(loss - loss_ref) / abs(loss_ref)
+    got = {n: t for n, t in sh.leaves(new) if n != "opt.step"}
+    worst, least = p14_leaves_close(got, want, "train step 1")
+    log(f"  train step 1: loss {loss:.6f} against {loss_ref:.6f} (rel "
+        f"{rel:.3e}, bound {P14_TRAIN_REL}); {len(got)} leaves, worst rel "
+        f"{worst:.3e}, least cosine {least:.8f}")
+    if not rel <= P14_TRAIN_REL:
+        raise AssertionError(f"train step 1 loss rel {rel}")
+    out["train"] = {"loss": loss, "loss_ref": loss_ref, "loss_rel": rel,
+                    "leaves": len(got), "worst_rel": worst,
+                    "least_cosine": least}
+    del want, got, state, tree, opt, model
+    torch.cuda.empty_cache()
+    state = new
+    for step in range(1, P14_TRAIN_STEPS):
+        batch = built_t.distribute(state, batches[step])[1]
+        t0 = time.perf_counter()
+        state, metrics = p14_counted(out, lambda: built_t.fn(state, batch))
+        times.append(time.perf_counter() - t0)
+        log(f"  train step {step + 1}: loss "
+            f"{float(metrics['loss'].full_tensor()):.6f}")
+    out["p50_ms"][f"train step B={Bt} S={St}"] = percentile(times, 50) * 1e3
+    log(f"  train: step p50 {percentile(times, 50) * 1e3:.1f} ms over "
+        f"{len(times)} steps")
+    del state, new
+    torch.cuda.empty_cache()
+
+
+def p14_recsys_gnn(out: dict, seed: int, device, mesh) -> None:
+    """sasrec serve_p99, fm retrieval_cand, graphsage full_graph_sm and
+    gspmd_flat_search on the mesh."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import convert
+    from repro_torch.core import distances as D
+    from repro_torch.core.distributed import gspmd_flat_search
+    from repro_torch.core.flat import flat_search
+    from repro_torch.data import sbm_graph
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.shapes import Spec, get_cell
+    from repro_torch.models import gnn, recsys
+    from repro_torch.models.gnn_partitioned import (make_partitioned_loss,
+                                                    partition_edges)
+    from repro_torch.train import adamw_init
+    gen = torch.Generator(device=device).manual_seed(seed + 114)
+
+    def tree_of(model, cfg):
+        return convert.stack_layers(
+            {n: p.detach() for n, p in model.named_parameters()}, cfg)
+
+    # ---- sasrec serve_p99: the two-level search, topk_distance on the shard
+    cfg = get_arch("sasrec").full
+    model = recsys_model(cfg, seed, device)
+    seq = torch.randint(1, cfg.n_items + 1, (P14_SERVE_B, cfg.seq_len),
+                        generator=gen, device=device, dtype=torch.int32)
+    built = S.make_recsys_serve(cfg, mesh, "sasrec",
+                                {"seq": Spec(tuple(seq.shape), torch.int32)})
+    args = built.distribute(tree_of(model, cfg), {"seq": seq})
+    s_d, i_d = p14_timed(out, f"sasrec serve B={P14_SERVE_B}",
+                         lambda: built.fn(*args))
+    ids = i_d.full_tensor()
+    with torch.no_grad():
+        u = recsys.sasrec_user_vector(model, cfg, seq)
+    items = model.item_embed.detach().float()
+    N = items.shape[0]
+    valid = torch.arange(N, device=device) < cfg.n_items + 1
+    fs, fi = flat_search(D.pad_width(items), D.pad_width(u), metric="dot",
+                         k=S.SERVE_K, valid=valid)
+    tol = topk_tolerance(items, u, False)[:, None]
+    got_s = s_d.full_tensor()
+    err = float((got_s - fs).abs().max())
+    same = ids == fi.long()
+    if not (err <= float(tol.max()) and bool(
+            (same | ((got_s - fs).abs() <= 2 * tol)).all())):
+        raise AssertionError(f"sasrec serve: ids or scores off flat_search "
+                             f"(max |ds| {err})")
+    log(f"  sasrec serve against flat_search over {N} items: ids agree "
+        f"{float(same.float().mean()):.4f} (ties aside), max |ds| {err:.3e}")
+    out["serve_topk"] = {"N": N, "d": cfg.embed_dim, "Q": P14_SERVE_B,
+                         "k": S.SERVE_K, "items": items, "u": u,
+                         "valid": valid, "ids_agree": float(same.float().mean())}
+    del args, model
+
+    # ---- fm retrieval_cand
+    cfg = get_arch("fm").full
+    cell = get_cell("fm", "retrieval_cand")
+    model = recsys_model(cfg, seed, device)
+    batch = {"sparse_idx": torch.randint(0, cfg.total_vocab, (1, cfg.n_sparse),
+                                         generator=gen, device=device,
+                                         dtype=torch.int32),
+             "dense": torch.randn(1, cfg.n_dense, generator=gen,
+                                  device=device),
+             "candidates": torch.randn(cell.inputs["candidates"].shape,
+                                       generator=gen, device=device)}
+    built = S.make_recsys_retrieval(cfg, mesh, "fm", cell.inputs)
+    args = built.distribute(tree_of(model, cfg), batch)
+    s_d, i_d = p14_timed(out, "fm retrieval 1 x "
+                         f"{batch['candidates'].shape[0]}",
+                         lambda: built.fn(*args))
+    with torch.no_grad():
+        q = recsys.fm_user_vector(model, cfg, batch, 0)
+        rs, ri = D.topk_scores(q.float() @ batch["candidates"].T, S.SERVE_K)
+    if not (torch.equal(i_d.full_tensor(), ri)
+            and float((s_d.full_tensor() - rs).abs().max()) <= 1e-4):
+        raise AssertionError("fm retrieval: off the single-card top-k")
+    log("  fm retrieval: ids equal to the single-card matmul and top-k")
+    del args, model, batch
+
+    # ---- graphsage full_graph_sm: one train step, the partitioned loss
+    cell = get_cell("graphsage-reddit", "full_graph_sm")
+    cfg = cell.cfg
+    N, E = cell.inputs["feats"].shape[0], cell.inputs["edges"].shape[1]
+    g = sbm_graph(N, cfg.n_classes, cfg.d_in, avg_degree=max(E // N, 1),
+                  seed=seed)
+    edges = np.zeros((2, E), np.int32)
+    edges[:] = N - 1  # pad edges: a self loop on an unlabelled pad node
+    n_e = min(E, g["edges"].shape[1])
+    edges[:, :n_e] = g["edges"][:, :n_e]
+    mask = g["label_mask"].copy()
+    mask[-1] = False
+    batch = {"feats": torch.tensor(g["feats"], device=device),
+             "edges": torch.tensor(edges, device=device),
+             "labels": torch.tensor(g["labels"], device=device),
+             "label_mask": torch.tensor(mask, device=device)}
+    model = gnn.init(cfg, torch.Generator(device=device).manual_seed(seed),
+                     device=device, trainable=True)
+    tree = tree_of(model, cfg)
+    built = S.make_gnn_train(cfg, mesh, "graphsage-reddit", cell)
+    args = built.distribute({"params": tree, "opt": adamw_init(tree)}, batch)
+    new, metrics = p14_timed(out, f"graphsage train N={N} E={E}",
+                             lambda: built.fn(*args), reps=1)
+    loss_s = float(metrics["loss"].full_tensor())
+    loss0, m0 = gnn.node_loss(model, cfg, batch)
+    edges_p, ev, _ = partition_edges(edges, N, 1)
+    loss_fn = make_partitioned_loss(cfg, mesh, ("data",), N)
+    loss1, m1 = p14_counted(out, lambda: loss_fn(model, dict(
+        batch, edges=torch.tensor(edges_p, device=device),
+        edge_valid=torch.tensor(ev, device=device))))
+    d_loss = abs(float(loss1.detach()) - float(loss0.detach()))
+    d_acc = abs(float(m1["acc"].detach()) - float(m0["acc"].detach()))
+    log(f"  graphsage: make_gnn_train loss {loss_s:.6f}, node_loss "
+        f"{float(loss0):.6f}, partitioned {float(loss1):.6f} (|d| "
+        f"{d_loss:.2e}, bound 1e-4), acc |d| {d_acc:.2e} (bound 1e-6)")
+    if not (d_loss <= 1e-4 and d_acc <= 1e-6
+            and abs(loss_s - float(loss0)) <= 1e-4):
+        raise AssertionError("graphsage: partitioned loss off node_loss")
+    out["gnn"] = {"loss_step": loss_s, "node_loss": float(loss0),
+                  "partitioned": float(loss1), "acc_diff": d_acc}
+    del args, new, model
+
+    # ---- gspmd_flat_search over 1,000,000 x 768 at Q = 32
+    n, d, Q, k = P14_GSPMD
+    corpus = torch.randn(n, d, generator=gen, device=device)
+    q = torch.randn(Q, d, generator=gen, device=device)
+    s_d, i_d = p14_timed(out, f"gspmd_flat_search N={n} d={d} Q={Q}",
+                         lambda: gspmd_flat_search(corpus, q, mesh=mesh,
+                                                   k=k, metric="dot"))
+    fs, fi = flat_search(corpus, q, metric="dot", k=k)
+    got_s, ids = s_d.full_tensor(), i_d.full_tensor()
+    tol = topk_tolerance(corpus, q, False)[:, None]
+    same = ids == fi.long()
+    if not bool(((got_s - fs).abs() <= tol).all() and
+                (same | ((got_s - fs).abs() <= 2 * tol)).all()):
+        raise AssertionError("gspmd_flat_search off flat_search")
+    log(f"  gspmd_flat_search against flat_search: ids agree "
+        f"{float(same.float().mean()):.4f}, max |ds| "
+        f"{float((got_s - fs).abs().max()):.3e}")
+    del corpus
+
+
+def phase_launch(seed: int, device, backend: str = "nccl") -> dict:
+    """Phase 14: the launch layer's programs on a one-rank world. Returns
+    {"launches": the main path's, "collectives", "p50_ms", and the
+    kernels' entries at the phase's shapes}."""
+    import torch
+    import torch.distributed as dist
+    log(f"phase 14: launch/ on torch.distributed, one rank over {backend}, "
+        "a (1, 1) (data, model) mesh; each cell's program from "
+        "launch.steps on DTensors")
+    out = {"launches": {}, "collectives": {}, "p50_ms": {}}
+    torch.cuda.reset_peak_memory_stats()
+    mesh = p14_world(backend)
+    try:
+        p14_lm(out, seed, device, mesh)
+        p14_recsys_gnn(out, seed, device, mesh)
+    finally:
+        dist.destroy_process_group()
+    n = out["launches"]
+    log(f"  launches on the phase's path: flash_attention "
+        f"{n.get('flash_attention', 0)}, topk_distance "
+        f"{n.get('topk_distance', 0)}; collectives {out['collectives']}; "
+        f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    for name in ("flash_attention", "topk_distance"):
+        if not n.get(name):
+            raise AssertionError(f"phase 14: {name} never launched")
+    # the kernels at the phase's shapes, against their plain versions
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.topk_distance import (topk_distance_cuda,
+                                                   topk_distance_plain)
+    from repro_torch.core import distances as D
+    cfg = get_arch("h2o-danube-1.8b").full
+    gen = torch.Generator(device=device).manual_seed(seed + 140)
+    B, S_ = P14_PREFILL
+    out["flash"] = lm_flash(gen, B, S_, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.head_dim, cfg.window, device,
+                            "phase 14 prefill")
+    st = out.pop("serve_topk")
+    items, u, valid = D.pad_width(st["items"]), D.pad_width(st["u"]), st["valid"]
+    err = compare_topk(items, u, "dot", st["k"], "phase 14 sasrec serve "
+                       "topk_distance against plain", valid=valid)
+    bias = torch.where(valid, 0.0, -1e30).float()
+    ms = gpu_ms(lambda: topk_distance_cuda(items, u, bias, k=st["k"],
+                                           l2=False), 5)
+    plain_ms = gpu_ms(lambda: topk_distance_plain(items, u, bias, k=st["k"],
+                                                  l2=False), 1)
+    lib_ms = gpu_ms(lambda: library_topk(items, u, st["k"]), 2)
+    b = topk_bound(st["N"], st["d"], st["Q"], st["k"], False)
+    log(f"  topk_distance at sasrec serve N={st['N']} d={st['d']} (padded "
+        f"{items.shape[1]}) Q={st['Q']} k={st['k']}: kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, torch.matmul+torch.topk {lib_ms:.3f} ms, "
+        f"bound {b[0]:.3f} ms ({b[1]})")
+    out["topk"] = {"shape": f"sasrec serve N={st['N']} d={st['d']} "
+                            f"Q={st['Q']} k={st['k']}",
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "bound_ms": b[0], "bound_by": b[1], "max_abs_err": err}
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+ALL_PHASES = tuple(range(3, 15))
 
 
 def parse_phases(text) -> tuple:
@@ -6049,7 +6472,7 @@ def parse_phases(text) -> tuple:
     bad = chosen - set(ALL_PHASES)
     if bad:
         raise SystemExit(f"chip_smoke: no phase {sorted(bad)}; phases are "
-                         f"1-13")
+                         f"1-14")
     return tuple(sorted(chosen))
 
 
@@ -6095,7 +6518,7 @@ def main(argv=None) -> int:
                          "by default")
     ap.add_argument("--phases", default=None,
                     help="the phases to run after 1 and 2, as a list such "
-                         "as 4,12-13; every phase (3-13) by default")
+                         "as 4,12-13; every phase (3-14) by default")
     args = ap.parse_args(argv)
     phases = parse_phases(args.phases)
 
@@ -6190,6 +6613,27 @@ def main(argv=None) -> int:
                      {"shapes": shapes})
         log("phase 13 summary: " + json.dumps(
             {k: v for k, v in rec.items() if k != "launches"}, default=str))
+    if 14 in phases:
+        launch = timed_phase("phase 14", lambda: phase_launch(args.seed,
+                                                             device))
+        for name, key in (("flash_attention", "flash"),
+                          ("topk_distance", "topk")):
+            r = launch[key]
+            if not any(e["name"] == name for e in kernels):
+                src = {"flash_attention": ("flash_attention.cu",
+                                           "flash_attention.py:70"),
+                       "topk_distance": ("topk_distance.cu",
+                                         "topk_distance.py:77")}[name]
+                kernels.append(kernel_entry(
+                    name, f"src/repro_torch/csrc/{src[0]}",
+                    f"src/repro/kernels/{src[1]}", 0, r["max_abs_err"],
+                    r["ms"], r["plain_ms"], (r["bound_ms"], r["bound_by"]),
+                    r["library_ms"], r["shape"]))
+            add_launches(kernels, name, launch["launches"].get(name, 0),
+                         "launch_phase", {"shape": r["shape"]})
+        log("phase 14 summary: " + json.dumps(
+            {k: v for k, v in launch.items() if k not in ("flash", "topk")},
+            default=str))
     leaked = [m for m in sys.modules
               if m == "jax" or m.startswith("jax.") or m == "repro"
               or m.startswith("repro.")]

@@ -393,8 +393,16 @@ def two_level_search(corpus, q, *, mesh: Mesh, k: int, q_axes, c_axes,
     device, rows at or past ``n_valid`` knocked out; the k survivors of
     each slab merge across ``c_axes`` in one step. Q must divide the query
     shard count and N the corpus shard count. Returns (scores (Q, k), ids
-    (Q, k) int64) on the merge device, query blocks in order."""
+    (Q, k) int64) on the merge device, query blocks in order. With a
+    ``DeviceMesh`` (``launch.mesh``) every rank searches its own shards and
+    the results are DTensors sharded over ``q_axes``
+    (``_two_level_device_mesh``)."""
     check_tile(tile, 4096)
+    if is_device_mesh(mesh):
+        return _two_level_device_mesh(corpus, q, mesh=mesh, k=k,
+                                      q_axes=tuple(q_axes),
+                                      c_axes=tuple(c_axes), n_valid=n_valid,
+                                      metric=metric)
     q_sh = NamedSharding(mesh, P(tuple(q_axes), None))
     c_sh = NamedSharding(mesh, P(tuple(c_axes), None))
     if set(q_sh.axes) & set(c_sh.axes):
@@ -419,6 +427,174 @@ def two_level_search(corpus, q, *, mesh: Mesh, k: int, q_axes, c_axes,
                                      hierarchical=False,
                                      device=mesh.merge_device))
     return (torch.cat([s for s, _ in out]), torch.cat([i for _, i in out]))
+
+
+# ------------------------------------------------- torch.distributed meshes
+#
+# The functions below take a ``DeviceMesh`` over a process group (one rank
+# a device: NCCL on the cards, gloo on the CPU, the fake backend in the dry
+# run) and DTensors, the port's SPMD idiom (``launch.mesh``): every rank
+# runs the same program on its own shards, and the collectives cross ranks.
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (a DTensor's global
+    stride, computed without making a tensor: under ``FakeTensorMode`` even
+    a ``meta`` one would count as an allocation of the whole)."""
+    stride, acc = [], 1
+    for s in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= s
+    return tuple(reversed(stride))
+
+
+def is_device_mesh(mesh) -> bool:
+    return getattr(mesh, "mesh_dim_names", None) is not None
+
+
+def dtensor_placements(spec, mesh) -> tuple:
+    """A spec -> one DTensor placement per mesh dim (the port's
+    ``NamedSharding``): ``Shard(d)`` on every mesh axis that tensor dim d
+    splits over, ``Replicate()`` on the others. The axes of one dim must
+    come in mesh order: DTensor splits such a dim over its mesh dims left
+    to right, which is the row-major layout JAX gives the same spec. A
+    mesh dim of size 1 is ``Replicate()`` whatever the spec says: the two
+    are the same layout there, and DTensor cannot reshape a dim that is
+    "split" over one rank when the dim itself has size 1 (a micro-batch
+    of one row on a one-rank mesh)."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"{spec}: dim {d} lists {axes} off the mesh's "
+                             f"order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"{spec}: mesh axis {names[i]} used twice")
+            out[i] = Shard(d)
+    return tuple(Replicate() if mesh.size(i) == 1 else pl
+                 for i, pl in enumerate(out))
+
+
+def fit_spec(shape, spec, mesh):
+    """``spec`` with every entry whose dim does not split evenly over its
+    axes set to None: the dim stays whole where GSPMD would pad it (an
+    uneven DTensor shard cannot be reshaped)."""
+    names = tuple(mesh.mesh_dim_names)
+    out = []
+    for d, entry in enumerate(spec):
+        axes = () if entry is None else (
+            (entry,) if isinstance(entry, str) else tuple(entry))
+        n = math.prod(mesh.size(names.index(a)) for a in axes)
+        out.append(entry if axes and shape[d] % n == 0 else None)
+    return P(*out)
+
+
+def replicated(x, mesh):
+    """``x`` as a DTensor over ``mesh``: a DTensor as it is, a plain tensor
+    (the same on every rank) with ``Replicate()`` on every mesh dim."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def with_sharding_constraint(x, mesh, spec):
+    """``x`` redistributed to ``spec`` over ``mesh`` (the reference's
+    ``jax.lax.with_sharding_constraint``; a dim that does not divide stays
+    whole, ``fit_spec``): a DTensor is resharded, with the collectives that
+    takes; a plain tensor becomes a DTensor whose every rank holds the
+    whole of it (``Replicate`` placements) first."""
+    x = replicated(x, mesh)
+    return x.redistribute(
+        mesh, dtensor_placements(fit_spec(x.shape, spec, mesh), mesh))
+
+
+def _gather_axes(x, mesh, axes, dim: int):
+    """All-gather a local tensor along ``dim`` over mesh ``axes``, tiled in
+    row-major order over them (innermost axis first), differentiably."""
+    import torch.distributed._functional_collectives as fc
+    # the newer name, where this PyTorch has it (same signature)
+    gather = getattr(fc, "all_gather_single_autograd",
+                     None) or fc.all_gather_tensor_autograd
+    for a in reversed(tuple(axes)):
+        x = gather(x, gather_dim=dim, group=mesh.get_group(a))
+    return x
+
+
+def _axis_index(mesh, axes) -> int:
+    """This rank's flat index over ``axes`` (row-major)."""
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.size(mesh.mesh_dim_names.index(a)) + \
+            mesh.get_local_rank(a)
+    return idx
+
+
+def _axes_size(mesh, axes) -> int:
+    return math.prod(mesh.size(mesh.mesh_dim_names.index(a)) for a in axes)
+
+
+def gspmd_flat_search(corpus, q, *, mesh, k: int, metric: str = "cosine",
+                      axes=None, valid=None):
+    """The flat top-k written with sharding constraints only, DTensor
+    choosing the collectives as GSPMD does for the reference: corpus rows
+    ``Shard(0)`` over ``axes`` (every mesh axis by default), q
+    ``Replicate()``, then the (Q, N) scores, the optional ``valid`` (N,)
+    mask and the top-k (``distances.topk_scores``, ties to the lower id).
+    ``mesh`` a ``DeviceMesh``; tensors or DTensors in. Returns (scores
+    (Q, k), ids (Q, k) int64) replicated, as DTensors."""
+    axes = tuple(axes) if axes is not None else tuple(mesh.mesh_dim_names)
+    corpus = with_sharding_constraint(corpus, mesh, P(axes, None))
+    q = with_sharding_constraint(q, mesh, P(None, None))
+    scores = D.pairwise_scores(q, corpus, metric)
+    if valid is not None:
+        valid = with_sharding_constraint(valid, mesh, P(axes))
+        scores = torch.where(valid[None, :], scores, -torch.inf)
+    s, i = D.topk_scores(scores, k)
+    return (with_sharding_constraint(s, mesh, P(None, None)),
+            with_sharding_constraint(i, mesh, P(None, None)))
+
+
+def _two_level_device_mesh(corpus, q, *, mesh, k, q_axes, c_axes, n_valid,
+                           metric):
+    """``two_level_search`` over a ``DeviceMesh``: the reference's
+    ``shard_map`` body on each rank's shards. Each rank runs ``flat_search``
+    (the ``topk_distance`` kernel on a CUDA shard) on its corpus shard
+    against its query block, lifts ids by its row offset, and the k
+    survivors are all-gathered over ``c_axes`` (tiled, row-major) and
+    merged by one more top-k, ties to the lower shard, then slot. Rows and
+    queries are padded with zero columns to the kernel's width
+    (``distances.pad_width``), which changes no score."""
+    from torch.distributed.tensor import DTensor
+    corpus = with_sharding_constraint(corpus, mesh, P(c_axes, None))
+    q = with_sharding_constraint(q, mesh, P(q_axes, None))
+    N = corpus.shape[0]
+    n_c = _axes_size(mesh, c_axes)
+    if N % n_c:
+        raise ValueError(f"{N} corpus rows do not split into {n_c} shards")
+    local_n = N // n_c
+    # zero columns up to the kernel's width change no score (a flat
+    # engine pads its rows the same way at load)
+    c_blk, q_blk = D.pad_width(corpus.to_local()), D.pad_width(q.to_local())
+    base = _axis_index(mesh, c_axes) * local_n
+    valid = (None if n_valid is None else
+             base + torch.arange(local_n, device=c_blk.device) < n_valid)
+    kk = min(k, local_n)
+    s, i = flat_search(c_blk, q_blk, metric=metric, k=kk, valid=valid)
+    s, i = D.pad_to_k(*_lift(s, i, base), k)
+    s_all = _gather_axes(s, mesh, c_axes, 1)
+    i_all = _gather_axes(i, mesh, c_axes, 1)
+    top, pos = D.topk_scores(s_all, k)
+    ids = torch.gather(i_all, 1, pos)
+    pl = dtensor_placements(P(q_axes, None), mesh)
+    return (DTensor.from_local(top, mesh, pl, run_check=False),
+            DTensor.from_local(ids, mesh, pl, run_check=False))
 
 
 def merge_candidate_sets(scores, ids, k: int):

@@ -28,7 +28,13 @@ def kernel_path(x: torch.Tensor, use_kernel=None) -> bool:
     The rule follows the tensor: a CUDA tensor launches the kernel, a CPU
     tensor runs the plain version. ``use_kernel=True`` on a CPU tensor
     raises; ``use_kernel=False`` runs the plain version on either device
-    (the kernel-against-plain comparisons use it)."""
+    (the kernel-against-plain comparisons use it). A DTensor (a sharded
+    step's) raises: a kernel runs on each rank's local shard
+    (``to_local``), and a sharded tensor never falls back to the plain
+    version."""
+    if is_dtensor(x):
+        raise ValueError("a DTensor reached a kernel wrapper: run the kernel "
+                         "on each rank's local shard (to_local)")
     if use_kernel is None:
         return x.is_cuda
     if use_kernel and not x.is_cuda:
@@ -81,3 +87,13 @@ def float32_bf16_sums():
         yield
     finally:
         mm.allow_bf16_reduced_precision_reduction = prev
+
+
+def is_dtensor(x) -> bool:
+    """True for a ``torch.distributed.tensor.DTensor``: a sharded step's
+    tensor (``launch.steps``), which a kernel wrapper runs on its local
+    shard and never sends down the plain version."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)

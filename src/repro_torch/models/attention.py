@@ -37,7 +37,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
-from repro_torch.device import bf16_exact_tf32, kernel_path, strict_fp32
+from repro_torch.device import (bf16_exact_tf32, is_dtensor, kernel_path,
+                                strict_fp32)
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention_plain
 from repro_torch.models.layers import Norm, apply_norm, apply_rope, dense_init
@@ -252,7 +253,11 @@ def _core(q, k, v, cfg: LMConfig, *, kv_mask, use_kernel, train,
           scale=None):
     """The full-sequence attention core under the config's causal flag and
     window: ``dense_or_chunked_attention`` when training, else
-    ``multihead_attention``'s dispatch."""
+    ``multihead_attention``'s dispatch. DTensors (a sharded step) run it
+    on each rank's shards (``_local_core``)."""
+    if is_dtensor(q):
+        return _local_core(q, k, v, cfg, kv_mask=kv_mask,
+                           use_kernel=use_kernel, train=train, scale=scale)
     if train:
         return dense_or_chunked_attention(q, k, v, cfg, causal=cfg.causal,
                                           window=cfg.window, kv_mask=kv_mask,
@@ -260,6 +265,101 @@ def _core(q, k, v, cfg: LMConfig, *, kv_mask, use_kernel, train,
     return multihead_attention(q, k, v, cfg, causal=cfg.causal,
                                window=cfg.window, kv_mask=kv_mask, scale=scale,
                                use_kernel=use_kernel)
+
+
+def _local_layout(q, kv, head_dims, batch_dims):
+    """The layout of a rank-local core: (q's placements, each of ``kv``'s,
+    the mesh dim whose q-head split leaves the KV heads whole, or None).
+    q is (B, S, H, ...); ``kv[i]`` has its batch dim ``batch_dims[i]`` and
+    its KV-head dim ``head_dims[i]`` (None: no such dim), the KV heads all
+    of one count KV. Batch rows stay split where q splits them. Heads stay
+    split over a mesh dim that divides both H and KV (query head h reads KV
+    head h // (H // KV): a rank's H / n query heads read exactly its KV / n
+    KV heads), or over one that divides H when each rank's query heads fall
+    in one KV group (H / n divides H // KV, danube's 32 / 8 heads on 16
+    ranks): then the KV tensors stay whole and each rank reads its one KV
+    head. Anything else (a partial sum, a split head_dim or sequence) is
+    made whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    H = q.shape[2]
+    KV = next((t.shape[h] for t, h in zip(kv, head_dims) if h is not None),
+              H)
+    q_pl, kv_pl, group_dim = [], [[] for _ in kv], None
+    for i, pl in enumerate(q.placements):
+        n = mesh.size(i)
+        heads = isinstance(pl, Shard) and pl.dim == 2 and H % n == 0
+        if isinstance(pl, Shard) and pl.dim == 0:
+            q_pl.append(Shard(0))
+            dims = batch_dims
+        elif heads and KV % n == 0:
+            q_pl.append(Shard(2))
+            dims = head_dims
+        elif heads and group_dim is None and (H // KV) % (H // n) == 0:
+            q_pl.append(Shard(2))
+            dims = (None,) * len(kv)
+            group_dim = i
+        else:
+            q_pl.append(Replicate())
+            dims = (None,) * len(kv)
+        for lst, d in zip(kv_pl, dims):
+            lst.append(Replicate() if d is None else Shard(d))
+    return tuple(q_pl), [tuple(pl) for pl in kv_pl], group_dim
+
+
+def _on_local_shards(core, q, kv, shape, *, head_dims=None, batch_dims=None,
+                     **kw):
+    """``core(q, *kv, **kw)``; on DTensors (a sharded step) each rank runs
+    it on its own shards, as the reference's ``shard_map`` body would: q
+    and ``kv`` resharded to ``_local_layout`` (``head_dims`` and
+    ``batch_dims`` default to 2 and 0 for each of ``kv``; a plain tensor
+    among them counts as replicated), where each rank reads one KV head of
+    whole KV tensors ``core`` gets that head, and the result is a DTensor
+    of the global ``shape`` split like q. The flash kernel runs on a CUDA
+    shard, never the plain version. Differentiable: ``redistribute``,
+    ``to_local`` and ``from_local`` carry gradients; a KV tensor left whole
+    over a mesh dim that splits q's heads gets a partial sum over it."""
+    if not is_dtensor(q):
+        return core(q, *kv, **kw)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.core.distributed import contiguous_stride, replicated
+    mesh = q.device_mesh
+    head_dims = head_dims or (2,) * len(kv)
+    batch_dims = batch_dims or (0,) * len(kv)
+    kv = [replicated(t, mesh) for t in kv]
+    q_pl, kv_pl, group_dim = _local_layout(q, kv, head_dims, batch_dims)
+    q = q.redistribute(mesh, q_pl)
+    local = []
+    for t, pl, h in zip(kv, kv_pl, head_dims):
+        t = t.redistribute(mesh, pl)
+        grad_pl = [Partial() if q_pl[i] == Shard(2) and p == Replicate()
+                   else p for i, p in enumerate(pl)]
+        loc = t.to_local(grad_placements=grad_pl)
+        if group_dim is not None and h is not None:
+            h_loc = q.shape[2] // mesh.size(group_dim)
+            g = (mesh.get_local_rank(group_dim) * h_loc) // (
+                q.shape[2] // t.shape[h])
+            loc = loc.narrow(h, g, 1)
+        local.append(loc)
+    o = core(q.to_local(), *local, **kw).contiguous()
+    return DTensor.from_local(o, mesh, q_pl, run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
+
+
+def _local_core(q, k, v, cfg: LMConfig, *, kv_mask, use_kernel, train,
+                scale):
+    """The attention core on DTensors (``_on_local_shards``): each rank
+    runs ``_core`` on its own batch rows and heads; the mask (B, S_k)
+    follows the batch rows."""
+    def core(q, k, v, *mask):
+        return _core(q, k, v, cfg, kv_mask=mask[0] if mask else None,
+                     use_kernel=use_kernel, train=train, scale=scale)
+
+    kv = (k, v) if kv_mask is None else (k, v, kv_mask)
+    return _on_local_shards(core, q, kv, q.shape,
+                            head_dims=(2, 2, None)[:len(kv)],
+                            batch_dims=(0,) * len(kv))
 
 
 def _gqa_qkv(p: Attention, cfg: LMConfig, x, positions):
@@ -324,15 +424,23 @@ def gqa_decode(p: Attention, cfg: LMConfig, x, cache_k, cache_v, pos: int):
     _write_slot(cache_k, k, pos % C)
     _write_slot(cache_v, v, pos % C)
 
+    o = _on_local_shards(_gqa_decode_core, q, (cache_k, cache_v),
+                         (B, 1, H * dh), pos=pos, dt=dt)
+    return o @ p.wo.to(dt).reshape(H * dh, D), (cache_k, cache_v)
+
+
+def _gqa_decode_core(q, cache_k, cache_v, *, pos: int, dt):
+    """q (B, 1, H, dh) against the caches (B, C, KV, dh) -> (B, 1, H * dh)."""
+    B, _, H, dh = q.shape
+    C, KV = cache_k.shape[1], cache_k.shape[2]
     qr = q.reshape(B, 1, KV, H // KV, dh).float()
     s = torch.einsum("bqnrd,bknd->bnrqk", qr,
                      cache_k.to(dt).float()) / math.sqrt(dh)
-    valid = torch.arange(C, device=x.device) < min(pos + 1, C)
+    valid = torch.arange(C, device=q.device) < min(pos + 1, C)
     s = torch.where(valid, s, NEG_INF)
     pr = torch.softmax(s, dim=-1).to(dt)
-    o = torch.einsum("bnrqk,bknd->bqnrd", pr.float(),
-                     cache_v.to(dt).float()).to(dt).reshape(B, 1, H * dh)
-    return o @ p.wo.to(dt).reshape(H * dh, D), (cache_k, cache_v)
+    return torch.einsum("bnrqk,bknd->bqnrd", pr.float(),
+                        cache_v.to(dt).float()).to(dt).reshape(B, 1, H * dh)
 
 
 # ============================================================ MLA block
@@ -424,7 +532,22 @@ def mla_decode(p: MLAttention, cfg: LMConfig, x, cache_ckv, cache_krope,
     _write_slot(cache_ckv, c_kv, slot)
     _write_slot(cache_krope, k_rope[:, :, 0, :], slot)
 
-    wkv_b = p.wkv_b.to(dt)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    o = _on_local_shards(_mla_decode_core, q,
+                         (p.wkv_b.to(dt), cache_ckv, cache_krope),
+                         (B, 1, H, m.v_head_dim), head_dims=(1, None, None), batch_dims=(None, 0, 0),
+                         pos=pos, m=m, dt=dt)
+    out = o.reshape(B, 1, H * m.v_head_dim) @ p.wo.to(dt).reshape(
+        H * m.v_head_dim, D)
+    return out, (cache_ckv, cache_krope)
+
+
+def _mla_decode_core(q, wkv_b, cache_ckv, cache_krope, *, pos: int, m, dt):
+    """q (B, 1, H, qk_nope + qk_rope) against the latent caches -> (B, 1,
+    H, v): k's decompression absorbed into the query, v's applied after
+    the mix (``mla_decode``)."""
+    C = cache_ckv.shape[1]
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
     w_k, w_v = wkv_b[..., :m.qk_nope_dim], wkv_b[..., m.qk_nope_dim:]
     # absorb k's decompression into the query: (B,1,H,nope) x (lora,H,nope)
     q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope.float(),
@@ -434,11 +557,9 @@ def mla_decode(p: MLAttention, cfg: LMConfig, x, cache_ckv, cache_krope,
     s = s + torch.einsum("bqhr,bsr->bhqs", q_rope.float(),
                          cache_krope.to(dt).float())
     s = s / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
-    valid = torch.arange(C, device=x.device) <= pos
+    valid = torch.arange(C, device=q.device) <= pos
     s = torch.where(valid, s, NEG_INF)
     pr = torch.softmax(s, dim=-1).to(dt)
     ctx_lat = torch.einsum("bhqs,bsl->bqhl", pr.float(), ckv).to(dt)
-    o = torch.einsum("bqhl,lhv->bqhv", ctx_lat.float(), w_v.float()).to(dt)
-    out = o.reshape(B, 1, H * m.v_head_dim) @ p.wo.to(dt).reshape(
-        H * m.v_head_dim, D)
-    return out, (cache_ckv, cache_krope)
+    return torch.einsum("bqhl,lhv->bqhv", ctx_lat.float(),
+                        w_v.float()).to(dt)

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import GNNConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import is_dtensor, resolve_device
 from repro_torch.models.layers import dense_init
 
 
@@ -79,8 +79,59 @@ def init(cfg: GNNConfig, generator: torch.Generator, device=None, *,
 # ================================================================ aggregation
 
 
+def _gather_rows(h, idx):
+    """``h[idx]``; on DTensors (a sharded step) each rank gathers from the
+    whole of h (an all-gather where it is split, as GSPMD gathers by ids
+    that cross shards) the rows of its own ids, and the rows come back
+    split like the ids."""
+    if not (is_dtensor(h) or is_dtensor(idx)):
+        return h[idx]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.core.distributed import replicated
+    mesh = (h if is_dtensor(h) else idx).device_mesh
+    whole = [Replicate()] * mesh.ndim
+    h, idx = replicated(h, mesh), replicated(idx, mesh)
+    rows = [Shard(0) if p == Shard(0) else Replicate()
+            for p in idx.placements]
+    # a rank's gradient of h covers its own ids: a partial sum over the
+    # mesh dims that split them
+    grad_pl = [Partial() if p == Shard(0) else Replicate() for p in rows]
+    got = h.redistribute(mesh, whole).to_local(grad_placements=grad_pl)[
+        idx.redistribute(mesh, rows).to_local()]
+    return DTensor.from_local(got, mesh, rows, run_check=False,
+                              shape=tuple(idx.shape) + tuple(h.shape[1:]),
+                              stride=got.stride())
+
+
 def _segment_sum(values, ids, n: int):
+    if is_dtensor(values) or is_dtensor(ids):
+        return _segment_sum_sharded(values, ids, n)
     return values.new_zeros((n,) + values.shape[1:]).index_add(0, ids, values)
+
+
+def _segment_sum_sharded(values, ids, n: int):
+    """``_segment_sum`` on DTensors (a sharded step), as GSPMD lowers the
+    reference's ``segment_sum`` over sharded edges: values and ids split
+    their rows alike (a mesh dim that splits either splits both; any other
+    placement is made whole), each rank sums its own rows into all n
+    segments, and the result is that partial sum (``Partial()`` over the
+    mesh dims that split the rows), which DTensor reduces where it is read.
+    Differentiable, as ``index_add`` is in ``values``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.core.distributed import replicated
+    mesh = (values if is_dtensor(values) else ids).device_mesh
+    values, ids = replicated(values, mesh), replicated(ids, mesh)
+    rows = [Shard(0) if Shard(0) in (a, b) else Replicate()
+            for a, b in zip(values.placements, ids.placements)]
+    v = values.redistribute(mesh, rows).to_local()
+    i = ids.redistribute(mesh, rows).to_local()
+    local = v.new_zeros((n,) + v.shape[1:]).index_add(0, i, v)
+    out = [Partial() if r == Shard(0) else Replicate() for r in rows]
+    return DTensor.from_local(local, mesh, out, run_check=False,
+                              shape=(n,) + tuple(values.shape[1:]),
+                              stride=local.stride())
 
 
 def _aggregate(messages, dst, n_nodes: int, mode: str, edge_mask=None):
@@ -114,7 +165,7 @@ def _sage_layer(p, h_src, h_dst, src, dst, n_dst: int, mode: str,
     # messages cross in msg_dtype (the reference casts before its gather,
     # which crosses shards there); the reduction is float32
     h_gather = h_src if msg_dtype is None else h_src.to(getattr(torch, msg_dtype))
-    msgs = h_gather[src.long()].float()
+    msgs = _gather_rows(h_gather, src.long()).float()
     agg = _aggregate(msgs, dst, n_dst, mode, edge_mask).to(h_dst.dtype)
     out = F.relu(h_dst @ p.w_self + agg @ p.w_neigh + p.b)
     # L2 normalize, per the GraphSAGE paper (alg. 1, line 7)
@@ -123,8 +174,14 @@ def _sage_layer(p, h_src, h_dst, src, dst, n_dst: int, mode: str,
 
 
 def _nll(logits, labels):
-    return -torch.gather(F.log_softmax(logits, dim=-1), -1,
-                         labels.long()[:, None])[:, 0]
+    logp = F.log_softmax(logits, dim=-1)
+    if is_dtensor(logp):
+        # the label's log-probability among exact zeros: no gather, whose
+        # backward a DTensor may have no rule for
+        hit = (torch.arange(logp.shape[-1], device=logp.device)
+               == labels.long()[:, None])
+        return -torch.where(hit, logp, 0.0).sum(dim=-1)
+    return -torch.gather(logp, -1, labels.long()[:, None])[:, 0]
 
 
 # ================================================================ full graph
@@ -166,7 +223,7 @@ def forward_blocks(params, cfg: GNNConfig, feats, blocks):
     """
     h = feats.to(getattr(torch, cfg.dtype))
     for p, blk in zip(params.layers, blocks):
-        h_dst = h[blk["self_idx"].long()]
+        h_dst = _gather_rows(h, blk["self_idx"].long())
         h = _sage_layer(p, h, h_dst, blk["src"], blk["dst"], int(blk["n_dst"]),
                         cfg.aggregator, blk.get("edge_mask"),
                         msg_dtype=cfg.message_dtype)

@@ -9,20 +9,35 @@ dtype at each product (``x @ w.astype(x.dtype)``).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.device import is_dtensor
+
 
 def trunc_normal(shape, std: float, generator: torch.Generator,
                  dtype=torch.float32) -> nn.Parameter:
     """Normal(0, std) truncated at +-2 std, drawn from ``generator`` on its
-    device (``trunc_normal_`` takes absolute bounds)."""
+    device (``trunc_normal_`` takes absolute bounds). On the ``meta``
+    device (``MetaGenerator``) nothing is drawn or allocated: the leaf has
+    its shape and dtype only."""
     t = torch.empty(shape, dtype=torch.float32, device=generator.device)
-    nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
-                          generator=generator)
+    if t.device.type != "meta":
+        nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
     return nn.Parameter(t.to(dtype))
+
+
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` when a model is built for its
+    shapes only: every leaf lands on the ``meta`` device, undrawn
+    (``launch.steps.abstract_state``)."""
+
+    device = torch.device("meta")
 
 
 def dense_init(generator, d_in: int, d_out, dtype=torch.float32, *,
@@ -138,4 +153,76 @@ class Embed(nn.Module):
 
 
 def apply_embed(p, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    if is_dtensor(p.table):
+        return embedding(tokens.long(), p.table).to(dtype)
     return p.table[tokens.long()].to(dtype)
+
+
+def log_sigmoid(x):
+    """``F.logsigmoid(x)``; on a DTensor (which has no sharding rule for
+    it) elementwise on each rank's shard, the split kept (a partial sum
+    is summed first). Differentiable."""
+    if not is_dtensor(x):
+        return F.logsigmoid(x)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.core.distributed import contiguous_stride
+    pl = [Replicate() if isinstance(p, Partial) else p for p in x.placements]
+    x = x.redistribute(x.device_mesh, pl)
+    return DTensor.from_local(F.logsigmoid(x.to_local()), x.device_mesh, pl,
+                              run_check=False, shape=x.shape,
+                              stride=contiguous_stride(x.shape))
+
+
+def embedding(idx, table):
+    """``F.embedding(idx, table)``; a DTensor table (a sharded step's:
+    recsys tables split by rows over the mesh, the DLRM layout, or an LM
+    vocabulary over "model") looks up on each rank's shard
+    (``_sharded_lookup``)."""
+    if is_dtensor(table):
+        return _sharded_lookup(idx, table)
+    return F.embedding(idx, table)
+
+
+def _sharded_lookup(idx, table):
+    """The row-split lookup, as GSPMD lowers a gather from a row-sharded
+    table: the ids are made whole over the mesh dims that split the rows,
+    each rank reads the rows it holds (a zero row for the others), the sum
+    over those ranks (a ``Partial``) is the lookup, and it comes back in
+    the ids' batch layout. Differentiable in the table."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.core.distributed import _axis_index, replicated
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    idx = replicated(idx, mesh)
+    rows = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    if any(not isinstance(p, Replicate) and i not in rows
+           for i, p in enumerate(table.placements)):
+        table = table.redistribute(mesh, [Shard(0) if i in rows
+                                          else Replicate()
+                                          for i in range(mesh.ndim)])
+    batch_pl = [Shard(0) if p == Shard(0) else Replicate()
+                for p in idx.placements]
+    idx_pl = [Replicate() if i in rows else p for i, p in enumerate(batch_pl)]
+    ids = idx.redistribute(mesh, idx_pl).to_local().long()
+    # a rank's table gradient covers its own ids: a partial sum over the
+    # mesh dims that split the ids, its own rows over those that split
+    # the table
+    local = table.to_local(grad_placements=[
+        Shard(0) if i in rows else
+        (Partial() if p == Shard(0) else Replicate())
+        for i, p in enumerate(idx_pl)])
+    n_loc = local.shape[0]
+    ids = ids - _axis_index(mesh, [names[i] for i in rows]) * n_loc
+    hit = (ids >= 0) & (ids < n_loc)
+    got = F.embedding(ids.clamp(0, n_loc - 1), local) * hit[..., None]
+    out_pl = [Partial() if i in rows else p for i, p in enumerate(idx_pl)]
+    shape = tuple(idx.shape) + (table.shape[1],)
+    out = DTensor.from_local(got, mesh, out_pl, run_check=False,
+                             shape=shape, stride=got.stride())
+    split = math.prod(mesh.size(i) for i, p in enumerate(batch_pl)
+                      if p == Shard(0))
+    return out.redistribute(mesh, batch_pl if shape[0] % split == 0
+                            else [Replicate()] * mesh.ndim)
+

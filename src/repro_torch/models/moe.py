@@ -26,8 +26,55 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import LMConfig, MoEConfig
-from repro_torch.device import strict_fp32
+from repro_torch.device import is_dtensor, strict_fp32
 from repro_torch.models.layers import ACTIVATIONS, MLP, apply_mlp, trunc_normal
+
+
+# Expert-parallel hook (the reference's ``EP_SHARDING``), set by
+# ``launch.steps.moe_constraints`` for the duration of a sharded step:
+# (mesh, batch axes, expert axes). DTensor dispatch tensors are then
+# redistributed to the reference's placements, so that dispatch and combine
+# become exchanges between the token shards (the batch axes) and the expert
+# owners (the expert axes).
+EP_SHARDING = None
+
+
+def _ep_constrain(x, spec_builder):
+    if EP_SHARDING is None or not is_dtensor(x):
+        return x
+    from repro_torch.core.distributed import with_sharding_constraint
+    mesh, dp, e_axes = EP_SHARDING
+    return with_sharding_constraint(x, mesh, spec_builder(dp, e_axes))
+
+
+def _expert_spec(dp, ea):
+    from repro_torch.core.distributed import P
+    return (P(dp, "model", None, None) if tuple(ea) == ("model",)
+            else P(None, ea, None, None))
+
+
+def _token_spec(dp, ea):
+    from repro_torch.core.distributed import P
+    return P(dp, None, None)
+
+
+def _group_full(like, shape, value, dtype):
+    """A (G, ...) tensor of ``value`` laid out as ``like`` (G, ...) lays out
+    its groups: a DTensor's split of G stays, every other dim whole, each
+    rank allocating its own groups (a plain tensor would sit whole on
+    every rank: v3's (G, t, E, C) combine is 15 GiB)."""
+    if not is_dtensor(like):
+        return torch.full(shape, value, dtype=dtype, device=like.device)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.core.distributed import contiguous_stride
+    local_g = like.to_local().shape[0]
+    local = torch.full((local_g,) + tuple(shape[1:]), value, dtype=dtype,
+                       device=like.to_local().device)
+    pl = [Shard(0) if p == Shard(0) else Replicate() for p in like.placements]
+    return DTensor.from_local(local, like.device_mesh, pl, run_check=False,
+                              shape=tuple(shape),
+                              stride=contiguous_stride(shape))
 
 
 class Experts(nn.Module):
@@ -93,7 +140,7 @@ def _assign(idx, E: int, C: int):
     slots) and whether it is below C. Returns ([slot (G, t)], [kept (G, t)])
     a slot j each."""
     G, t, k = idx.shape
-    counts = torch.zeros((G, E), dtype=torch.int64, device=idx.device)
+    counts = _group_full(idx, (G, E), 0, torch.int64)
     slots, keeps = [], []
     for j in range(k):
         mj = F.one_hot(idx[:, :, j], E)  # (G, t, E)
@@ -132,7 +179,7 @@ def apply_moe(p: MoE, cfg: LMConfig, x, *, capacity_factor=None,
     G, t, C = group_shape(T, m, capacity_factor)
     E, k = m.n_routed, m.top_k
     dt = x.dtype
-    xg = x.reshape(G, t, D)
+    xg = _ep_constrain(x.reshape(G, t, D), _token_spec)
     with strict_fp32():
         logits = xg.float() @ p.router.float()  # (G, t, E)
     gates, idx = _routing(logits, m, router_score)
@@ -146,13 +193,13 @@ def apply_moe(p: MoE, cfg: LMConfig, x, *, capacity_factor=None,
                                for j, (sl, kp) in enumerate(zip(slots, keeps))],
                               dim=-1).reshape(G, t * k)
         tok_of = torch.arange(t, device=x.device).repeat_interleave(k)
-        token_at_slot = torch.full((G, E * C + 1), t, dtype=torch.int64,
-                                   device=x.device)
+        token_at_slot = _group_full(xg, (G, E * C + 1), t, torch.int64)
         token_at_slot.scatter_(1, slot_id, tok_of.expand(G, -1).contiguous())
         xg_pad = torch.cat([xg, xg.new_zeros((G, 1, D))], dim=1)
         x_e = torch.gather(xg_pad, 1, token_at_slot[:, :E * C, None]
                            .expand(-1, -1, D)).reshape(G, E, C, D)
-        y_e = _expert_mlp(p.experts, cfg, x_e)
+        x_e = _ep_constrain(x_e, _expert_spec)
+        y_e = _ep_constrain(_expert_mlp(p.experts, cfg, x_e), _expert_spec)
         safe = torch.clamp(slot_id, max=E * C - 1)
         picked = torch.gather(y_e.reshape(G, E * C, D), 1,
                               safe[..., None].expand(-1, -1, D))
@@ -161,9 +208,8 @@ def apply_moe(p: MoE, cfg: LMConfig, x, *, capacity_factor=None,
              ).sum(dim=2).to(dt)
         n_kept = kept.float().sum()
     else:
-        dispatch = torch.zeros((G, t, E, C), dtype=dt, device=x.device)
-        combine = torch.zeros((G, t, E, C), dtype=torch.float32,
-                              device=x.device)
+        dispatch = _group_full(xg, (G, t, E, C), 0, dt)
+        combine = _group_full(xg, (G, t, E, C), 0, torch.float32)
         for j in range(k):
             slot_oh = F.one_hot(slots[j], C)  # (G, t, C)
             sel = F.one_hot(idx[:, :, j], E) * keeps[j][..., None]  # (G, t, E)
@@ -171,12 +217,13 @@ def apply_moe(p: MoE, cfg: LMConfig, x, *, capacity_factor=None,
             dispatch = dispatch + onehot.to(dt)
             combine = combine + gates[:, :, j, None, None] * onehot.float()
         # each (expert, slot) holds one token at most: the sum is a copy
-        x_e = torch.einsum("gtec,gtd->gecd", dispatch, xg)
-        y_e = _expert_mlp(p.experts, cfg, x_e)
+        x_e = _ep_constrain(torch.einsum("gtec,gtd->gecd", dispatch, xg),
+                            _expert_spec)
+        y_e = _ep_constrain(_expert_mlp(p.experts, cfg, x_e), _expert_spec)
         y = torch.bmm(combine.to(dt).reshape(G, t, E * C),
                       y_e.reshape(G, E * C, D))
         n_kept = dispatch.float().sum()
-    y = y.reshape(B, S, D)
+    y = _ep_constrain(y, _token_spec).reshape(B, S, D)
 
     if p.shared is not None:
         y = y + apply_mlp(p.shared, x, cfg.act)

@@ -43,7 +43,8 @@ from torch import nn
 
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import Norm, apply_norm, dense_init, trunc_normal
+from repro_torch.models.layers import (Norm, apply_norm, dense_init, embedding,
+                                       log_sigmoid, trunc_normal)
 
 
 # ============================================================ embedding bag
@@ -62,7 +63,7 @@ def embedding_bag(table, idx, bag_ids, n_bags: int, *, mode: str = "sum",
     table: (V, d); idx: (nnz,) row ids; bag_ids: (nnz,) target bag per index
     (non-decreasing not required); valid: optional (nnz,) bool. An empty
     bag is zeros (its mean too)."""
-    rows = F.embedding(idx.long(), table)
+    rows = embedding(idx.long(), table)
     if valid is not None:
         rows = torch.where(valid[:, None], rows, 0.0)
     bag_ids = bag_ids.long()
@@ -78,7 +79,7 @@ def embedding_bag(table, idx, bag_ids, n_bags: int, *, mode: str = "sum",
 
 def lookup_fields(table, sparse_idx, dtype):
     """Dense single-valued-per-field lookup: (B, F) unified ids -> (B, F, d)."""
-    return F.embedding(sparse_idx.long(), table).to(dtype)
+    return embedding(sparse_idx.long(), table).to(dtype)
 
 
 # ============================================================ parameters
@@ -251,7 +252,7 @@ def _field_vectors(params, cfg: RecsysConfig, batch, dtype):
     t = params.tables
     idx = batch["sparse_idx"].long()
     v_sp = lookup_fields(t.embed, idx, dtype)  # (B, F, d)
-    first = F.embedding(idx, t.w1)[..., 0].to(dtype).sum(dim=-1)
+    first = embedding(idx, t.w1)[..., 0].to(dtype).sum(dim=-1)
     vs = [v_sp]
     if batch.get("dense") is not None and cfg.n_dense:
         dn = batch["dense"].to(dtype)  # (B, Fd)
@@ -315,7 +316,7 @@ def sasrec_hidden(params, cfg: RecsysConfig, seq):
     dtype = getattr(torch, cfg.dtype)
     B, S = seq.shape
     seq = seq.long()
-    h = F.embedding(seq, params.item_embed).to(dtype)
+    h = embedding(seq, params.item_embed).to(dtype)
     h = h * math.sqrt(cfg.embed_dim) + params.pos_embed[:S].to(dtype)[None]
     pad = seq == 0  # (B, S)
     h = torch.where(pad[..., None], 0.0, h)
@@ -349,10 +350,10 @@ def sasrec_loss(params, cfg: RecsysConfig, batch):
     h = sasrec_hidden(params, cfg, batch["seq"])
     emb = params.item_embed.to(h.dtype)
     pos, neg = batch["pos"].long(), batch["neg"].long()
-    pos_s = (h * F.embedding(pos, emb)).sum(dim=-1).float()
-    neg_s = (h * F.embedding(neg, emb)).sum(dim=-1).float()
+    pos_s = (h * embedding(pos, emb)).sum(dim=-1).float()
+    neg_s = (h * embedding(neg, emb)).sum(dim=-1).float()
     valid = pos != 0
-    nll = -(F.logsigmoid(pos_s) + F.logsigmoid(-neg_s))
+    nll = -(log_sigmoid(pos_s) + log_sigmoid(-neg_s))
     denom = torch.clamp(valid.sum(), min=1)
     loss = torch.where(valid, nll, 0.0).sum() / denom
     acc = (valid & (pos_s > neg_s)).sum() / denom

@@ -33,11 +33,48 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
-from repro_torch.device import float32_bf16_sums, resolve_device
+from repro_torch.device import float32_bf16_sums, is_dtensor, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (MLP, Embed, Norm, apply_embed, apply_mlp,
                                        apply_norm, dense_init)
+
+# Activation-sharding hook (the reference's ``ACT_SHARDING``), set by
+# ``launch.steps.moe_constraints`` for the duration of a sharded step:
+# (mesh, batch axes). DTensor activations are then anchored at each block's
+# input to (batch-sharded, replicated, replicated), and the logits shard
+# their vocab dim over "model": without it the loss would hold a replicated
+# float32 logits tensor on every rank.
+ACT_SHARDING = None
+
+
+# Per-layer parameter hook, set by ``launch.steps.bound`` for a sharded
+# step in the training layout: a context manager over one block in which
+# its parameters are whole over the FSDP axes (ZeRO-3: a layer's weights are
+# gathered where it runs, and again in a remat backward, never all at once).
+LAYER_GATHER = None
+
+
+def _layer(p):
+    return LAYER_GATHER(p) if LAYER_GATHER is not None else contextlib.nullcontext()
+
+
+def _act_constrain(x):
+    if ACT_SHARDING is None or not is_dtensor(x):
+        return x
+    from repro_torch.core.distributed import P, with_sharding_constraint
+    mesh, dp = ACT_SHARDING
+    return with_sharding_constraint(x, mesh, P(dp, *([None] * (x.ndim - 1))))
+
+
+def _logits_constrain(x):
+    if ACT_SHARDING is None or not is_dtensor(x):
+        return x
+    from repro_torch.core.distributed import P, with_sharding_constraint
+    mesh, dp = ACT_SHARDING
+    return with_sharding_constraint(
+        x, mesh, P(dp, *([None] * (x.ndim - 2)), "model"))
+
 
 # ================================================================ init
 
@@ -154,14 +191,18 @@ def _ffn(cfg: LMConfig, p: Block, y_in, capacity_factor=None):
 def _block_fwd(cfg: LMConfig, p: Block, x, positions, kv_mask, *,
                capacity_factor=None, use_kernel=None, train: bool = False):
     """One block: (x, aux), aux the MoE's (zeros for a dense block)."""
-    h = _attention(cfg)(p.attn, cfg, apply_norm(p.attn_norm, x), positions,
-                        kv_mask=kv_mask, use_kernel=use_kernel, train=train)
-    if cfg.parallel_residual:
-        y_in = apply_norm(p.mlp_norm, x)
-    else:
-        x = x + h
-        y_in = apply_norm(p.mlp_norm, x)
-    y, aux = _ffn(cfg, p, y_in, capacity_factor)
+    x = _act_constrain(x)
+    with _layer(p):
+        h = _act_constrain(_attention(cfg)(
+            p.attn, cfg, apply_norm(p.attn_norm, x), positions,
+            kv_mask=kv_mask, use_kernel=use_kernel, train=train))
+        if cfg.parallel_residual:
+            y_in = apply_norm(p.mlp_norm, x)
+        else:
+            x = x + h
+            y_in = apply_norm(p.mlp_norm, x)
+        y, aux = _ffn(cfg, p, y_in, capacity_factor)
+        y = _act_constrain(y)
     return (x + y + h if cfg.parallel_residual else x + y), aux
 
 
@@ -186,7 +227,7 @@ def forward(params: Transformer, cfg: LMConfig, tokens, *, kv_mask=None,
     dtype = getattr(torch, cfg.dtype)
     S = tokens.shape[1]
     with contextlib.nullcontext() if train else torch.no_grad():
-        x = apply_embed(params.embed, tokens, dtype)
+        x = _act_constrain(apply_embed(params.embed, tokens, dtype))
         positions = torch.arange(S, device=x.device)
         aux = _zero_aux(x.device)
         for block in params.layers():
@@ -209,7 +250,7 @@ def logits_from_hidden(params: Transformer, cfg: LMConfig, h):
     in h's dtype."""
     h = apply_norm(params.final_norm, h)
     w = (params.embed.table.T if cfg.tie_embeddings else params.lm_head.w)
-    return h @ w.to(h.dtype)
+    return _logits_constrain(h @ w.to(h.dtype))
 
 
 # ================================================================ training
@@ -223,7 +264,13 @@ def _masked_ce(logits, labels):
     picks the same logit."""
     valid = labels >= 0
     safe = torch.where(valid, labels, 0).long()
-    picked = torch.gather(logits, -1, safe[..., None])[..., 0]
+    if is_dtensor(logits):
+        # the reference's form, so that a vocab axis sharded over "model"
+        # reduces locally: the one label logit among exact zeros
+        hit = torch.arange(logits.shape[-1], device=logits.device) == safe[..., None]
+        picked = torch.where(hit, logits, 0.0).sum(dim=-1)
+    else:
+        picked = torch.gather(logits, -1, safe[..., None])[..., 0]
     nll = torch.logsumexp(logits, dim=-1) - picked
     denom = torch.clamp(valid.sum(), min=1)
     return torch.where(valid, nll, 0.0).sum() / denom
@@ -303,30 +350,60 @@ def prefill(params: Transformer, cfg: LMConfig, tokens, *, use_kernel=None):
     config's capacity factor, as ``forward`` does."""
     dtype = getattr(torch, cfg.dtype)
     B, S = tokens.shape
-    x = apply_embed(params.embed, tokens, dtype)
+    x = _act_constrain(apply_embed(params.embed, tokens, dtype))
     positions = torch.arange(S, device=x.device)
     names = _cache_names(cfg)
     cache = None
     for i, p in enumerate(params.layers()):
-        h, kv = _attention(cfg)(p.attn, cfg, apply_norm(p.attn_norm, x),
-                                positions, return_kv=True,
-                                use_kernel=use_kernel)
-        if cache is None:
-            cache = {n: t.new_empty((cfg.n_layers,) + tuple(t.shape))
-                     for n, t in zip(names, kv)}
-        for n, t in zip(names, kv):
-            cache[n][i] = t
-        x = x + h
-        x = x + _ffn(cfg, p, apply_norm(p.mlp_norm, x))[0]
+        x = _act_constrain(x)
+        with _layer(p):
+            h, kv = _attention(cfg)(p.attn, cfg, apply_norm(p.attn_norm, x),
+                                    positions, return_kv=True,
+                                    use_kernel=use_kernel)
+            if cache is None:
+                cache = {n: _new_layers(t, cfg.n_layers)
+                         for n, t in zip(names, kv)}
+            for n, t in zip(names, kv):
+                cache[n][i] = t
+            x = x + _act_constrain(h)
+            x = x + _act_constrain(_ffn(cfg, p, apply_norm(p.mlp_norm, x))[0])
     if cfg.window:
         W = cfg.window
         if S > W:
             # positions S-W..S-1 live at slots (S-W..S-1) % W: a roll puts them right
-            cache = {n: torch.roll(c[:, :, -W:], S % W, dims=2)
+            cache = {n: roll_slots(c[:, :, -W:], S % W)
                      for n, c in cache.items()}
         else:
             cache = {n: pad_slots(c, W) for n, c in cache.items()}
     return logits_from_hidden(params, cfg, x[:, -1:]), cache
+
+
+def _new_layers(t, L: int):
+    """An uninitialized (L, *t.shape) tensor laid out as t: a DTensor's
+    split stays on its dims (one over) with each rank's shard allocated
+    locally; the whole stack would otherwise sit on every rank."""
+    if not is_dtensor(t):
+        return t.new_empty((L,) + tuple(t.shape))
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.core.distributed import contiguous_stride
+    local = t.to_local()
+    pl = [Shard(p.dim + 1) if isinstance(p, Shard) else p
+          for p in t.placements]
+    shape = (L,) + tuple(t.shape)
+    return DTensor.from_local(local.new_empty((L,) + tuple(local.shape)),
+                              t.device_mesh, pl, run_check=False,
+                              shape=shape, stride=contiguous_stride(shape))
+
+
+def roll_slots(c, r: int):
+    """``torch.roll(c, r, dims=2)`` as two slices of the slot axis joined:
+    on a DTensor cache (split over batch or heads, never slots) slicing and
+    ``cat`` keep the split, where some PyTorch releases have no sharding
+    rule for ``roll``."""
+    if r == 0:
+        return c
+    return torch.cat([c[:, :, -r:], c[:, :, :-r]], dim=2)
 
 
 def pad_slots(c, n: int):
@@ -350,14 +427,14 @@ def decode_step(params: Transformer, cfg: LMConfig, token, cache: dict, pos):
     slots, so a batch of up to 4 tokens is never dropped)."""
     dtype = getattr(torch, cfg.dtype)
     pos = int(pos)
-    x = apply_embed(params.embed, token, dtype)
+    x = _act_constrain(apply_embed(params.embed, token, dtype))
     a, b = _cache_names(cfg)
     decode = attn_lib.mla_decode if cfg.mla else attn_lib.gqa_decode
     for i, p in enumerate(params.layers()):
         h, _ = decode(p.attn, cfg, apply_norm(p.attn_norm, x), cache[a][i],
                       cache[b][i], pos)
-        x = x + h
-        x = x + _ffn(cfg, p, apply_norm(p.mlp_norm, x))[0]
+        x = x + _act_constrain(h)
+        x = x + _act_constrain(_ffn(cfg, p, apply_norm(p.mlp_norm, x))[0])
     return logits_from_hidden(params, cfg, x), cache
 
 

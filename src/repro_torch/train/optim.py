@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import is_dtensor
+
 BLOCK = 128
 
 
@@ -218,12 +220,76 @@ def adamw_update(grads, state, params, *, lr, b1: float = 0.9,
             vq, vs = _q8(torch.sqrt(v))
         return finish(upd, p), {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}
 
-    out = [(path, leaf(p, tree_get(grads, path), tree_get(state["mu"], path)))
+    def sharded_leaf(p, g, s):
+        # int8 blocks that a DTensor's shards would cut through: a sharded
+        # last dim whose block count does not split over its ranks
+        # (``_joined_leaf``), or the flat layout (the leaf made whole,
+        # updated, and each rank keeping its own shard of the result: no
+        # collective back)
+        if not int8_state or not is_dtensor(p) or _blocks_local(p):
+            return leaf(p, g, s)
+        if _last_dim_blocks(p.shape):
+            return _joined_leaf(leaf, p, g, s)
+        whole = lambda t: t.full_tensor() if is_dtensor(t) else t
+        new_p, new_s = leaf(whole(p), None if g is None else whole(g),
+                            {k: whole(v) for k, v in s.items()})
+        return (_reshard_like(new_p, p),
+                {k: _reshard_like(v, s[k]) for k, v in new_s.items()})
+
+    out = [(path, sharded_leaf(p, tree_get(grads, path),
+                               tree_get(state["mu"], path)))
            for path, p in tree_paths(params)]
     new_params = tree_build((path, o[0]) for path, o in out)
     new_mu = tree_build((path, o[1]) for path, o in out)
     return new_params, {"mu": new_mu,
                         "step": torch.tensor(step, dtype=torch.int32)}
+
+
+def _blocks_local(p) -> bool:
+    """True when every int8 block of DTensor ``p``'s state lies on one
+    rank: the nd layout with the last dim whole, or split over ranks that
+    divide its block count."""
+    from torch.distributed.tensor import Shard
+    if not _last_dim_blocks(p.shape):
+        return False
+    n = 1
+    for i, pl in enumerate(p.placements):
+        if isinstance(pl, Shard) and pl.dim in (-1, p.ndim - 1):
+            n *= p.device_mesh.size(i)
+    return (p.shape[-1] // BLOCK) % n == 0
+
+
+def _joined_leaf(leaf, p, g, s):
+    """``leaf(p, g, s)`` for a DTensor whose last dim is split across int8
+    block boundaries: that dim made whole (the rest stays split), updated,
+    and split again. A stacked leaf (layers on an unsplit dim 0) goes a
+    layer at a time, so that only one layer's moments sit joined."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = p.device_mesh
+    last = (-1, p.ndim - 1)
+    if p.ndim >= 3 and not any(isinstance(pl, Shard) and pl.dim == 0
+                               for pl in p.placements):
+        outs = [_joined_leaf(leaf, p[i], None if g is None else g[i],
+                             {k: v[i] for k, v in s.items()})
+                for i in range(p.shape[0])]
+        return (torch.stack([o[0] for o in outs]),
+                {k: torch.stack([o[1][k] for o in outs]) for k in s})
+    rows = [Replicate() if isinstance(pl, Shard) and pl.dim in last else pl
+            for pl in p.placements]
+    joined = lambda t: t.redistribute(mesh, rows) if t.shape == p.shape else t
+    new_p, new_s = leaf(joined(p), None if g is None else joined(g),
+                        {k: joined(v) for k, v in s.items()})
+    return (new_p.redistribute(mesh, p.placements),
+            {k: v.redistribute(mesh, s[k].placements)
+             for k, v in new_s.items()})
+
+
+def _reshard_like(t, like):
+    """Whole tensor ``t`` (the same on every rank) as a DTensor placed like
+    ``like``: each rank keeps its own shard, nothing crosses ranks."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(t, like.device_mesh, like.placements,
+                             src_data_rank=None)
 
 
 def adam_state_bytes(n_params: int, int8: bool) -> int:

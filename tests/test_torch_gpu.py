@@ -1674,3 +1674,137 @@ def test_lm_cli_restart_replays_bit_for_bit_on_the_card(tmp_path,
     assert out["final_step"] == 8 and out["n_retries"] == 2
     for path, x in tree_paths(job.state):
         assert torch.equal(x, tree_get(plain.state, path)), path
+
+
+# ------------------------------------------------- launch/ on one NCCL rank
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A world of one rank over NCCL and its (1, 1) ("data", "model")
+    mesh, destroyed after the module's tests."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    _card()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1, 1),
+                               mesh_dim_names=("data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _lm_smoke(dev, trainable=False, dtype=None):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.core import convert
+    from repro_torch.models import transformer
+    cfg = get_arch("stablelm-1.6b").smoke
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    model = transformer.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev, trainable=trainable)
+    return cfg, model, convert.bind_reference_layout(model, cfg)
+
+
+def test_sharded_prefill_on_one_rank_launches_flash(nccl_mesh):
+    """make_lm_prefill on the (1, 1) mesh: one flash_attention launch a
+    layer on the local heads, logits equal to the unsharded prefill."""
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.shapes import Spec
+    from repro_torch.models import transformer
+    dev = _card()
+    cfg, model, tree = _lm_smoke(dev)
+    tok = torch.randint(0, cfg.vocab_size, (2, 64), device=dev)
+    built = S.make_lm_prefill(cfg, nccl_mesh, "stablelm-1.6b",
+                              {"tokens": Spec((2, 64), torch.int32)})
+    ops.reset_launch_counts()
+    logits, cache = built.run(tree, tok)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    want, _ = transformer.prefill(model, cfg, tok)
+    assert torch.equal(logits.full_tensor(), want)
+
+
+def test_sharded_serve_on_one_rank_launches_topk(nccl_mesh):
+    """sasrec's serve step: the two-level search runs topk_distance on the
+    local item shard; ids equal flat_search's over the whole table."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import convert
+    from repro_torch.core.flat import flat_search
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.shapes import Spec
+    from repro_torch.models import recsys
+    dev = _card()
+    cfg = get_arch("sasrec").smoke
+    model = recsys.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    tree = convert.stack_layers(dict(model.named_parameters()), cfg)
+    seq = torch.randint(1, cfg.n_items + 1, (16, cfg.seq_len), device=dev,
+                        dtype=torch.int32)
+    built = S.make_recsys_serve(cfg, nccl_mesh, "sasrec",
+                                {"seq": Spec((16, cfg.seq_len), torch.int32)})
+    ops.reset_launch_counts()
+    s, i = built.run(tree, {"seq": seq})
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["topk_distance"] == 1
+    u = recsys.sasrec_user_vector(model, cfg, seq)
+    items = model.item_embed.float()
+    valid = torch.arange(items.shape[0], device=dev) < cfg.n_items + 1
+    fs, fi = flat_search(D.pad_width(items), D.pad_width(u), metric="dot",
+                         k=S.SERVE_K, valid=valid)
+    assert torch.equal(i.full_tensor(), fi.long())
+    assert torch.equal(s.full_tensor(), fs)
+
+
+def test_sharded_train_on_one_rank_matches_single_process(nccl_mesh):
+    """One float32 make_lm_train step on the (1, 1) mesh against the
+    single-process step from the same state: every leaf within 1e-6."""
+    from repro_torch.core import convert
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.shapes import Spec
+    from repro_torch.models import transformer
+    from repro_torch.train import (adamw_init, adamw_update,
+                                   clip_by_global_norm, cosine_schedule,
+                                   gradient_accumulation)
+    dev = _card()
+    cfg, model, tree = _lm_smoke(dev, trainable=True, dtype="float32")
+    tok = torch.randint(0, cfg.vocab_size, (4, 64), device=dev)
+    batch = {"tokens": tok, "labels": tok}
+    opt = adamw_init(tree)
+    opt["step"] = torch.tensor(1000, dtype=torch.int32)
+    grads, loss, _ = gradient_accumulation(
+        lambda p, b: transformer.loss_fn(p, cfg, b, remat=True), model,
+        batch, 2)
+    grads, _ = clip_by_global_norm(convert.stack_layers(grads, cfg), 1.0)
+    lr = cosine_schedule(opt["step"], base_lr=3e-4, warmup=2000,
+                         total=100_000)
+    p_ref, o_ref = adamw_update(grads, opt, tree, lr=lr)
+    want = dict(sh.leaves({"params": p_ref, "opt": o_ref}))
+    inputs = {k: Spec((4, 64), torch.int32) for k in ("tokens", "labels")}
+    built = S.make_lm_train(cfg, nccl_mesh, "stablelm-1.6b", inputs,
+                            opts={"n_micro": 2, "int8_opt": False,
+                                  "remat": True})
+    new, metrics = built.run({"params": tree, "opt": opt}, batch)
+    assert abs(float(metrics["loss"].full_tensor()) - float(loss)) <= 1e-6
+    for name, leaf in sh.leaves(sh.gather(new)):
+        w = want[name].float()
+        assert float((leaf.float() - w).abs().max()) <= 1e-6 * max(
+            float(w.abs().max()), 1.0), name
+
+
+def test_a_cuda_dtensor_never_takes_the_plain_version(nccl_mesh):
+    """A DTensor on the card reaching a kernel wrapper raises: the kernels
+    run on local shards and nothing falls back."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    dev = _card()
+    x = distribute_tensor(torch.randn(64, 16, device=dev), nccl_mesh,
+                          [Replicate(), Replicate()])
+    with pytest.raises(ValueError, match="local shard"):
+        ops.topk_distance(x, x[:2], k=4)
+    q = distribute_tensor(torch.randn(1, 32, 2, 16, device=dev), nccl_mesh,
+                          [Replicate(), Replicate()])
+    with pytest.raises(ValueError, match="local shard"):
+        ops.flash_attention(q, q, q, causal=True)

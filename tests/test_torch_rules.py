@@ -329,11 +329,12 @@ def test_chip_smoke_phase_selector(monkeypatch, capsys):
     finally:
         sys.path.remove(str(REPO))
     assert chip_smoke.parse_phases("4,12-13") == (4, 12, 13)
-    assert chip_smoke.parse_phases(None) == tuple(range(3, 14))
+    assert chip_smoke.parse_phases(None) == tuple(range(3, 15))
     assert chip_smoke.parse_phases("1-3") == (3,)
     assert chip_smoke.parse_phases("7") == (6, 7)
+    assert chip_smoke.parse_phases("14") == (14,)
     with pytest.raises(SystemExit):
-        chip_smoke.parse_phases("14")
+        chip_smoke.parse_phases("15")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert chip_smoke.main(["--phases", "12-13"]) != 0
     assert '"ok"' not in capsys.readouterr().out
