@@ -8,7 +8,8 @@ writes (``core.mutable``). The mesh fronts ``DistributedVectorDB``,
 ``DistributedPQ`` and ``DistributedIVFPQ`` (the last with writes) shard
 the exact, PQ and IVF-PQ engines over a ``core.distributed.Mesh``."""
 from repro_torch.core.db import (ENGINES, PLAN_BUCKETS, DistributedIVFPQ,
-                                 DistributedPQ, DistributedVectorDB, VectorDB)
+                                 DistributedPQ, DistributedVectorDB, VectorDB,
+                                 register_engine)
 
 __all__ = ["ENGINES", "PLAN_BUCKETS", "VectorDB", "DistributedIVFPQ",
-           "DistributedPQ", "DistributedVectorDB"]
+           "DistributedPQ", "DistributedVectorDB", "register_engine"]

@@ -77,6 +77,16 @@ ENGINES: Dict[str, Type] = {
     "ivf_pq": IVFPQIndex,   # IVF buckets of PQ residuals + exact re-rank
 }
 
+
+
+def register_engine(name: str, cls: Type) -> None:
+    """Add an engine under ``name`` (the reference's hook):
+    ``VectorDB(name, metric=..., device=..., **kwargs)`` then builds
+    ``cls(metric=metric, device=device, **kwargs)`` and serves it as it
+    serves the built-in ones."""
+    ENGINES[name] = cls
+
+
 # plan bucket ladder: batches pad up to the next bucket
 PLAN_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512)
 
@@ -768,7 +778,13 @@ class DistributedVectorDB(_MeshFront):
     tensors, where padding the whole corpus first would make a third. For
     l2 each slab keeps its |c|^2, computed from the stored (cast) rows as
     the reference computes it each query. ``tile`` is taken at the
-    reference's default only (``core.distributed.check_tile``)."""
+    reference's default only (``core.distributed.check_tile``).
+
+    The slabs' rows are zero-padded to a multiple of 8 columns, the width
+    the ``topk_distance`` kernel takes (``distances.pad_width``), at
+    ``load`` and ``load_state``, and each query batch, as ``flat`` pads:
+    zero columns change no score, so any width d serves. ``d`` is the
+    rows' own width."""
 
     engine_name = "dist_flat"
 
@@ -778,7 +794,7 @@ class DistributedVectorDB(_MeshFront):
         self._mesh_init(mesh, metric, axes)
         self.dtype = corpus_dtype(dtype)
         self.corpus = self.valid = self.corpus_sq = None
-        self.n = 0
+        self.n = self.d = 0
 
     def _set_slabs(self, slabs, n: int) -> None:
         local_n = slabs[0].shape[0]
@@ -810,16 +826,19 @@ class DistributedVectorDB(_MeshFront):
                 if stop - base < local_n:
                     slab = torch.cat([slab, slab.new_zeros(
                         (local_n - max(stop - base, 0), d))])
+                slab = D.pad_width(slab)
             else:  # float32 rows a chunk at a time, as the bf16 FlatIndex
-                slab = torch.zeros((local_n, d), dtype=self.dtype, device=dev)
+                slab = D.pad_width(torch.zeros((local_n, d), dtype=self.dtype,
+                                               device=dev))
                 for a in range(base, stop, LOAD_CHUNK):
                     b = min(a + LOAD_CHUNK, stop)
                     rows, _ = D.preprocess_corpus(
                         x[a:b].to(device=dev, dtype=torch.float32),
                         self.metric)
-                    slab[a - base:b - base] = rows
+                    slab[a - base:b - base, :d] = rows
             slabs.append(slab)
         self._set_slabs(slabs, N)
+        self.d = d
         return self
 
     def load_state(self, state) -> "DistributedVectorDB":
@@ -835,8 +854,9 @@ class DistributedVectorDB(_MeshFront):
         if corpus.shape[0] % self.n_shards:
             raise ValueError(f"{corpus.shape[0]} padded rows do not split "
                              f"into {self.n_shards} shards")
-        placed = self.sharding.place(corpus)
+        placed = self.sharding.place(D.pad_width(corpus))
         self._set_slabs(placed.shards, int(state["n"]))
+        self.d = corpus.shape[1]
         return self
 
     def query(self, q, k: int = 10, *, bucketize: bool = True):
@@ -845,6 +865,7 @@ class DistributedVectorDB(_MeshFront):
         if self.corpus is None:
             raise RuntimeError("query before load")
         qq, metric = self._queries(q, self.dtype)
+        qq = D.pad_width(qq)
         return self._serve(qq, min(k, self.n), bucketize, lambda b: (
             dist.sharded_flat_search(
                 self.corpus, b, mesh=self.mesh, k=min(k, self.n),

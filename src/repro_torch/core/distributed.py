@@ -515,6 +515,45 @@ def with_sharding_constraint(x, mesh, spec):
         mesh, dtensor_placements(fit_spec(x.shape, spec, mesh), mesh))
 
 
+def all_reduce_over(t, op: str, mesh, dims):
+    """A local tensor reduced (``op`` "sum" or "max") over the ranks of
+    ``mesh``'s mesh ``dims``: one functional all-reduce a dim, outside
+    autograd (the callers write their own backward)."""
+    import torch.distributed._functional_collectives as fc
+    for i in dims:
+        t = fc.all_reduce(t, op, (mesh, i))
+        if isinstance(t, fc.AsyncCollectiveTensor):
+            t = t.wait()
+    return t
+
+
+class _GradAnchor(torch.autograd.Function):
+    """Identity forward; the backward lays the incoming gradient out as
+    the forward's input was laid out, a partial sum reduced (an
+    all-reduce): Megatron's f operator. The gradient of a column-parallel
+    matmul's input is a partial sum over the model ranks; reduced once
+    there, it reaches the norm, the residual stream and the earlier
+    layers' row-parallel matmuls whole, where DTensor would otherwise
+    gather the other operand of each to keep the sum partial."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(grad.device_mesh, ctx.placements)
+
+
+def grad_anchor(x):
+    """DTensor ``x`` itself, its gradient laid out as ``x`` is
+    (``_GradAnchor``) when it needs one."""
+    if not torch.is_grad_enabled() or not x.requires_grad:
+        return x
+    return _GradAnchor.apply(x)
+
+
 def _gather_axes(x, mesh, axes, dim: int):
     """All-gather a local tensor along ``dim`` over mesh ``axes``, tiled in
     row-major order over them (innermost axis first), differentiably."""

@@ -21,7 +21,18 @@ devices. For rank 0 it records:
     and bytes accessed, each local op's input and output bytes (views
     excluded), the unfused upper bound like XLA's "bytes accessed";
   - collectives by the reference's five kinds: count and result bytes a
-    rank receives, and those bytes by the mesh axis each ran over.
+    rank receives, and those bytes by the mesh axis each ran over. A
+    ``Shard(i)`` -> ``Shard(j)`` redistribute is one all-to-all of the
+    shard, as NCCL runs it: on a CPU mesh DTensor would all-gather the
+    whole tensor and keep a chunk (gloo has no all-to-all), so for the
+    trace ``LocalCost`` has it issue ``all_to_all_single`` on the fake
+    group instead (``_shard_dim_alltoall``). Each collective's bytes are
+    also kept by the site that issued it (``collective_sites``): the
+    innermost frame of the port's code, the PyTorch function it called,
+    the DTensor op being run and the collective's result shape;
+  - the peak's parts (``memory["peak_breakdown"]``, summing to the peak):
+    the arguments by top-level key, and the live storages by the op and
+    site that made each.
 
 It writes one JSON per cell, as the reference does.
 
@@ -72,6 +83,12 @@ class LocalCost(TorchDispatchMode):
         super().__init__()
         self.fake_mode = fake_mode
         self.group_axes = group_axes or {}
+        self.sites = {}
+        self._dt_op = None
+        # the live bytes by the op (and site) that made each storage, and
+        # their copy at the peak
+        self._by_origin = {}
+        self.peak_breakdown = {}
         self.flops = 0
         self.bytes_accessed = 0
         self.collectives = {k: {"count": 0, "bytes": 0, "by_axis": {}}
@@ -103,20 +120,32 @@ class LocalCost(TorchDispatchMode):
                 cost.paused -= 1
 
         ShardingPropagator._propagate_tensor_meta_non_cached = paused
+        # a Shard -> Shard redistribute: the all-to-all NCCL would run
+        from torch.distributed.tensor import placement_types
+        self._a2a = placement_types.shard_dim_alltoall
+        placement_types.shard_dim_alltoall = _shard_dim_alltoall
         return super().__enter__()
 
     def __exit__(self, *exc):
+        from torch.distributed.tensor import placement_types
         from torch.distributed.tensor._sharding_prop import ShardingPropagator
         ShardingPropagator._propagate_tensor_meta_non_cached = self._infer
+        placement_types.shard_dim_alltoall = self._a2a
         return super().__exit__(*exc)
 
-    def _track(self, t) -> None:
+    def _track(self, t, origin: str) -> None:
         key = t.untyped_storage()._cdata
         entry = self._storages.get(key)
         if entry is None:
-            entry = self._storages[key] = [t.untyped_storage().nbytes(), 0]
+            entry = self._storages[key] = [t.untyped_storage().nbytes(), 0,
+                                           origin]
             self.live += entry[0]
-            self.peak = max(self.peak, self.live)
+            self._by_origin[origin] = (self._by_origin.get(origin, 0)
+                                       + entry[0])
+            if self.live > self.peak:
+                self.peak = self.live
+                self.peak_breakdown = {
+                    k: v for k, v in self._by_origin.items() if v}
         entry[1] += 1
         weakref.finalize(t, self._release, key)
 
@@ -127,6 +156,7 @@ class LocalCost(TorchDispatchMode):
         entry[1] -= 1
         if entry[1] == 0:
             self.live -= entry[0]
+            self._by_origin[entry[2]] -= entry[0]
             del self._storages[key]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -137,6 +167,7 @@ class LocalCost(TorchDispatchMode):
         if any(isinstance(a, DTensor) for a in flat_in):
             # not a local op: DTensor runs it, and its local ops come back
             # through this mode, which stays on the stack
+            self._dt_op = func
             return NotImplemented
         out = func(*args, **kwargs)
         flat_out = [o for o in tree_flatten(out)[0]
@@ -153,6 +184,9 @@ class LocalCost(TorchDispatchMode):
             group = args[-1] if isinstance(args[-1], str) else ""
             axis = self.group_axes.get(group, group)
             rec["by_axis"][axis] = rec["by_axis"].get(axis, 0) + n
+            shape = "x".join(str(d) for d in flat_out[0].shape)
+            key = f"{_KIND[name]} {axis} {_site()} {self._dt_op} {shape}"
+            self.sites[key] = self.sites.get(key, 0) + n
         from torch.utils.flop_counter import flop_registry
         if packet in flop_registry:
             self.flops += int(flop_registry[packet](*args, **kwargs,
@@ -161,10 +195,43 @@ class LocalCost(TorchDispatchMode):
         if not is_view and ns == "aten":
             self.bytes_accessed += (sum(_nbytes(t) for t in flat_in)
                                     + sum(_nbytes(t) for t in flat_out))
-        if not is_view:
+        if not is_view and flat_out:
+            origin = f"{_site()} {packet}"
             for o in flat_out:
-                self._track(o)
+                self._track(o, origin)
         return out
+
+
+def _shard_dim_alltoall(x, gather_dim, shard_dim, mesh, mesh_dim):
+    """DTensor's ``shard_dim_alltoall`` as the functional
+    ``all_to_all_single`` over the mesh dim's group: x (this rank's shard
+    on ``gather_dim``) cut into one piece a peer along ``shard_dim``, the
+    pieces exchanged, those received joined along ``gather_dim``."""
+    from torch.distributed import _functional_collectives as funcol
+    n = mesh.size(mesh_dim)
+    send = torch.stack(torch.chunk(x, n, dim=shard_dim))
+    got = funcol.all_to_all_single(send, None, None, (mesh, mesh_dim))
+    if isinstance(got, funcol.AsyncCollectiveTensor):
+        got = got.wait()
+    return torch.cat(got.unbind(0), dim=gather_dim).contiguous()
+
+
+def _site() -> str:
+    """The innermost frame of the port's model or step code (the launch
+    layer's own frames skipped) and the PyTorch function it called that
+    issued the collective: "file:function > callee"; in a backward pass
+    the port's frame is the step's ``_value_and_grad`` and the callee the
+    backward that the autograd engine ran."""
+    import sys
+    f, callee = sys._getframe(2), "?"
+    while f is not None:
+        name = f.f_code.co_filename
+        if "repro_torch" in name and "dryrun" not in name:
+            return (f"{os.path.basename(name)}:{f.f_code.co_name} > "
+                    f"{callee}")
+        callee = getattr(f.f_code, "co_qualname", f.f_code.co_name)
+        f = f.f_back
+    return "?"
 
 
 @contextlib.contextmanager
@@ -219,7 +286,8 @@ def smoke_opts(cell):
 
 def trace(built, mesh) -> dict:
     """Run ``built`` once on fake DTensors under a fresh ``FakeTensorMode``
-    and ``LocalCost``; returns the record's memory, cost and collectives."""
+    and ``LocalCost``; returns the record's memory (with the peak's
+    parts), cost and collectives (with their bytes by issuing site)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor import DTensor
     fake = FakeTensorMode(allow_non_fake_inputs=True)
@@ -228,6 +296,7 @@ def trace(built, mesh) -> dict:
         arg_bytes = sum(_nbytes(t.to_local()) for t in tree_flatten(args)[0]
                         if isinstance(t, DTensor))
         cost = LocalCost(fake, group_axes(mesh))
+        arg_parts = _arg_bytes(args)
         with cost:
             out = built.fn(*args)
         out_bytes = sum(_nbytes(t.to_local() if isinstance(t, DTensor) else t)
@@ -235,16 +304,22 @@ def trace(built, mesh) -> dict:
                         if isinstance(t, torch.Tensor))
         peak = arg_bytes + cost.peak
     coll = cost.collectives
+    parts = dict(arg_parts, **{"made: " + k: v for k, v in
+                               cost.peak_breakdown.items()})
     return {
         "memory": {"argument_bytes": int(arg_bytes),
                    "output_bytes": int(out_bytes),
                    "temp_bytes": int(max(peak - arg_bytes - out_bytes, 0)),
-                   "peak_bytes": int(peak)},
+                   "peak_bytes": int(peak),
+                   "peak_breakdown": dict(sorted(parts.items(),
+                                                 key=lambda kv: -kv[1]))},
         "cost": {"flops": float(cost.flops),
                  "bytes_accessed": float(cost.bytes_accessed),
                  "transcendentals": 0.0},
         "collectives": coll,
         "collective_bytes_total": int(sum(v["bytes"] for v in coll.values())),
+        "collective_sites": dict(sorted(cost.sites.items(),
+                                        key=lambda kv: -kv[1])),
     }
 
 
@@ -288,6 +363,26 @@ def run_cell(arch_id: str, shape_id: str, *, multi_pod: bool = False,
               f"{rec['cost']['flops'] / 1e9:.1f} coll "
               f"{rec['collective_bytes_total'] / 2**20:.1f} MiB", flush=True)
     return rec
+
+
+def _arg_bytes(args) -> dict:
+    """A step's arguments' local bytes by part: "args: params",
+    "args: opt" (the moments), "args: batch", ... (the top-level keys of a
+    state or batch tree)."""
+    from torch.distributed.tensor import DTensor
+    out = {}
+    for i, tree in enumerate(args):
+        for name, leaf in _named_leaves(tree):
+            if isinstance(leaf, DTensor):
+                part = f"args: {name.split('.')[0] if i == 0 else 'input'}"
+                out[part] = out.get(part, 0) + _nbytes(leaf.to_local())
+    return out
+
+
+def _named_leaves(tree):
+    from repro_torch.launch.sharding import leaves
+    return leaves(tree) if isinstance(tree, (dict, list, tuple)) else [
+        ("", tree)]
 
 
 def main(argv=None):

@@ -22,9 +22,13 @@ on a CUDA shard) and the sasrec serve step's two-level search (the
 reference's ``shard_map`` bodies do.
 
 Training state is {"params": the reference layout (``core.convert``: each
-transformer stack one (L, ...) leaf), "opt": ``train.adamw_init``'s}; a
-step returns a new one (``donate_argnums`` records what the reference
-donates). The model code reads parameters through a skeleton module built
+transformer stack one (L, ...) leaf), "opt": ``train.adamw_init``'s}. A
+train step donates it, as the reference's ``donate_argnums=(0,)`` does:
+the gradients are accumulated and clipped in their own buffers and the
+new parameters and moments are written into the state's storages a leaf
+(a layer of a stack) at a time (``train.optim.adamw_update_``), so that
+no second state is ever held; the step returns the caller's trees. The
+model code reads parameters through a skeleton module built
 on the ``meta`` device (``abstract_state``), whose slots are bound, for
 the step's duration, to views of the state's leaves.
 """
@@ -52,7 +56,8 @@ from repro_torch.models import recsys as rec_lib
 from repro_torch.models import transformer
 from repro_torch.models.layers import MetaGenerator
 from repro_torch.train.optim import (adamw_init, adamw_update,
-                                     clip_by_global_norm, cosine_schedule,
+                                     adamw_update_, clip_by_global_norm,
+                                     clip_by_global_norm_, cosine_schedule,
                                      tree_build, tree_paths)
 
 
@@ -64,7 +69,12 @@ class BuiltStep:
     """``fn(*args)`` and what a launcher needs around it: ``args`` abstract
     trees (``Spec`` or ``meta`` tensors, Python scalars), ``in_specs`` a
     spec tree each, ``out_specs`` the outputs' (None where DTensor decides),
-    the ``mesh``, and the arguments the reference donates."""
+    the ``mesh``, and the arguments it donates. A donated argument is
+    written in place: after a train step the caller's state (argument 0)
+    IS the new state, every leaf in its own storage, and the step returns
+    those same trees; a decode step writes the new position into the
+    caller's cache (argument 2). Keep a copy of a state that must outlive
+    the step."""
 
     fn: Callable
     args: Tuple
@@ -322,24 +332,31 @@ def _micro(batch, i: int, n: int):
     return shard_lib.tree_map_with_names(one, batch)
 
 
-def _value_and_grad(loss_fn, model, params, cfg, batch, mesh, gather: bool):
+def _value_and_grad(loss_fn, model, params, cfg, batch, mesh, gather: bool,
+                    into=None):
     """((loss, metrics), grads) of ``loss_fn(model, batch)`` with the
     model bound to ``params`` (the reference layout); grads float32, in
     that layout, each on its parameter's placements (the reference's
     ``constrain``). Forward and backward run under ``float32_bf16_sums``
-    and ``strict_fp32``, as ``train.accum.value_and_grad``."""
+    and ``strict_fp32``, as ``train.accum.value_and_grad``. ``into`` (a
+    list of float32 buffers in ``tree_paths`` order) takes each gradient
+    added in place, a leaf at a time, each leaf's own gradient dropped
+    once it is added; the grads returned are then those buffers."""
     paths = tree_paths(params)
     leaves = [t.detach().requires_grad_(True) for _, t in paths]
     tree = tree_build((path, t) for (path, _), t in zip(paths, leaves))
     with float32_bf16_sums(), strict_fp32(), \
             bound(model, tree, cfg, gather=mesh if gather else None):
         loss, metrics = loss_fn(model, batch)
-        got = torch.autograd.grad(loss, leaves, allow_unused=True)
+        got = list(torch.autograd.grad(loss, leaves, allow_unused=True))
     grads = []
-    for t, g in zip(leaves, got):
+    for j, t in enumerate(leaves):
+        g, got[j] = got[j], None
         g = torch.zeros_like(t, dtype=torch.float32) if g is None else g.float()
         if is_dtensor(g) and g.placements != t.placements:
             g = g.redistribute(t.device_mesh, t.placements)
+        if into is not None:
+            g = into[j].add_(g)
         grads.append(g)
     return ((loss.detach(), {k: v.detach() for k, v in metrics.items()}),
             tree_build((path, g) for (path, _), g in zip(paths, grads)))
@@ -349,34 +366,52 @@ def accumulate(loss_fn, model, params, cfg, batch, n_micro: int, mesh,
                gather: bool):
     """(grads, loss, metrics), each summed over ``n_micro`` micro-batches
     (``_micro``) and scaled by 1 / n_micro, as the reference's
-    ``gradient_accumulation``."""
+    ``gradient_accumulation``; the gradients in one buffer (the first
+    micro-batch's), each later micro-batch's added to it a leaf at a time
+    and the sum scaled in place."""
     acc = loss_acc = m_acc = None
     for i in range(max(n_micro, 1)):
         (loss, metrics), grads = _value_and_grad(
             loss_fn, model, params, cfg, _micro(batch, i, n_micro), mesh,
-            gather)
+            gather, into=acc)
         if acc is None:
-            acc, loss_acc, m_acc = dict(tree_paths(grads)), loss, metrics
+            acc, loss_acc, m_acc = ([g for _, g in tree_paths(grads)], loss,
+                                    metrics)
             continue
-        for path, g in tree_paths(grads):
-            acc[path] = acc[path] + g
         loss_acc = loss_acc + loss
         m_acc = {k: m_acc[k] + metrics[k] for k in m_acc}
     if n_micro <= 1:
-        return tree_build(acc.items()), loss_acc, m_acc
+        return grads, loss_acc, m_acc
     inv = 1.0 / n_micro
-    return (tree_build((path, g * inv) for path, g in acc.items()),
-            loss_acc * inv, {k: v * inv for k, v in m_acc.items()})
+    for g in acc:
+        g.mul_(inv)
+    return (grads, loss_acc * inv, {k: v * inv for k, v in m_acc.items()})
 
 
 # --------------------------------------------------------------- LM steps
 
 
+def _update(grads, state, *, donate: bool, stacked=(), **kw):
+    """Clip at 1.0 and AdamW: (new state, grad norm). ``donate`` writes
+    into the state (``clip_by_global_norm_``, ``adamw_update_``: the same
+    bits as the functional pair, no second state)."""
+    if donate:
+        gn = clip_by_global_norm_(grads, 1.0)
+        params, opt = adamw_update_(grads, state["opt"], state["params"],
+                                    stacked=stacked, **kw)
+    else:
+        grads, gn = clip_by_global_norm(grads, 1.0)
+        params, opt = adamw_update(grads, state["opt"], state["params"], **kw)
+    return {"params": params, "opt": opt}, gn
+
+
 def make_lm_train(cfg: LMConfig, mesh, arch_id: str, inputs,
                   family: str = "lm", opts: Optional[Dict] = None,
-                  with_opt: bool = True) -> BuiltStep:
+                  with_opt: bool = True, donate: bool = True) -> BuiltStep:
     """with_opt=False builds the grads-only twin (accounting separates the
-    once-per-step optimizer cost from the per-microbatch fwd/bwd cost)."""
+    once-per-step optimizer cost from the per-microbatch fwd/bwd cost).
+    ``donate=False`` returns a new state and leaves the caller's (the
+    functional step, to compare the donated one with)."""
     opts = opts or train_options(arch_id, family)
     state = abstract_state(cfg, family, int8_opt=opts["int8_opt"])
     s_specs = state_pspecs(state, mesh, family)
@@ -392,20 +427,21 @@ def make_lm_train(cfg: LMConfig, mesh, arch_id: str, inputs,
             grads, loss_v, metrics = accumulate(
                 loss_fn, model, state["params"], cfg, batch, opts["n_micro"],
                 mesh, gather=True)
-            grads, gn = clip_by_global_norm(grads, 1.0)
             if not with_opt:
+                grads, gn = clip_by_global_norm(grads, 1.0)
                 return ({"params": grads, "opt": state["opt"]},
                         dict(metrics, grad_norm=gn))
             lr = cosine_schedule(state["opt"]["step"], base_lr=3e-4,
                                  warmup=2000, total=100_000)
-            params, opt = adamw_update(grads, state["opt"], state["params"],
-                                       lr=lr, int8_state=opts["int8_opt"])
-        return ({"params": params, "opt": opt},
-                dict(metrics, grad_norm=gn, lr=lr))
+            new, gn = _update(grads, state, donate=donate,
+                              stacked=tuple(convert._stacks(cfg)), lr=lr,
+                              int8_state=opts["int8_opt"])
+        return new, dict(metrics, grad_norm=gn, lr=lr)
 
     b_specs = shard_lib.batch_pspecs(inputs, mesh)
     return BuiltStep(step, (state, inputs), (s_specs, b_specs),
-                     (s_specs, None), mesh, donate_argnums=(0,),
+                     (s_specs, None), mesh,
+                     donate_argnums=(0,) if donate else (),
                      name=f"{arch_id}:train")
 
 
@@ -477,10 +513,8 @@ def make_gnn_train(cfg: GNNConfig, mesh, arch_id: str,
     def step(state, batch):
         (loss_v, metrics), grads = _value_and_grad(
             loss_fn, model, state["params"], cfg, batch, mesh, gather=False)
-        grads, gn = clip_by_global_norm(grads, 1.0)
-        params, opt = adamw_update(grads, state["opt"], state["params"],
-                                   lr=1e-3)
-        return {"params": params, "opt": opt}, dict(metrics, grad_norm=gn)
+        new, gn = _update(grads, state, donate=True, lr=1e-3)
+        return new, dict(metrics, grad_norm=gn)
 
     state = abstract_state(cfg, "gnn", int8_opt=False)
     s_specs = state_pspecs(state, mesh, "gnn")
@@ -501,10 +535,9 @@ def make_recsys_train(cfg: RecsysConfig, mesh, arch_id: str,
         (loss_v, metrics), grads = _value_and_grad(
             lambda m, b: rec_lib.loss_fn(m, cfg, b), model, state["params"],
             cfg, batch, mesh, gather=False)
-        grads, gn = clip_by_global_norm(grads, 1.0)
-        params, opt = adamw_update(grads, state["opt"], state["params"],
-                                   lr=1e-3, weight_decay=1e-5)
-        return {"params": params, "opt": opt}, dict(metrics, grad_norm=gn)
+        new, gn = _update(grads, state, donate=True, lr=1e-3,
+                          weight_decay=1e-5)
+        return new, dict(metrics, grad_norm=gn)
 
     state = abstract_state(cfg, "recsys", int8_opt=False)
     s_specs = state_pspecs(state, mesh, "recsys")

@@ -424,8 +424,12 @@ def gqa_decode(p: Attention, cfg: LMConfig, x, cache_k, cache_v, pos: int):
     _write_slot(cache_k, k, pos % C)
     _write_slot(cache_v, v, pos % C)
 
-    o = _on_local_shards(_gqa_decode_core, q, (cache_k, cache_v),
-                         (B, 1, H * dh), pos=pos, dt=dt)
+    if _split_dims(cache_k, 3):
+        o = _gqa_decode_split_dh(q, cache_k, cache_v, pos=pos, dt=dt)
+        o = _heads_from_split(o, 3).reshape(B, 1, H * dh)
+    else:
+        o = _on_local_shards(_gqa_decode_core, q, (cache_k, cache_v),
+                             (B, 1, H * dh), pos=pos, dt=dt)
     return o @ p.wo.to(dt).reshape(H * dh, D), (cache_k, cache_v)
 
 
@@ -441,6 +445,83 @@ def _gqa_decode_core(q, cache_k, cache_v, *, pos: int, dt):
     pr = torch.softmax(s, dim=-1).to(dt)
     return torch.einsum("bnrqk,bknd->bqnrd", pr.float(),
                         cache_v.to(dt).float()).to(dt).reshape(B, 1, H * dh)
+
+
+def _split_dims(t, dim: int) -> list:
+    """The mesh dims over which DTensor ``t`` splits its dim ``dim`` (none
+    for a plain tensor)."""
+    if not is_dtensor(t):
+        return []
+    from torch.distributed.tensor import Shard
+    return [i for i, pl in enumerate(t.placements) if pl == Shard(dim)]
+
+
+def _cache_layout(cache, dims: dict) -> list:
+    """The placements that meet a cache shard on each rank: split where
+    the cache splits its batch (dim 0) and where it splits a dim ``d`` of
+    its own, at dim ``dims[d]``; whole elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    pl = []
+    for cp in cache.placements:
+        if cp == Shard(0):
+            pl.append(Shard(0))
+        elif isinstance(cp, Shard) and cp.dim in dims:
+            pl.append(Shard(dims[cp.dim]))
+        else:
+            pl.append(Replicate())
+    return pl
+
+
+def _local_like(t, cache, dims: dict):
+    """DTensor ``t`` redistributed to ``_cache_layout(cache, dims)``, and
+    its local shard."""
+    t = t.redistribute(t.device_mesh, _cache_layout(cache, dims))
+    return t, t.to_local()
+
+
+def _heads_from_split(o, dim: int):
+    """An attention output (B, 1, H, w) split over its last dim (``dim``)
+    re-split over its heads where they divide: an all-to-all of the
+    output, which the output projection's heads layout reads."""
+    from torch.distributed.tensor import Shard
+    mesh = o.device_mesh
+    pl = [Shard(2) if pl == Shard(dim) and o.shape[2] % mesh.size(i) == 0
+          else pl for i, pl in enumerate(o.placements)]
+    return o.redistribute(mesh, pl)
+
+
+def _gqa_decode_split_dh(q, cache_k, cache_v, *, pos: int, dt):
+    """``_gqa_decode_core`` where the caches' head_dim is split over mesh
+    dims (their KV heads do not divide them: danube's 8 on 16 ranks): each
+    rank contracts q with its k shard over its head_dim columns, the
+    float32 scores are all-reduced (sum) over those dims, the scale and
+    the softmax are taken locally, and its v shard gives its shard of the
+    output's head_dim. Returns o (B, 1, H, dh), split as the caches split
+    their batch and head_dim; q moves to that layout (an all-to-all of
+    the one token's q), the caches never move."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.distributed import all_reduce_over, contiguous_stride
+    mesh = q.device_mesh
+    B, _, H, dh = q.shape
+    C, KV = cache_k.shape[1], cache_k.shape[2]
+    dims = _split_dims(cache_k, 3)
+    heads = {2: 2, 3: 3}
+    q, ql = _local_like(q, cache_k, heads)
+    k = _local_like(cache_k, cache_k, heads)[1]
+    v = _local_like(cache_v, cache_k, heads)[1]
+    b, kv = ql.shape[0], k.shape[2]
+    qr = ql.reshape(b, 1, kv, H // KV, ql.shape[-1]).float()
+    s = all_reduce_over(torch.einsum("bqnrd,bknd->bnrqk", qr,
+                                     k.to(dt).float()), "sum", mesh, dims)
+    s = s / math.sqrt(dh)
+    valid = torch.arange(C, device=s.device) < min(pos + 1, C)
+    pr = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1).to(dt)
+    o = torch.einsum("bnrqk,bknd->bqnrd", pr.float(),
+                     v.to(dt).float()).to(dt).reshape(ql.shape)
+    return DTensor.from_local(o.contiguous(), mesh, q.placements,
+                              run_check=False, shape=(B, 1, H, dh),
+                              stride=contiguous_stride((B, 1, H, dh)))
 
 
 # ============================================================ MLA block
@@ -532,11 +613,16 @@ def mla_decode(p: MLAttention, cfg: LMConfig, x, cache_ckv, cache_krope,
     _write_slot(cache_ckv, c_kv, slot)
     _write_slot(cache_krope, k_rope[:, :, 0, :], slot)
 
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    o = _on_local_shards(_mla_decode_core, q,
-                         (p.wkv_b.to(dt), cache_ckv, cache_krope),
-                         (B, 1, H, m.v_head_dim), head_dims=(1, None, None), batch_dims=(None, 0, 0),
-                         pos=pos, m=m, dt=dt)
+    if _split_dims(cache_ckv, 2):
+        o = _mla_decode_split_latent(q_nope, q_rope, p.wkv_b.to(dt),
+                                     cache_ckv, cache_krope, pos=pos, m=m,
+                                     dt=dt)
+    else:
+        o = _on_local_shards(_mla_decode_core,
+                             torch.cat([q_nope, q_rope], dim=-1),
+                             (p.wkv_b.to(dt), cache_ckv, cache_krope),
+                             (B, 1, H, m.v_head_dim), head_dims=(1, None, None),
+                             batch_dims=(None, 0, 0), pos=pos, m=m, dt=dt)
     out = o.reshape(B, 1, H * m.v_head_dim) @ p.wo.to(dt).reshape(
         H * m.v_head_dim, D)
     return out, (cache_ckv, cache_krope)
@@ -563,3 +649,53 @@ def _mla_decode_core(q, wkv_b, cache_ckv, cache_krope, *, pos: int, m, dt):
     ctx_lat = torch.einsum("bhqs,bsl->bqhl", pr.float(), ckv).to(dt)
     return torch.einsum("bqhl,lhv->bqhv", ctx_lat.float(),
                         w_v.float()).to(dt)
+
+
+def _mla_decode_split_latent(q_nope, q_rope, wkv_b, cache_ckv, cache_krope,
+                             *, pos: int, m, dt):
+    """``_mla_decode_core`` where the latent cache's kv_lora dim is split
+    over mesh dims (deepseek-v3's 512 over 16 ranks; its rope cache may
+    split too): the absorbed query (each rank its heads, ``wkv_b``'s
+    layout) moves to the cache's layout (an all-to-all of one token's
+    query), each rank scores against its latent and rope columns, the
+    float32 partial scores are all-reduced (sum), the scale and softmax
+    are taken locally, the mix over its latent shard gives its columns of
+    the latent context, which moves back to the heads (an all-to-all) for
+    the v decompression. The caches never move. Returns (B, 1, H, v)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.core.distributed import all_reduce_over, contiguous_stride
+    mesh = q_nope.device_mesh
+    B, _, H, _ = q_nope.shape
+    C = cache_ckv.shape[1]
+    w_k, w_v = wkv_b[..., :m.qk_nope_dim], wkv_b[..., m.qk_nope_dim:]
+    q_lat = torch.einsum("bqhn,lhn->bqhl", q_nope.float(),
+                         w_k.float()).to(dt)
+    lat_dims = _split_dims(cache_ckv, 2)
+    rope_dims = _split_dims(cache_krope, 2)
+    q_lat = _local_like(q_lat, cache_ckv, {2: 3})[1]
+    ckv = cache_ckv.to_local().to(dt).float()
+    s = torch.einsum("bqhl,bsl->bhqs", q_lat.float(), ckv)
+    # the rope columns: split like the latent's (one sum for both), split
+    # otherwise, or whole (each its own sum, over its own dims)
+    rope_like = cache_krope if rope_dims else cache_ckv
+    krope = _local_like(cache_krope, rope_like,
+                        {2: 2} if rope_dims else {})[1]
+    q_r = _local_like(q_rope, rope_like, {2: 3} if rope_dims else {})[1]
+    s_r = torch.einsum("bqhr,bsr->bhqs", q_r.float(), krope.to(dt).float())
+    if rope_dims == lat_dims:
+        s = all_reduce_over(s + s_r, "sum", mesh, lat_dims)
+    else:
+        s = all_reduce_over(s, "sum", mesh, lat_dims) + all_reduce_over(
+            s_r, "sum", mesh, rope_dims)
+    s = s / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    valid = torch.arange(C, device=s.device) <= pos
+    pr = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1).to(dt)
+    ctx = torch.einsum("bhqs,bsl->bqhl", pr.float(), ckv).to(dt)
+    shape = (B, 1, H, m.kv_lora_rank)
+    ctx = DTensor.from_local(ctx.contiguous(), mesh,
+                             _cache_layout(cache_ckv, {2: 3}),
+                             run_check=False, shape=shape,
+                             stride=contiguous_stride(shape))
+    ctx = _heads_from_split(ctx, 3)
+    return torch.einsum("bqhl,lhv->bqhv", ctx.float(), w_v.float()).to(dt)

@@ -44,13 +44,31 @@ def _ep_constrain(x, spec_builder):
         return x
     from repro_torch.core.distributed import with_sharding_constraint
     mesh, dp, e_axes = EP_SHARDING
-    return with_sharding_constraint(x, mesh, spec_builder(dp, e_axes))
+    spec = spec_builder(dp, e_axes)
+    return x if spec is None else with_sharding_constraint(x, mesh, spec)
+
+
+def _ep_grad_anchor(x):
+    if EP_SHARDING is None or not is_dtensor(x):
+        return x
+    from repro_torch.core.distributed import grad_anchor
+    return grad_anchor(x)
 
 
 def _expert_spec(dp, ea):
     from repro_torch.core.distributed import P
     return (P(dp, "model", None, None) if tuple(ea) == ("model",)
             else P(None, ea, None, None))
+
+
+def _slot_spec(dp, ea):
+    """The (G, t, E) expert choices where the experts split over "model"
+    (training), split as x_e and y_e are: each rank builds the dispatch
+    and combine slots of its own experts, the dispatch product needs no
+    exchange, and its backward and the combine are partial sums over
+    "model", all-reduced into the token layout. Elsewhere unconstrained."""
+    from repro_torch.core.distributed import P
+    return P(dp, None, "model") if tuple(ea) == ("model",) else None
 
 
 def _token_spec(dp, ea):
@@ -208,17 +226,25 @@ def apply_moe(p: MoE, cfg: LMConfig, x, *, capacity_factor=None,
              ).sum(dim=2).to(dt)
         n_kept = kept.float().sum()
     else:
-        dispatch = _group_full(xg, (G, t, E, C), 0, dt)
-        combine = _group_full(xg, (G, t, E, C), 0, torch.float32)
+        # sums over the k slots from the first one's terms (0 + x is x);
+        # the gates' gradient, a partial sum over the experts' ranks, is
+        # reduced at the gates (G, t, k), not later at the tokens (G, t, D)
+        gates = _ep_grad_anchor(gates)
+        dispatch = combine = None
         for j in range(k):
             slot_oh = F.one_hot(slots[j], C)  # (G, t, C)
-            sel = F.one_hot(idx[:, :, j], E) * keeps[j][..., None]  # (G, t, E)
+            sel = _ep_constrain(F.one_hot(idx[:, :, j], E)
+                                * keeps[j][..., None], _slot_spec)  # (G, t, E)
             onehot = sel[..., None] * slot_oh[:, :, None, :]
-            dispatch = dispatch + onehot.to(dt)
-            combine = combine + gates[:, :, j, None, None] * onehot.float()
-        # each (expert, slot) holds one token at most: the sum is a copy
-        x_e = _ep_constrain(torch.einsum("gtec,gtd->gecd", dispatch, xg),
-                            _expert_spec)
+            d_j = onehot.to(dt)
+            c_j = gates[:, :, j, None, None] * onehot.float()
+            dispatch = d_j if dispatch is None else dispatch + d_j
+            combine = c_j if combine is None else combine + c_j
+        # each (expert, slot) holds one token at most: the sum is a copy;
+        # its backward's partial sum over the experts is reduced into xg's
+        # layout before it meets the router's gradient
+        x_e = _ep_constrain(torch.einsum("gtec,gtd->gecd", dispatch,
+                                         _ep_grad_anchor(xg)), _expert_spec)
         y_e = _ep_constrain(_expert_mlp(p.experts, cfg, x_e), _expert_spec)
         y = torch.bmm(combine.to(dt).reshape(G, t, E * C),
                       y_e.reshape(G, E * C, D))

@@ -67,6 +67,16 @@ def _act_constrain(x):
     return with_sharding_constraint(x, mesh, P(dp, *([None] * (x.ndim - 1))))
 
 
+def _grad_anchor(x):
+    """A DTensor activation of a sharded step whose gradient is laid out
+    as it is (``core.distributed.grad_anchor``): at the inputs of the
+    column-parallel matmuls (the normed block input, the LM head's)."""
+    if ACT_SHARDING is None or not is_dtensor(x):
+        return x
+    from repro_torch.core.distributed import grad_anchor
+    return grad_anchor(x)
+
+
 def _logits_constrain(x):
     if ACT_SHARDING is None or not is_dtensor(x):
         return x
@@ -194,14 +204,14 @@ def _block_fwd(cfg: LMConfig, p: Block, x, positions, kv_mask, *,
     x = _act_constrain(x)
     with _layer(p):
         h = _act_constrain(_attention(cfg)(
-            p.attn, cfg, apply_norm(p.attn_norm, x), positions,
+            p.attn, cfg, _grad_anchor(apply_norm(p.attn_norm, x)), positions,
             kv_mask=kv_mask, use_kernel=use_kernel, train=train))
         if cfg.parallel_residual:
             y_in = apply_norm(p.mlp_norm, x)
         else:
             x = x + h
             y_in = apply_norm(p.mlp_norm, x)
-        y, aux = _ffn(cfg, p, y_in, capacity_factor)
+        y, aux = _ffn(cfg, p, _grad_anchor(y_in), capacity_factor)
         y = _act_constrain(y)
     return (x + y + h if cfg.parallel_residual else x + y), aux
 
@@ -248,7 +258,7 @@ def forward(params: Transformer, cfg: LMConfig, tokens, *, kv_mask=None,
 def logits_from_hidden(params: Transformer, cfg: LMConfig, h):
     """final_norm, then the LM head (the embedding's transpose when tied),
     in h's dtype."""
-    h = apply_norm(params.final_norm, h)
+    h = _grad_anchor(apply_norm(params.final_norm, h))
     w = (params.embed.table.T if cfg.tie_embeddings else params.lm_head.w)
     return _logits_constrain(h @ w.to(h.dtype))
 
@@ -258,22 +268,98 @@ def logits_from_hidden(params: Transformer, cfg: LMConfig, h):
 
 def _masked_ce(logits, labels):
     """Mean of -log p[label] over the positions whose label is >= 0 (-100
-    ignores one), the denominator max(count, 1). logsumexp minus the
-    label's logit, gathered: the reference sums a one-hot mask over the
-    vocabulary (so that its sharded vocab axis reduces locally), which
-    picks the same logit."""
+    ignores one), the denominator max(count, 1): a batch with no valid
+    label gives 0. logsumexp minus the label's logit. Logits that are a
+    DTensor (a sharded step) take ``_vocab_parallel_nll``: each rank
+    reduces its own vocab shard, as the reference's ``_sharded_ce``
+    reduces its model-sharded vocab axis locally and then psums."""
     valid = labels >= 0
     safe = torch.where(valid, labels, 0).long()
     if is_dtensor(logits):
-        # the reference's form, so that a vocab axis sharded over "model"
-        # reduces locally: the one label logit among exact zeros
-        hit = torch.arange(logits.shape[-1], device=logits.device) == safe[..., None]
-        picked = torch.where(hit, logits, 0.0).sum(dim=-1)
+        nll = _vocab_parallel_nll(logits, safe)
     else:
         picked = torch.gather(logits, -1, safe[..., None])[..., 0]
-    nll = torch.logsumexp(logits, dim=-1) - picked
+        nll = torch.logsumexp(logits, dim=-1) - picked
     denom = torch.clamp(valid.sum(), min=1)
     return torch.where(valid, nll, 0.0).sum() / denom
+
+
+def _picked(x, labels, offset: int):
+    """(x[..., label - offset] where the label falls in this shard's
+    columns, else 0; the column index clamped into the shard)."""
+    loc = labels - offset
+    inside = (loc >= 0) & (loc < x.shape[-1])
+    loc = torch.clamp(loc, 0, x.shape[-1] - 1)
+    return torch.where(inside, torch.gather(x, -1, loc[..., None])[..., 0],
+                       0.0), loc, inside
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """-log softmax(x)[label] over a vocab split across ranks, on each
+    rank's shard x (..., V / n) float32 of columns [offset, offset + V / n):
+    the local max all-reduced (max), the local sum of exp(x - max)
+    all-reduced (sum), the label's logit where this shard holds it
+    all-reduced (sum); nll = log(sum) + max - picked. ``dims`` are the
+    mesh dims the vocab splits over (none: ``logsumexp`` and the pick's
+    arithmetic, bit for bit). The backward is the local
+    softmax minus the local one-hot, times the incoming gradient: no rank
+    ever holds more than its own shard."""
+
+    @staticmethod
+    def forward(ctx, x, labels, offset, mesh, dims):
+        from repro_torch.core.distributed import all_reduce_over
+        m = all_reduce_over(x.amax(dim=-1), "max", mesh, dims)
+        total = all_reduce_over(torch.exp(x - m[..., None]).sum(dim=-1),
+                                "sum", mesh, dims)
+        picked = all_reduce_over(_picked(x, labels, offset)[0], "sum", mesh,
+                                 dims)
+        lse = torch.log(total) + m
+        ctx.save_for_backward(x, labels, lse)
+        ctx.offset = offset
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, labels, lse = ctx.saved_tensors
+        _, loc, inside = _picked(x, labels, ctx.offset)
+        # grad * softmax, then -grad at the label: the order (and so the
+        # rounding) of logsumexp's backward plus the pick's
+        p = (x - lse[..., None]).exp_().mul_(grad[..., None])
+        p.scatter_add_(-1, loc[..., None],
+                       torch.where(inside, -grad, 0.0)[..., None])
+        return p, None, None, None, None
+
+
+def _vocab_parallel_nll(logits, labels):
+    """nll (..., ) of DTensor ``logits`` (..., V) against global label ids
+    (a DTensor or a plain tensor that every rank holds), each rank on its
+    own vocab shard (``_VocabParallelNLL``). Batch rows stay split where
+    the logits split them (dim 0); any other split of the logits is made
+    whole first. The result is split like the logits' rows and whole over
+    the vocab's mesh dims."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.core.distributed import contiguous_stride, replicated
+    mesh = logits.device_mesh
+    last = logits.ndim - 1
+    pl = [p if isinstance(p, Shard) and p.dim in (0, last) else Replicate()
+          for p in logits.placements]
+    logits = logits.redistribute(mesh, pl)
+    out_pl = [Replicate() if p == Shard(last) else p for p in pl]
+    labels = replicated(labels, mesh).redistribute(mesh, out_pl)
+    dims = [i for i, p in enumerate(pl) if p == Shard(last)]
+    # this rank's first column: the dim chunked over its mesh dims left to
+    # right (``torch.chunk``'s ceil-sized pieces)
+    offset, size = 0, logits.shape[last]
+    for i in dims:
+        chunk = -(-size // mesh.size(i))
+        start = min(mesh.get_local_rank(i) * chunk, size)
+        offset, size = offset + start, min(chunk, size - start)
+    nll = _VocabParallelNLL.apply(logits.to_local(), labels.to_local(),
+                                  offset, mesh, dims)
+    shape = logits.shape[:-1]
+    return DTensor.from_local(nll, mesh, out_pl, run_check=False, shape=shape,
+                              stride=contiguous_stride(shape))
 
 
 @float32_bf16_sums()

@@ -109,11 +109,25 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.stack(sums).sum())
 
 
+def _clip_scale(n, max_norm: float):
+    return torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree, max_norm: float):
     """(tree scaled by min(1, max_norm / max(norm, 1e-9)), norm)."""
     n = global_norm(tree)
-    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-9), max=1.0)
+    scale = _clip_scale(n, max_norm)
     return tree_map(lambda leaf: (leaf * scale).to(leaf.dtype), tree), n
+
+
+def clip_by_global_norm_(tree, max_norm: float):
+    """``clip_by_global_norm`` in place: each leaf scaled in its own
+    storage (the same products); returns the norm."""
+    n = global_norm(tree)
+    scale = _clip_scale(n, max_norm)
+    for _, leaf in tree_paths(tree):
+        leaf.mul_(scale)
+    return n
 
 
 # ---------------------------------------------------------------- int8 blocks
@@ -176,6 +190,72 @@ def adamw_init(params, *, int8_state: bool = False) -> dict:
             "step": torch.zeros((), dtype=torch.int32)}
 
 
+def _bias_corrections(state, b1: float, b2: float):
+    """(t, c1, c2): the step after this update and 1 - b^t in float32."""
+    step = int(state["step"]) + 1
+    f32 = np.float32
+    return (step, float(f32(1.0) - f32(b1) ** f32(step)),
+            float(f32(1.0) - f32(b2) ** f32(step)))
+
+
+def _plain_update(p, g, s, *, lr, b1, b2, eps, weight_decay, int8_state,
+                  c1, c2):
+    """One leaf's (new p, new moments {name: tensor}) on tensors whose
+    int8 blocks each lie whole on this rank; nothing written."""
+    def finish(upd, p):
+        p32 = p.float()
+        return (p32 - lr * (upd + weight_decay * p32)).to(p.dtype)
+
+    g32 = torch.zeros(p.shape, device=p.device) if g is None else g.float()
+    if not int8_state:
+        m = b1 * s["m"] + (1 - b1) * g32
+        v = b2 * s["v"] + (1 - b2) * torch.square(g32)
+        upd = (m / c1) / (torch.sqrt(v / c2) + eps)
+        return finish(upd, p), {"m": m, "v": v}
+    # v is quantized in the sqrt domain: linear absmax codes would round
+    # its small entries to 0 and explode the 1/(sqrt(v)+eps) step
+    if _last_dim_blocks(p.shape):
+        m = _dq8_nd(s["m_q"], s["m_s"])
+        v = torch.square(_dq8_nd(s["v_q"], s["v_s"]))
+        m = b1 * m + (1 - b1) * g32
+        v = b2 * v + (1 - b2) * torch.square(g32)
+        upd = (m / c1) / (torch.sqrt(v / c2) + eps)
+        mq, ms = _q8_nd(m)
+        vq, vs = _q8_nd(torch.sqrt(v))
+    else:
+        flat_g, n = _pad_flat(g32)
+        m = _dq8(s["m_q"], s["m_s"])
+        v = torch.square(_dq8(s["v_q"], s["v_s"]))
+        m = b1 * m + (1 - b1) * flat_g
+        v = b2 * v + (1 - b2) * torch.square(flat_g)
+        upd = ((m / c1) / (torch.sqrt(v / c2) + eps))[:n].reshape(p.shape)
+        mq, ms = _q8(m)
+        vq, vs = _q8(torch.sqrt(v))
+    return finish(upd, p), {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}
+
+
+def _leaf_update(p, g, s, **kw):
+    """One leaf's (new p, new moments {name: tensor}); nothing written."""
+    leaf = lambda p, g, s: _plain_update(p, g, s, **kw)
+    # int8 blocks that a DTensor's shards would cut through: a sharded
+    # last dim whose block count does not split over its ranks
+    # (``_joined_leaf``), or the flat layout (the leaf made whole,
+    # updated, and each rank keeping its own shard of the result: no
+    # collective back)
+    if not kw["int8_state"] or not is_dtensor(p) or _blocks_local(p):
+        return leaf(p, g, s)
+    if _last_dim_blocks(p.shape):
+        return _joined_leaf(leaf, p, g, s)
+    new_p, new_s = leaf(_whole(p), None if g is None else _whole(g),
+                        {k: _whole(v) for k, v in s.items()})
+    return (_reshard_like(new_p, p),
+            {k: _reshard_like(v, s[k]) for k, v in new_s.items()})
+
+
+def _whole(t):
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def adamw_update(grads, state, params, *, lr, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.01, int8_state: bool = False):
@@ -183,66 +263,111 @@ def adamw_update(grads, state, params, *, lr, b1: float = 0.9,
     None gradient is a zero one (the reference differentiates every leaf:
     an unused one, like the encoder's ``lm_head``, gets zeros, so only
     its weight decay moves it). ``lr`` a float (or 0-d tensor)."""
-    step = int(state["step"]) + 1
-    f32 = np.float32
-    c1 = float(f32(1.0) - f32(b1) ** f32(step))
-    c2 = float(f32(1.0) - f32(b2) ** f32(step))
-
-    def finish(upd, p):
-        p32 = p.float()
-        return (p32 - lr * (upd + weight_decay * p32)).to(p.dtype)
-
-    def leaf(p, g, s):
-        g32 = torch.zeros(p.shape, device=p.device) if g is None else g.float()
-        if not int8_state:
-            m = b1 * s["m"] + (1 - b1) * g32
-            v = b2 * s["v"] + (1 - b2) * torch.square(g32)
-            upd = (m / c1) / (torch.sqrt(v / c2) + eps)
-            return finish(upd, p), {"m": m, "v": v}
-        # v is quantized in the sqrt domain: linear absmax codes would round
-        # its small entries to 0 and explode the 1/(sqrt(v)+eps) step
-        if _last_dim_blocks(p.shape):
-            m = _dq8_nd(s["m_q"], s["m_s"])
-            v = torch.square(_dq8_nd(s["v_q"], s["v_s"]))
-            m = b1 * m + (1 - b1) * g32
-            v = b2 * v + (1 - b2) * torch.square(g32)
-            upd = (m / c1) / (torch.sqrt(v / c2) + eps)
-            mq, ms = _q8_nd(m)
-            vq, vs = _q8_nd(torch.sqrt(v))
-        else:
-            flat_g, n = _pad_flat(g32)
-            m = _dq8(s["m_q"], s["m_s"])
-            v = torch.square(_dq8(s["v_q"], s["v_s"]))
-            m = b1 * m + (1 - b1) * flat_g
-            v = b2 * v + (1 - b2) * torch.square(flat_g)
-            upd = ((m / c1) / (torch.sqrt(v / c2) + eps))[:n].reshape(p.shape)
-            mq, ms = _q8(m)
-            vq, vs = _q8(torch.sqrt(v))
-        return finish(upd, p), {"m_q": mq, "m_s": ms, "v_q": vq, "v_s": vs}
-
-    def sharded_leaf(p, g, s):
-        # int8 blocks that a DTensor's shards would cut through: a sharded
-        # last dim whose block count does not split over its ranks
-        # (``_joined_leaf``), or the flat layout (the leaf made whole,
-        # updated, and each rank keeping its own shard of the result: no
-        # collective back)
-        if not int8_state or not is_dtensor(p) or _blocks_local(p):
-            return leaf(p, g, s)
-        if _last_dim_blocks(p.shape):
-            return _joined_leaf(leaf, p, g, s)
-        whole = lambda t: t.full_tensor() if is_dtensor(t) else t
-        new_p, new_s = leaf(whole(p), None if g is None else whole(g),
-                            {k: whole(v) for k, v in s.items()})
-        return (_reshard_like(new_p, p),
-                {k: _reshard_like(v, s[k]) for k, v in new_s.items()})
-
-    out = [(path, sharded_leaf(p, tree_get(grads, path),
-                               tree_get(state["mu"], path)))
+    step, c1, c2 = _bias_corrections(state, b1, b2)
+    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+              int8_state=int8_state, c1=c1, c2=c2)
+    out = [(path, _leaf_update(p, tree_get(grads, path),
+                               tree_get(state["mu"], path), **kw))
            for path, p in tree_paths(params)]
     new_params = tree_build((path, o[0]) for path, o in out)
     new_mu = tree_build((path, o[1]) for path, o in out)
     return new_params, {"mu": new_mu,
                         "step": torch.tensor(step, dtype=torch.int32)}
+
+
+def adamw_update_(grads, state, params, *, lr, b1: float = 0.9,
+                  b2: float = 0.95, eps: float = 1e-8,
+                  weight_decay: float = 0.01, int8_state: bool = False,
+                  stacked=()):
+    """``adamw_update`` with the state donated: the new parameters and
+    moments are written into ``params``' and ``state``'s own storages, a
+    leaf at a time, with the same arithmetic in the same order (the bits
+    equal the functional step's, int8 codes included). Each leaf's
+    gradient is dropped from ``grads`` once it is used, so that the
+    caller's tree empties as the update goes. A leaf under a top-level
+    key in ``stacked`` (a layer stack, layers on dim 0) whose dim 0 is not
+    split and whose update is elementwise along it (float32 moments, or
+    int8 blocks along the last dim) goes a layer at a time, so that only
+    one layer's temporaries are live. Returns (params, state): the
+    caller's trees, ``state["step"]`` advanced."""
+    step, c1, c2 = _bias_corrections(state, b1, b2)
+    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+              int8_state=int8_state, c1=c1, c2=c2)
+    for path, p in tree_paths(params):
+        node = tree_get(grads, path[:-1])
+        g = node[path[-1]]
+        node[path[-1]] = None
+        s = tree_get(state["mu"], path)
+        layers = (path[0] in stacked and p.ndim >= 2 and not _split_dim0(p))
+        if int8_state and not _last_dim_blocks(p.shape):
+            _write_flat(p, g, s, kw, layers and p[0].numel() % BLOCK == 0)
+        elif layers:
+            for i in range(p.shape[0]):
+                _write(p[i], None if g is None else g[i],
+                       {k: v[i] for k, v in s.items()}, kw)
+        else:
+            _write(p, g, s, kw)
+        del g
+    state["step"] = torch.tensor(step, dtype=torch.int32)
+    return params, state
+
+
+def _write_flat(p, g, s, kw, layers: bool) -> None:
+    """An int8 leaf in the flat layout (its blocks run over the flattened
+    leaf, across the shards of a DTensor): the moments made whole once,
+    then, with ``layers`` (a stack whose layers each hold whole blocks,
+    so that no block straddles two), a layer at a time: that layer's
+    parameter and gradient made whole, updated, written back; else the
+    whole leaf at once, as ``adamw_update`` does. Each rank keeps its own
+    shard of the new moments."""
+    whole = {k: _whole(v) for k, v in s.items()}
+    if layers:
+        n = p[0].numel()
+        parts = [(p[i], None if g is None else g[i],
+                  {k: v[i * n // (BLOCK if k.endswith("_s") else 1):
+                        (i + 1) * n // (BLOCK if k.endswith("_s") else 1)]
+                   for k, v in whole.items()})
+                 for i in range(p.shape[0])]
+    else:
+        parts = [(p, g, whole)]
+    for p_i, g_i, s_i in parts:
+        new_p, new_s = _plain_update(_whole(p_i),
+                                     None if g_i is None else _whole(g_i),
+                                     s_i, **kw)
+        _assign(p_i, new_p)
+        for k, v in new_s.items():
+            s_i[k].copy_(v)
+        del new_p, new_s
+    for k, v in whole.items():
+        _assign(s[k], v)
+
+
+def _split_dim0(p) -> bool:
+    from torch.distributed.tensor import Shard
+    return is_dtensor(p) and any(isinstance(pl, Shard) and pl.dim == 0
+                                 for pl in p.placements)
+
+
+def _write(p, g, s, kw) -> None:
+    """One leaf's (or layer's) update, written into p and s's tensors."""
+    new_p, new_s = _leaf_update(p, g, s, **kw)
+    _assign(p, new_p)
+    for k, v in new_s.items():
+        _assign(s[k], v)
+
+
+def _assign(dst, src) -> None:
+    """dst's values := src's, in dst's own storage (a DTensor's local
+    shard; src placed as dst is, or whole on every rank: each rank takes
+    its own shard of it)."""
+    if is_dtensor(dst):
+        if not is_dtensor(src):
+            src = _reshard_like(src, dst)
+        elif src.placements != dst.placements:
+            src = src.redistribute(dst.device_mesh, dst.placements)
+        dst, src = dst.to_local(), src.to_local()
+    with torch.no_grad():
+        dst.copy_(src)
 
 
 def _blocks_local(p) -> bool:

@@ -141,8 +141,19 @@ db = DistributedVectorDB(mesh4, metric="l2").load(small)
 s, i = db.query(q[:3], k=8)
 save("small", mesh_leaves(db), __s=s, __i=i)
 
-# two_level_search: queries over 'data', rows over 'model', n_valid
+# widths off the kernel's multiple of 8, on (2, 4), cosine and l2
 mesh24 = jax.make_mesh((2, 4), ("data", "model"))
+for d in (11, 50):
+    wd = clustered(np.random.default_rng(d), 403, d)
+    wq = wd[:7] + 0.002 * np.random.default_rng(d + 1).normal(
+        size=(7, d)).astype(np.float32)
+    for metric in ("cosine", "l2"):
+        db = DistributedVectorDB(mesh24, metric=metric).load(wd)
+        s, i = db.query(wq, k=10)
+        save(f"width_{d}_{metric}", mesh_leaves(db), __s=s, __i=i, rows=wd,
+             q=wq)
+
+# two_level_search: queries over 'data', rows over 'model', n_valid
 tl_c = rng.normal(size=(512, 16)).astype(np.float32)
 tl_q = rng.normal(size=(8, 16)).astype(np.float32)
 s, i = rdist.two_level_search(jnp.asarray(tl_c), jnp.asarray(tl_q),
@@ -383,6 +394,25 @@ def test_k_above_the_rows_of_a_shard(ref):
     assert (got[1] < 10).all() and (got[1] >= 0).all()
     s, i = db.query(q, k=50)  # k past N: kk = N, as in the reference
     assert i.shape == (3, 10) and sorted(i[0].tolist()) == list(range(10))
+
+
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+@pytest.mark.parametrize("d", [11, 50])
+def test_flat_mesh_front_at_any_width(ref, d, metric):
+    """d = 11 and 50, off the kernel's multiple of 8, on (2, 4): the slabs
+    padded with zero columns to 16 and 56 at ``load`` and at
+    ``load_state`` (the reference's unpadded state), each query batch
+    too; the reference's answers either way (ids exact but near-ties,
+    scores within 1e-5)."""
+    arrays = ref(f"width_{d}_{metric}")
+    want = (arrays["__s"], arrays["__i"])
+    for db in (DistributedVectorDB(_mesh("2x4"), metric=metric).load(
+                   arrays["rows"]),
+               DistributedVectorDB(_mesh("2x4"), metric=metric).load_state(
+                   _state(arrays))):
+        assert db.d == d
+        assert all(c.shape[1] == d + (-d) % 8 for c in db.corpus.shards)
+        _assert_same(db.query(arrays["q"], k=10), want, TOL)
 
 
 def test_two_level_search_with_n_valid(ref):

@@ -332,3 +332,37 @@ def test_ivf_pq_memory_bytes_matches_reference(metric, scan_all):
     for raw in (False, True):
         assert db.index.memory_bytes(include_raw=raw) == \
             jdb.index.memory_bytes(include_raw=raw)
+
+
+def test_register_engine_as_the_reference(data):
+    """``register_engine`` adds an engine class under a name: ``VectorDB``
+    builds and serves it, as the reference's does (a ``FlatIndex``
+    subclass registered in both packages answers as the reference's: ids
+    equal, scores within 1e-5); a name never registered still raises."""
+    from repro.core import ENGINES as REF_ENGINES
+    from repro.core import register_engine as ref_register
+    from repro.core.flat import FlatIndex as RefFlat
+    from repro_torch.core import ENGINES, register_engine
+    from repro_torch.core.flat import FlatIndex
+
+    class Mine(FlatIndex):
+        pass
+
+    class RefMine(RefFlat):
+        pass
+
+    corpus, q = data
+    try:
+        register_engine("mine", Mine)
+        ref_register("mine", RefMine)
+        db = VectorDB("mine", metric="l2", device="cpu").load(corpus)
+        assert isinstance(db.index, Mine)
+        s, i = db.query(q, k=5)
+        rs, ri = JaxVectorDB("mine", metric="l2").load(corpus).query(q, k=5)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ri))
+        np.testing.assert_allclose(s.numpy(), np.asarray(rs), **TOL)
+    finally:
+        ENGINES.pop("mine", None)
+        REF_ENGINES.pop("mine", None)
+    with pytest.raises(KeyError, match="unknown engine"):
+        VectorDB("mine", device="cpu")

@@ -1235,6 +1235,37 @@ def test_graph_build_and_entry_scan_kernel_match_plain(metric):
     assert torch.allclose(ks[ki == pi], ps[ki == pi], atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("metric", ["cosine", "l2"])
+def test_flat_mesh_front_at_width_11_launches_the_kernel(metric):
+    """``DistributedVectorDB`` at d = 11 on a (2,) mesh of the card: its
+    slabs and queries padded to 16 columns, each shard launches
+    ``topk_distance`` (which refuses d off the multiple of 8) once a
+    batch, and the answers equal the shards' plain versions within the
+    float32 bound of two summation orders."""
+    from repro_torch.core import DistributedVectorDB
+    from repro_torch.core import distributed as dist
+    dev = _card()
+    mesh = dist.make_mesh((2,), ("data",), devices=[dev] * 2)
+    rng = np.random.default_rng(11)
+    corpus = rng.normal(size=(5_003, 11)).astype(np.float32)
+    q = corpus[:9] + 0.01
+    db = DistributedVectorDB(mesh, metric=metric).load(corpus)
+    assert all(c.shape[1] == 16 for c in db.corpus.shards)
+    ops.reset_launch_counts()
+    ks, ki = db.query(q, k=10)
+    assert ops.launch_counts()["topk_distance"] == 2
+    qq = D.pad_width(torch.as_tensor(q, device=dev))
+    if metric == "cosine":
+        qq = D.l2_normalize(qq)
+    ps, pi = dist.sharded_flat_search(
+        db.corpus, qq, mesh=mesh, k=10,
+        metric="dot" if metric == "cosine" else metric, valid=db.valid,
+        corpus_sq=db.corpus_sq, use_kernel=False)
+    torch.cuda.synchronize()
+    tol = 2 * 16 * 2.0 ** -24 * max(1.0, float(ps.abs().max())) + 1e-6
+    assert bool(((ks - ps).abs() <= tol).all())
+
+
 @pytest.mark.parametrize("shape", [(1,), (4,), (2, 2)])
 def test_mesh_fronts_launch_each_shards_kernels(shape):
     """The three mesh fronts on a mesh that repeats the card: every shard

@@ -314,6 +314,53 @@ def test_hand_sharded_matmul_counts_an_eighth(fake24):
         "model": 32 * 256 * 4}
 
 
+def test_shard_to_shard_counts_one_all_to_all(fake24):
+    """A Shard(0) -> Shard(1) redistribute over "model" is one all-to-all
+    of the shard (what a rank receives: its new local shard), as NCCL runs
+    it, and no all-gather; the peak holds shards, never the whole."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    fake = FakeTensorMode()
+    with fake:
+        x = DTensor.from_local(torch.empty(8, 64, 32), fake24,
+                               [Replicate(), Shard(0)], run_check=False)
+        cost = dryrun.LocalCost(fake, dryrun.group_axes(fake24))
+        with cost:
+            y = x.redistribute(fake24, [Replicate(), Shard(1)])
+    shard = 32 * 16 * 32 * 4
+    assert tuple(y.to_local().shape) == (32, 16, 32)
+    assert cost.collectives["all-to-all"]["count"] == 1
+    assert cost.collectives["all-to-all"]["by_axis"] == {"model": shard}
+    assert cost.collectives["all-gather"]["count"] == 0
+    assert cost.peak < 4 * shard  # the whole tensor is 4 shards
+
+
+def test_smoke_train_gathers_no_logits_over_model(fake24):
+    """stablelm SMOKE's train step: the cross entropy reduces each rank's
+    vocab shard (``transformer._vocab_parallel_nll``), so nothing as large
+    as a rank's logits made whole over "model" is all-gathered over it."""
+    cell = shapes_lib.get_cell("stablelm-1.6b", "train_4k", smoke=True)
+    rec = dryrun.run_cell("stablelm-1.6b", "train_4k", mesh=fake24,
+                          smoke=True, verbose=False)
+    shp = dryrun.smoke_cell(cell).meta
+    logits = (shp["global_batch"] // 2) * shp["seq_len"] * (
+        cell.cfg.vocab_size * 4)  # float32, rows split over "data"
+    gathered = rec["collectives"]["all-gather"]["by_axis"].get("model", 0)
+    assert gathered < logits, (gathered, logits)
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "deepseek-v3-671b"])
+def test_smoke_decode_gathers_no_cache(fake24, arch):
+    """A decode whose cache splits its head_dim over "model" (danube
+    SMOKE's 2 KV heads on 4 ranks) or its latent and rope columns
+    (deepseek-v3 SMOKE's MLA cache): each rank scores its own columns and
+    the scores are all-reduced; no all-gather runs over "model"."""
+    rec = dryrun.run_cell(arch, "decode_32k", mesh=fake24, smoke=True,
+                          verbose=False)
+    assert rec["collectives"]["all-gather"]["by_axis"].get("model", 0) == 0
+    assert rec["collectives"]["all-reduce"]["by_axis"].get("model", 0) > 0
+
+
 # ------------------------------------------------------------ accounting
 
 

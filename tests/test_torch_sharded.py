@@ -13,9 +13,15 @@ writes what it measured to a JSON file. They hold:
     state within 1e-5;
     The same step with ignored labels, and at deepseek-v2-lite SMOKE (MoE
     with capacity drops, MLA), both with ignored labels;
+    deepseek-v3 SMOKE with its MTP head (the vocab-parallel cross
+    entropy) with ignored labels;
+  * the donated train step against the functional one (``donate=False``):
+    every leaf bit for bit, each in the caller's own storage;
   * ``make_lm_prefill`` (with and without a sliding window) and
     ``make_lm_decode`` against ``transformer.prefill`` and
-    ``decode_step``: logits and caches within 1e-5;
+    ``decode_step``: logits and caches within 1e-5, the decode with KV
+    heads split over "model", with a split head_dim (one KV head) and
+    MLA's split latent cache;
   * ``core.distributed.gspmd_flat_search``, ``two_level_search`` on the
     ``DeviceMesh`` and ``models.gnn_partitioned.make_partitioned_loss``
     against the reference's outputs on the same seeded inputs, which a
@@ -185,16 +191,73 @@ def prefill_case(cfg, key):
     return model, state, logits_ref, cache_ref
 
 
+def decode_case(cfg, key, prefill_key):
+    """Prefill (held as ``prefill_key``), then one decode step from the
+    prefilled cache, padded to 24 slots, against ``decode_step``."""
+    model, state, logits_ref, cache_ref = prefill_case(cfg, prefill_key)
+    cache_ref = {n: transformer.pad_slots(c, 24) for n, c in cache_ref.items()}
+    cache_in = {n: c.clone() for n, c in cache_ref.items()}
+    nxt = logits_ref[:, -1].argmax(-1)[:, None].int()
+    d_ref, c_ref = transformer.decode_step(model, cfg, nxt, cache_ref, 16)
+    c_specs = {n: Spec(tuple(c.shape), c.dtype) for n, c in cache_in.items()}
+    built = S.make_lm_decode(cfg, mesh, arch, {"token": Spec((4, 1),
+                                                             torch.int32),
+                                               "cache": c_specs})
+    d, c = built.run(state["params"], nxt, cache_in, 16)
+    res[key + "_logits"] = maxdiff(d.full_tensor(), d_ref)
+    res[key + "_cache"] = max(maxdiff(c[n].full_tensor(), c_ref[n])
+                              for n in c_ref)
+    res[key + "_split"] = [str(c[n].placements) for n in sorted(c)]
+
+
+def donate_case(cfg, key, int8=False):
+    """The donated train step against the functional one (``donate=False``)
+    from the same state: every leaf bit for bit, each written into the
+    storage the caller's state held."""
+    tok = torch.randint(0, cfg.vocab_size, (8, 32),
+                        generator=torch.Generator().manual_seed(4))
+    batch = {"tokens": tok, "labels": tok}
+    inputs = {"tokens": Spec((8, 32), torch.int32),
+              "labels": Spec((8, 32), torch.int32)}
+    opts = {"n_micro": 2, "int8_opt": int8, "remat": True}
+    out = []
+    for donate in (False, True):
+        built = S.make_lm_train(cfg, mesh, arch, inputs, opts=opts,
+                                donate=donate)
+        state, b = built.distribute(fresh(cfg, int8=int8)[1], batch)
+        before = {n: (t.to_local().data_ptr(), t.full_tensor().clone())
+                  for n, t in sh.leaves(state) if hasattr(t, "to_local")}
+        new, _ = built.fn(state, b)
+        out.append((dict(sh.leaves(new)), before, new is state or
+                    new["params"] is state["params"]))
+    (func, _, _), (don, before, same_tree) = out
+    res[key + "_leaves"] = len(before)
+    res[key + "_same_tree"] = bool(same_tree)
+    res[key + "_same_storage"] = all(
+        don[n].to_local().data_ptr() == ptr for n, (ptr, _) in before.items())
+    res[key + "_bit_equal"] = all(
+        torch.equal(don[n].to_local(), func[n].to_local()) for n in before)
+    res[key + "_moved"] = sum(not torch.equal(don[n].full_tensor(), old)
+                              for n, (_, old) in before.items())
+
+
 train_case(cfg, "train")
 # one KV head: each rank's query heads read it from whole k and v
 mqa = dataclasses.replace(cfg, n_kv_heads=1)
 train_case(mqa, "train_mqa")
+# deepseek-v3 SMOKE with its MTP head: both cross entropies vocab-parallel
+v3 = dataclasses.replace(get_arch("deepseek-v3-671b").smoke, dtype="float32")
+train_case(v3, "train_mtp", masked=True)
+donate_case(cfg, "donate")
+donate_case(dataclasses.replace(cfg, vocab_size=384, d_model=128),
+            "donate_int8", int8=True)
 # int8 moments: a 384-wide head's 3 blocks do not split over 2 model
 # ranks, nor a 128-wide model's one block over 2 data ranks (the stacked
 # w_down, a layer at a time)
 train_case(dataclasses.replace(cfg, vocab_size=384, d_model=128), "train_int8",
            int8=True)
-prefill_case(mqa, "prefill_mqa")
+# one KV head on 2 model ranks: the cache splits its head_dim
+decode_case(mqa, "decode_mqa", "prefill_mqa")
 # ignored labels, whose counts differ between the contiguous micro-batches
 train_case(cfg, "train_masked", masked=True)
 # MoE and MLA (deepseek-v2-lite SMOKE) with capacity drops: which tokens
@@ -204,21 +267,13 @@ moe = dataclasses.replace(get_arch("deepseek-v2-lite-16b").smoke,
 moe = dataclasses.replace(moe, moe=dataclasses.replace(moe.moe,
                                                        capacity_factor=1.0))
 train_case(moe, "train_moe", masked=True)
+# MLA's latent cache splits its kv_lora (and rope) columns
+decode_case(moe, "decode_mla", "prefill_mla")
 # a sliding window shorter than the prompt: the cache's ring is rolled
 prefill_case(dataclasses.replace(cfg, window=6), "prefill_window")
 
 # ---- prefill and decode against the unsharded port
-model, state, logits_ref, cache_ref = prefill_case(cfg, "prefill")
-cache_ref = {n: transformer.pad_slots(c, 24) for n, c in cache_ref.items()}
-cache_in = {n: c.clone() for n, c in cache_ref.items()}
-nxt = logits_ref[:, -1].argmax(-1)[:, None].int()
-d_ref, c_ref = transformer.decode_step(model, cfg, nxt, cache_ref, 16)
-c_specs = {n: Spec(tuple(c.shape), c.dtype) for n, c in cache_in.items()}
-built = S.make_lm_decode(cfg, mesh, arch, {"token": Spec((4, 1), torch.int32),
-                                           "cache": c_specs})
-d, c = built.run(state["params"], nxt, cache_in, 16)
-res["decode_logits"] = maxdiff(d.full_tensor(), d_ref)
-res["decode_cache"] = max(maxdiff(c[n].full_tensor(), c_ref[n]) for n in c_ref)
+decode_case(cfg, "decode", "prefill")
 
 # ---- search and the partitioned GNN loss against the reference's outputs
 ref = np.load(ref_path)
@@ -290,13 +345,15 @@ def results(tmp_path_factory):
 
 
 @pytest.mark.parametrize("key", ["train", "train_mqa", "train_int8",
-                                 "train_masked", "train_moe"])
+                                 "train_masked", "train_moe", "train_mtp"])
 def test_sharded_train_step_matches_single_process(results, key):
     """stablelm SMOKE, its one-KV-head variant (the query heads split over
     "model" while k and v stay whole), int8 moments (blocks that straddle
-    two ranks, stacked and not, and the flat layout), ignored labels, and
+    two ranks, stacked and not, and the flat layout), ignored labels,
     deepseek-v2-lite SMOKE (MoE with capacity drops, MLA) with ignored
-    labels: each micro-batch the global batch's contiguous rows, as the
+    labels, and deepseek-v3 SMOKE with its MTP head (both cross entropies
+    vocab-parallel: the logits split over "model") with ignored labels:
+    each micro-batch the global batch's contiguous rows, as the
     single-process step takes them."""
     got, want = results[key + "_loss"][1], results[key + "_loss"][0]
     assert abs(got - want) <= 1e-5, results[key + "_loss"]
@@ -305,7 +362,8 @@ def test_sharded_train_step_matches_single_process(results, key):
     assert results[key + "_codes"] <= 1, results[key + "_codes"]
 
 
-@pytest.mark.parametrize("key", ["prefill", "prefill_mqa", "prefill_window"])
+@pytest.mark.parametrize("key", ["prefill", "prefill_mqa", "prefill_window",
+                                 "prefill_mla"])
 def test_sharded_prefill_matches_unsharded(results, key):
     assert results[key + "_logits"] <= 1e-5
     assert results[key + "_cache"] <= 1e-5
@@ -314,6 +372,34 @@ def test_sharded_prefill_matches_unsharded(results, key):
 def test_sharded_decode_matches_unsharded(results):
     assert results["decode_logits"] <= 1e-5
     assert results["decode_cache"] <= 1e-5
+
+
+@pytest.mark.parametrize("key,split", [("decode_mqa", "Shard(dim=4)"),
+                                       ("decode_mla", "Shard(dim=3)")])
+def test_sharded_decode_on_a_split_cache_matches_unsharded(results, key,
+                                                           split):
+    """One KV head on 2 model ranks (the cache's head_dim split: each rank
+    scores over its columns and the scores are all-reduced) and
+    deepseek-v2-lite SMOKE (MLA's latent and rope columns split the same
+    way): logits and cache within 1e-5 of ``decode_step``, the cache
+    split as the case says."""
+    assert results[key + "_logits"] <= 1e-5
+    assert results[key + "_cache"] <= 1e-5
+    assert all(split in pl for pl in results[key + "_split"]), results[
+        key + "_split"]
+
+
+@pytest.mark.parametrize("key", ["donate", "donate_int8"])
+def test_donated_train_step_writes_the_state_in_place(results, key):
+    """The donated step (``make_lm_train``'s default) against the
+    functional one from the same state, float32 and int8 moments: every
+    leaf bit-equal, in the storage the caller's state held, and the step
+    returns the caller's trees."""
+    assert results[key + "_leaves"] > 50
+    assert results[key + "_same_tree"]
+    assert results[key + "_same_storage"]
+    assert results[key + "_bit_equal"]
+    assert results[key + "_moved"] > results[key + "_leaves"] // 2
 
 
 def test_gspmd_flat_search_matches_reference(results):

@@ -152,6 +152,42 @@ def _three_steps(int8, wd):
     return pp, ps, jp, js
 
 
+@pytest.mark.parametrize("int8", [False, True])
+def test_adamw_in_place_equals_functional(int8):
+    """``clip_by_global_norm_`` and ``adamw_update_`` (the donated step's
+    pair) over 3 steps against the functional pair from the same state:
+    every leaf bit for bit, written into the state's own storages, each
+    used gradient dropped from its tree. "stack" goes a layer at a time
+    (its int8 ``wq`` in the flat layout, whose layers hold whole blocks;
+    its ``scale``, whose do not, whole); an unused leaf's gradient is
+    None."""
+    rng = np.random.default_rng(5)
+    params = _np_tree(rng, SHAPES)
+    grads = [_np_tree(rng, SHAPES, 3.0 * (i + 1)) for i in range(3)]
+    fp, fs = _t(params), popt.adamw_init(_t(params), int8_state=int8)
+    ip, is_ = _t(params), popt.adamw_init(_t(params), int8_state=int8)
+    ptrs = [t.data_ptr() for _, t in popt.tree_paths([ip, is_["mu"]])]
+    for i, g in enumerate(grads):
+        lr = popt.cosine_schedule(i, base_lr=1e-2, warmup=1, total=10)
+        fg, fn = popt.clip_by_global_norm(_t(g), 1.0)
+        ig = _t(g)
+        n = popt.clip_by_global_norm_(ig, 1.0)
+        assert torch.equal(fn, n)
+        fg["stack"]["scale"] = ig["stack"]["scale"] = None
+        fp, fs = popt.adamw_update(fg, fs, fp, lr=lr, int8_state=int8)
+        out = popt.adamw_update_(ig, is_, ip, lr=lr, int8_state=int8,
+                                 stacked=("stack",))
+        assert out[0] is ip and out[1] is is_
+        assert popt.tree_paths(ig) == []  # every gradient dropped
+    assert int(is_["step"]) == int(fs["step"]) == 3
+    got, want = (popt.tree_paths([ip, is_["mu"]]),
+                 popt.tree_paths([fp, fs["mu"]]))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, a), (_, b) in zip(got, want):
+        assert torch.equal(a, b), path
+    assert [t.data_ptr() for _, t in got] == ptrs
+
+
 @pytest.mark.parametrize("wd", [0.0, 0.01])
 def test_adamw_float32_state_matches_reference(wd):
     pp, ps, jp, js = _three_steps(False, wd)
