@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt
+from repro_torch import trace
 from repro_torch.core import distances as D
 from repro_torch.core import distributed as dist
 from repro_torch.core.flat import (LOAD_CHUNK, FlatIndex, _check_snapshot,
@@ -447,6 +448,8 @@ class VectorDB(_PlanLedger, _WriteFront):
                              "queries")
         lex_s, lex_i = self.lexical.score(tokens[:Q], k=kk, allowed=allowed)
         self._filter_stats["hybrid_merges"] += 1
+        if trace.ON:
+            trace.count("host_syncs", 2)   # the two copies to the host
         s, i = hybrid_merge(scores.float().cpu().numpy(),
                             ids.cpu().numpy(), lex_s, lex_i,
                             alpha=float(alpha), k=kk)
@@ -469,39 +472,46 @@ class VectorDB(_PlanLedger, _WriteFront):
         ``hybrid_texts`` or ``hybrid_tokens`` (after ``enable_lexical``):
         alpha = 1 is dense only, 0 lexical only.
         """
-        if not self._loaded:
-            raise RuntimeError("query before load")
-        # the plan is keyed on the caller's dtype, as the reference keys it;
-        # float64 becomes float32 as jnp.asarray makes it (x64 off), and
-        # each engine casts to the type it scores in
-        q = torch.atleast_2d(torch.as_tensor(q, device=self.device))
-        if q.dtype == torch.float64:
-            q = q.float()
-        kk = min(k, self.n)
-        if kk <= 0:
-            return _empty_result(q.shape[0], k, self.device)
-        allowed, extra = None, {}
-        self._filter_ctx = None
-        if where is not None:
-            allowed, extra = self._filter_bitmap(where)
+        sp = trace.ON and trace.begin("db.query")
         try:
-            if bucketize:
-                q, Q = self._plan_batch(q, kk)
-                if hasattr(self.index, "sched_cache"):
-                    # the engine completes the schedule key with its nprobe
-                    self.index.sched_cache = self.sched_cache
-                    self.index._sched_ctx = (self._bucket(Q),
-                                             self.plan_generation)
-            else:
-                Q = q.shape[0]
-            scores, ids = self.index.query(q, k=kk, **extra)
-            scores, ids = scores[:Q], ids[:Q]
-        finally:
+            if not self._loaded:
+                raise RuntimeError("query before load")
+            # the plan is keyed on the caller's dtype, as the reference keys
+            # it; float64 becomes float32 as jnp.asarray makes it (x64 off),
+            # and each engine casts to the type it scores in
+            q = torch.atleast_2d(torch.as_tensor(q, device=self.device))
+            if q.dtype == torch.float64:
+                q = q.float()
+            kk = min(k, self.n)
+            if kk <= 0:
+                return _empty_result(q.shape[0], k, self.device)
+            allowed, extra = None, {}
             self._filter_ctx = None
-        if hybrid is not None:
-            scores, ids = self._hybrid_fuse(scores, ids, hybrid, hybrid_texts,
-                                            hybrid_tokens, allowed, kk)
-        return scores, ids
+            if where is not None:
+                allowed, extra = self._filter_bitmap(where)
+            try:
+                if bucketize:
+                    q, Q = self._plan_batch(q, kk)
+                    if hasattr(self.index, "sched_cache"):
+                        # the engine completes the schedule key with its
+                        # nprobe
+                        self.index.sched_cache = self.sched_cache
+                        self.index._sched_ctx = (self._bucket(Q),
+                                                 self.plan_generation)
+                else:
+                    Q = q.shape[0]
+                scores, ids = self.index.query(q, k=kk, **extra)
+                scores, ids = scores[:Q], ids[:Q]
+            finally:
+                self._filter_ctx = None
+            if hybrid is not None:
+                scores, ids = self._hybrid_fuse(scores, ids, hybrid,
+                                                hybrid_texts, hybrid_tokens,
+                                                allowed, kk)
+            return scores, ids
+        finally:
+            if sp:
+                trace.end(sp)
 
     def query_texts(self, texts, encoder: Callable, k: int = 10):
         """Embed the query texts and search -> (scores, ids, hits): hits

@@ -27,6 +27,7 @@ from collections import OrderedDict
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import distances as D
 from repro_torch.core.mutable import (GrowableRows, MutationMixin, as_ids,
                                       row_capacity)
@@ -154,8 +155,10 @@ def visit_sharing(visit, *, pad_block=None) -> dict:
     without building the segmented schedule, one ``torch.unique`` over the
     (Q*T,) block ids on the table's device. ``ops.ivf_adc_topk``'s auto
     dispatch reads this first and builds the schedule only when a grouped
-    grid will use it. Reading the counts is a host sync."""
+    grid will use it. The mask and the ``unique`` are a host sync each."""
     v = torch.as_tensor(visit).reshape(-1)
+    if trace.ON:
+        trace.count("host_syncs", 1 + (pad_block is not None))
     if pad_block is not None:
         v = v[v != pad_block]
     pairs = int(v.numel())
@@ -219,6 +222,8 @@ def build_block_schedule(visit, *, qblk: int = 8, pad_block=None):
     groups_per_run = -torch.div(-run_len, qblk, rounding_mode="floor")
     gbase = torch.cumsum(groups_per_run, 0) - groups_per_run
     gid = gbase[run_of] + torch.div(rank, qblk, rounding_mode="floor")
+    if trace.ON:
+        trace.count("host_syncs")
     P, n_groups, n_runs = (int(x) for x in torch.stack(
         [real.sum(), groups_per_run.sum(), new_run.sum()]).tolist())
 
@@ -269,11 +274,13 @@ class ScheduleCache:
     def get(self, key, visit):
         ent = self._entries.get(key)
         if (ent is not None and ent[0].shape == visit.shape
-                and ent[0].device == visit.device
-                and torch.equal(ent[0], visit)):
-            self._entries.move_to_end(key)
-            self.stats["hits"] += 1
-            return ent[1]
+                and ent[0].device == visit.device):
+            if trace.ON:
+                trace.count("host_syncs")
+            if torch.equal(ent[0], visit):
+                self._entries.move_to_end(key)
+                self.stats["hits"] += 1
+                return ent[1]
         self.stats["misses"] += 1
         return None
 

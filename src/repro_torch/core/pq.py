@@ -32,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.core import distances as D
 from repro_torch.core.flat import _check_snapshot
 from repro_torch.core.ivf import (BlockListLayout, assign_clusters,
@@ -357,24 +358,37 @@ def ivf_pq_search(codebooks, centroids, block_lists, corpus, q, *,
     spp = steps_per_probe
     blk = bucket_codes.shape[1]
     pad_block = bucket_ids.shape[0] - 1
+    sp = trace.ON and trace.begin("ivf.probe")
     visit, luts, coarse, eff = _ivf_probe_stage(
         codebooks, centroids, q, block_table, metric=metric, nprobe=nprobe,
         steps_per_probe=spp, pad_block=pad_block,
         adaptive_nprobe=adaptive_nprobe)
+    if sp:
+        trace.end(sp)
     R = min(max(refine, k), nprobe * spp * blk)
+    sp = trace.ON and trace.begin("ivf.dispatch")
     s, ids = kops.ivf_adc_topk(bucket_codes, bucket_ids, visit, luts, k=R,
                                coarse=coarse, steps_per_probe=spp,
                                lut_dtype=lut_dtype, mode=adc_mode, qblk=qblk,
                                pad_block=pad_block, stats=adc_stats,
                                autotune=autotune, sched_cache=sched_cache,
                                sched_key=sched_key, allowed=allowed)
+    if sp:
+        trace.end(sp)
     if adc_stats is not None:
-        adc_stats["eff_nprobe"] = (float(eff.float().mean())
-                                   if adaptive_nprobe is not None
-                                   else float(nprobe))
-    if refine:
-        return D.rerank_topk(corpus, corpus_sq, ids, q, metric=metric, k=k)
-    return D.pad_to_k(s[:, :k], ids[:, :k], k)
+        if adaptive_nprobe is not None:
+            if trace.ON:
+                trace.count("host_syncs")
+            adc_stats["eff_nprobe"] = float(eff.float().mean())
+        else:
+            adc_stats["eff_nprobe"] = float(nprobe)
+    if not refine:
+        return D.pad_to_k(s[:, :k], ids[:, :k], k)
+    sp = trace.ON and trace.begin("ivf.rerank")
+    out = D.rerank_topk(corpus, corpus_sq, ids, q, metric=metric, k=k)
+    if sp:
+        trace.end(sp)
+    return out
 
 
 def train_ivf_pq(corpus, *, n_clusters: int, m: int, ksub: int, iters: int,

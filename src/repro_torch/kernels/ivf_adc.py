@@ -43,6 +43,7 @@ import math
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.distances import merge_topk, topk_scores
 from repro_torch.device import kernel_path
 from repro_torch.kernels import _build
@@ -529,6 +530,8 @@ def tile_index(sched, *, rows: int, qt: int, nprobe: int,
                                         rounding_mode="floor")], 1)
     tile_pairs = torch.searchsorted(tile, torch.arange(tiles + 1, device=dev))
     chunk = max(MIN_CHUNK_PAIRS, math.ceil(P / (CHUNK_WAVES * slots)))
+    if tiles and trace.ON:
+        trace.count("host_syncs")
     most = int((tile_pairs[1:] - tile_pairs[:-1]).max()) if tiles else 0
     out = {"meta": meta.to(torch.int32).contiguous(),
            "tile_pairs": tile_pairs.to(torch.int32), "chunk_pairs": chunk,

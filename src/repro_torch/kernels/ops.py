@@ -23,6 +23,7 @@ import time
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.ivf import build_block_schedule, visit_sharing
 from repro_torch.device import kernel_path
 from repro_torch.kernels import flash_attention as _fa
@@ -187,6 +188,8 @@ def _build_schedule_cached(visit, qblk, pad_block, cache, base_key, Q, T):
 
 def _synchronize(x) -> None:
     if x.is_cuda:
+        if trace.ON:
+            trace.count("host_syncs")
         torch.cuda.synchronize(x.device)
 
 

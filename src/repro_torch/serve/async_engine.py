@@ -72,12 +72,23 @@ from typing import Callable, List, Optional
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core.db import PLAN_BUCKETS
 from repro_torch.serve.engine import (WRITE_KINDS, Request, WriteRequest,
                                       apply_db_write, assemble_queries,
                                       bucket_of, pack_results, query_kwargs,
                                       read_group, summarize_latencies,
                                       unpack_results)
+
+
+def _record_queue_waits(batch: List[Request], inflight: int) -> None:
+    """A ``front.queue`` span of each request of the batch, from its
+    ``submit`` to the start of the batch's ``front.inflight`` (the start
+    of its ``db.query``), pointing at that span."""
+    t1 = trace.span_start(inflight)
+    for r in batch:
+        trace.record("front.queue", int(r.t_enqueue * 1e9), t1,
+                     parent=inflight, key=r.rid)
 
 
 class BackpressureError(RuntimeError):
@@ -459,6 +470,8 @@ class AsyncQueryEngine:
         try:
             qv = self._to_card(self.encoder(q) if self.encoder is not None
                                else q)
+            inflight = trace.ON and trace.start("front.inflight",
+                                                key=batch[0].rid)
             scores, ids = self.db.query(qv, k=k,
                                         **query_kwargs(batch, len(q)))
             host, ready = self._copy_to_host(scores, ids)
@@ -468,14 +481,22 @@ class AsyncQueryEngine:
                 r.future.set_exception(e)
             self._resolve_one(len(batch))
             return
-        self._inflight.put((batch, host, ready))
+        if inflight:
+            _record_queue_waits(batch, inflight)
+        self._inflight.put((batch, host, ready, inflight))
 
     def _batch_loop(self) -> None:
         wait_s = self.max_wait_ms * 1e-3
         pending = self._pending  # batcher-local backlog, bulk-refilled
         done = False
         while not done:
-            job = pending.popleft() if pending else self._get_job(None)
+            if pending:
+                job = pending.popleft()
+            else:
+                sp = trace.ON and trace.begin("front.wait")
+                job = self._get_job(None)
+                if sp:
+                    trace.end(sp)
             if job is _SENTINEL:
                 break
             if self._discard.is_set():
@@ -487,7 +508,11 @@ class AsyncQueryEngine:
                 continue
             # take the inflight slot before filling the batch: while the
             # pipeline is full, arrivals ride along in this batch
+            sp = trace.ON and trace.begin("front.slot_wait", key=job.rid)
             self._slots.acquire()
+            if sp:
+                trace.end(sp)
+                sp = trace.begin("front.fill", key=job.rid)
             batch = [job]
             group = read_group(job)
             deadline = None  # armed lazily: a saturated queue never sleeps
@@ -518,7 +543,12 @@ class AsyncQueryEngine:
                     pending.appendleft(nxt)  # heads the next batch
                     break
                 batch.append(nxt)
+            if sp:
+                trace.end(sp)
+                sp = trace.begin("front.dispatch", key=job.rid)
             self._dispatch(batch)
+            if sp:
+                trace.end(sp)
             if closer is not None:
                 if self._discard.is_set():
                     closer.future.cancel()
@@ -570,16 +600,17 @@ class AsyncQueryEngine:
             item = self._inflight.get()
             if item is _SENTINEL:
                 return
-            batch, host, ready = item
+            batch, host, ready, inflight = item
             try:
-                if ready is None:
-                    scores, ids = host
-                else:
+                if ready is not None:
                     ready.synchronize()  # this batch's copy, nothing else
-                    # results own plain memory, so that the pinned block
-                    # goes back to the host allocator's cache for the next
-                    # batch instead of a fresh pinned allocation
-                    scores, ids = unpack_results(host.clone())
+                if inflight:
+                    trace.end(inflight)
+                # results own plain memory, so that the pinned block goes
+                # back to the host allocator's cache for the next batch
+                # instead of a fresh pinned allocation
+                scores, ids = (host if ready is None
+                               else unpack_results(host.clone()))
             except Exception as e:
                 self._slots.release()
                 for r in batch:

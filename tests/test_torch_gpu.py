@@ -1839,3 +1839,45 @@ def test_a_cuda_dtensor_never_takes_the_plain_version(nccl_mesh):
                           [Replicate(), Replicate()])
     with pytest.raises(ValueError, match="local shard"):
         ops.flash_attention(q, q, q, causal=True)
+
+
+@pytest.mark.parametrize("engine", ["ivf_pq", "flat"])
+def test_host_syncs_match_the_sync_debug_mode(engine, monkeypatch):
+    """The recorder's ``host_syncs`` over one ``VectorDB.query`` equals the
+    synchronizing operations the card reports under
+    ``set_sync_debug_mode("warn")``: two on ``ivf_pq`` under ``auto`` (the
+    sharing probe's mask and ``unique``, before the per-query grid, as on
+    the MS MARCO layout, where the grouped grids' board never fits), none
+    on ``flat``."""
+    import warnings
+    from repro_torch import trace
+    dev = _card()
+    monkeypatch.setattr(ops, "BLOCKED_MAX_BOARD_SLOTS", 0)
+    g = torch.Generator(device=dev).manual_seed(31)
+    corpus = torch.randn(40_000, 64, generator=g, device=dev)
+    args = (dict(n_clusters=200, m=8, nprobe=8, refine=32)
+            if engine == "ivf_pq" else {})
+    db = VectorDB(engine, device=dev, **args)
+    db.load(corpus)
+    q = torch.randn(512 if engine == "ivf_pq" else 16, 64, generator=g,
+                    device=dev)
+    db.query(q, k=10)   # plans, launch configurations and the tuner settle
+    torch.cuda.synchronize()
+    trace.enable()
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                db.query(q, k=10)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        trace.disable()
+        got = trace.drain()
+    torch.cuda.synchronize()
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing" in str(w.message)]
+    counted = got["counters"].get("host_syncs", 0)
+    assert counted == len(syncs), syncs
+    assert counted == (2 if engine == "ivf_pq" else 0)
