@@ -10,10 +10,10 @@ data from ``--seed``; 7 runs inside 6); every phase by default.
 Phases, in order; any failure raises and the script exits non-zero:
   1. header: the card's name, power limit and top SM clock (nvidia-smi),
      torch and CUDA;
-  2. build: the five CUDA sources (topk_distance, pq_adc, ivf_adc with its
+  2. build: the six CUDA sources (topk_distance, pq_adc, ivf_adc with its
      three grids, hamming with its matrix and shortlist entries,
-     flash_attention), one nvcc each, in parallel; the ptxas lines
-     (registers, shared memory, spills);
+     flash_attention, visit_sharing), one nvcc each, in parallel; the
+     ptxas lines (registers, shared memory, spills);
   3. kernel against plain version at mid size (262,144 rows, d = 768,
      m = 64): ``topk_distance`` with float32 and bf16 corpora for {dot, l2}
      x k in {1, 10, 256} x Q in {1, 5, 16, 32, 33, 128, 512} (every
@@ -67,7 +67,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      then ``VectorDB("ivf_pq")`` served under adc_mode auto (the default),
      per_query, blocked and run_resident from one trained state (every
      grid's ids and scores equal per_query's bit for bit), and scan_all at
-     Q = 32, the three ivf_adc kernels at Q = 1, 32, 512 beside their
+     Q = 32, the sharing count's kernel (``visit_sharing``, which auto
+     launches where no grouped grid's board fits, as at Q = 512) and its
+     plain version on the engine's visit tables at Q = 1, 32, 512, each
+     equal to the host probe's count, and timed; the three ivf_adc
+     kernels at Q = 1, 32, 512 beside their
      times before this design, each kernel's device time by the profiler
      (scan and merges) and the visit steps the per-query kernel scored,
      counted by the kernel, against the real ones and Q x T, and on the
@@ -806,7 +810,7 @@ def phase_header() -> tuple:
 def phase_build() -> None:
     from repro_torch.kernels import _build
     secs = _build.build_all(["topk_distance", "pq_adc", "ivf_adc", "hamming",
-                             "flash_attention"])
+                             "flash_attention", "visit_sharing"])
     for name, s in secs.items():
         log(f"build {name}: {s:.1f} s")
         for line in _build.build_log(name).splitlines():
@@ -1676,7 +1680,8 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
         results[mode] = serve_batches(db, queries, f"ivf_pq {mode}")
     counts = ops.launch_counts()
     log(f"  launches on the ivf_pq path (all four modes): {counts}")
-    for name in ("ivf_adc",) + tuple(f"ivf_adc_{m}" for m in GROUPED):
+    for name in ("ivf_adc", "visit_sharing") + tuple(f"ivf_adc_{m}"
+                                                     for m in GROUPED):
         launches[name] = counts[name]
     for mode in ("auto",) + GROUPED:
         for Q in BATCHES:
@@ -1707,7 +1712,8 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
     log("  ivf_pq filtered: auto, blocked and run_resident equal per_query "
         f"bit for bit for every predicate at Q = {BATCHES}; launches "
         f"{f_launch}")
-    for name in ("ivf_adc",) + tuple(f"ivf_adc_{m}" for m in GROUPED):
+    for name in ("ivf_adc", "visit_sharing") + tuple(f"ivf_adc_{m}"
+                                                     for m in GROUPED):
         launches[name] += f_launch.get(name, 0)
     idx.adc_mode = "per_query"
     ivf_breakdown(idx, queries)
@@ -1719,9 +1725,11 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
              "ivf_adc_run_resident": (K.ivf_adc_run_resident_cuda,
                                       K.ivf_adc_run_resident_plain,
                                       "run_resident")}
-    timed, by_q = {}, {name: {} for name in grids}
+    timed, by_q, vs_by_q = {}, {name: {} for name in grids}, {}
     for Q in BATCHES:
         codes, ids, visit, luts, coarse, spp = probe_inputs(idx, queries[:Q])
+        vs_by_q[Q] = check_visit_sharing(visit, codes.shape[0],
+                                         ids.shape[0] - 1, Q)
         t_s = time.perf_counter()
         sched = ops.build_schedule(visit, qblk=8, pad_block=ids.shape[0] - 1)
         torch.cuda.synchronize()
@@ -1811,6 +1819,17 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
                                    "max_abs_err": f_errs[name]}
         log(f"  {name} Q=32: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
             f"bound {b[0]:.3f} ms ({b[1]}), no single library call")
+    ms, plain_ms, b, shape = vs_by_q[max(BATCHES)]
+    kernels.append(kernel_entry(
+        "visit_sharing", "src/repro_torch/csrc/visit_sharing.cu",
+        "src/repro/core/ivf.py:141 (a host count, no TPU kernel)",
+        launches["visit_sharing"], 0, ms, plain_ms, b, None,
+        shape + "; max_abs_err 0: pairs, blocks and sharing equal "
+        "visit_sharing's exactly at every Q; library_ms null: the plain "
+        "version is the PyTorch count"))
+    kernels[-1]["by_q"] = {str(Q): {"ms": t[0], "plain_ms": t[1],
+                                    "bound_ms": t[2][0], "bound_by": t[2][1]}
+                           for Q, t in vs_by_q.items()}
 
     # scan_all from the same trained state (the corpus tensor is shared)
     t0 = time.perf_counter()
@@ -1855,6 +1874,40 @@ def main_ivf(corpus, queries, truth, device, kernels, launches,
     del sdb, db, idx, codes, luts, assign, live, fres, sfres, maps
     torch.cuda.empty_cache()
     return recall
+
+
+def check_visit_sharing(visit, n_blocks: int, pad_block: int,
+                        Q: int) -> tuple:
+    """The sharing count's kernel and its plain version on the card, each
+    against ``visit_sharing`` (the host probe: a mask and a unique) on the
+    engine's own visit table, exactly; then timed. At Q = 512 the table's
+    n = Q x T ids are more than the kernel's grid holds in one pass, so its
+    grid-stride loop and last-block finish run. Returns (kernel ms, plain
+    ms, bound, shape)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import visit_sharing as vs
+    want = ops.visit_sharing(visit, pad_block=pad_block)
+    for use_kernel in (True, False):
+        got = vs.visit_sharing_device(visit, n_blocks, pad_block=pad_block,
+                                      use_kernel=use_kernel)
+        got = {key: v.item() for key, v in got.items()}
+        if got != want:
+            raise AssertionError(f"visit_sharing_device use_kernel="
+                                 f"{use_kernel} Q={Q}: {got} != {want}")
+    kw = dict(pad_block=pad_block)
+    ms = gpu_ms(lambda: vs.visit_sharing_cuda(visit, n_blocks, **kw), 20)
+    plain_ms = gpu_ms(lambda: vs.visit_sharing_plain(visit, n_blocks, **kw),
+                      5)
+    dev_us = device_us(lambda: vs.visit_sharing_cuda(visit, n_blocks, **kw))
+    n = visit.numel()
+    b = bound_ms(4 * n + 2 * 8 * ((n_blocks + 63) // 64), n)
+    shape = f"Q={Q} T={visit.shape[1]} n={n} n_blocks={n_blocks}"
+    log(f"  visit_sharing {shape}: kernel and plain version equal the host "
+        f"probe ({want}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"(events, back to back), bound {b[0]:.4f} ms ({b[1]}); device us a "
+        "call by kernel (profiler): "
+        + ", ".join(f"{k} {u:.1f}" for k, u in dev_us.items()))
+    return ms, plain_ms, b, shape
 
 
 def hot_set(idx, corpus, seed: int, device, grids: dict,

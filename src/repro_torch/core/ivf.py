@@ -154,8 +154,10 @@ def visit_sharing(visit, *, pad_block=None) -> dict:
     """Cheap sharing probe: ``{pairs, blocks, sharing}`` of a visit table
     without building the segmented schedule, one ``torch.unique`` over the
     (Q*T,) block ids on the table's device. ``ops.ivf_adc_topk``'s auto
-    dispatch reads this first and builds the schedule only when a grouped
-    grid will use it. The mask and the ``unique`` are a host sync each."""
+    dispatch reads this where the grouped grids' board fits, and builds
+    the schedule only when a grouped grid will use it. The mask and the
+    ``unique`` are a host sync each
+    (``kernels.visit_sharing.visit_sharing_device`` counts with none)."""
     v = torch.as_tensor(visit).reshape(-1)
     if trace.ON:
         trace.count("host_syncs", 1 + (pad_block is not None))

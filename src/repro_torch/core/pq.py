@@ -621,8 +621,8 @@ class IVFPQIndex(MutationMixin):
     probe is dropped (None = off). ``scan_all=True`` keeps row-major codes,
     assignments and a live mask beside the layout and scores all rows
     instead of probing (dot and cosine). ``adc_stats`` counts the batches
-    each grid served; the owning ``VectorDB`` installs ``sched_cache`` and
-    ``_sched_ctx``.
+    each grid served (a snapshot of plain numbers); the owning
+    ``VectorDB`` installs ``sched_cache`` and ``_sched_ctx``.
 
     Writes: an insert assigns, residual-encodes and appends into the
     layout; a delete tombstones the slots; an upsert tombstones the old
@@ -661,12 +661,15 @@ class IVFPQIndex(MutationMixin):
         self.qblk = qblk
         self.device = resolve_device(device)
         # batches served per grid (a probe batch counts under its grid and
-        # under 'probes'), the last fitted crossover, and running sums of
-        # the sharing factor and the effective nprobe
-        self.adc_stats = {"blocked": 0, "per_query": 0, "run_resident": 0,
-                          "probes": 0, "crossover": None,
-                          "sharing_sum": 0.0, "eff_nprobe_sum": 0.0,
-                          "batches": 0}
+        # under 'probes'), the last fitted crossover, running sums of the
+        # sharing factor and the effective nprobe, and the batches whose
+        # sharing was counted on the device ('sharing_deferred'), summed
+        # apart into ``_sharing_dev`` (see ``adc_stats``)
+        self._adc_stats = {"blocked": 0, "per_query": 0, "run_resident": 0,
+                           "probes": 0, "crossover": None,
+                           "sharing_sum": 0.0, "eff_nprobe_sum": 0.0,
+                           "batches": 0, "sharing_deferred": 0}
+        self._sharing_dev = None
         self.sched_cache = None
         self._sched_ctx = ()
         self.codebooks = self.centroids = None
@@ -684,6 +687,17 @@ class IVFPQIndex(MutationMixin):
     @property
     def size(self) -> int:
         return 0 if self.layout is None else int(self.layout.live)
+
+    @property
+    def adc_stats(self) -> dict:
+        """A snapshot of the ADC dispatch's counters, plain Python numbers.
+        ``sharing_sum`` adds the sum of the batches whose sharing was
+        counted on the device, read here: one host read, outside any
+        query."""
+        st = dict(self._adc_stats)
+        if self._sharing_dev is not None:
+            st["sharing_sum"] += float(self._sharing_dev)
+        return st
 
     @property
     def shape_key(self) -> tuple:
@@ -841,12 +855,20 @@ class IVFPQIndex(MutationMixin):
             codes=self.codes, assign=self.assign, valid=self.valid,
             allowed=allowed)
         if batch_stats:
-            st = self.adc_stats
+            st = self._adc_stats
             st[batch_stats["mode"]] += 1
             st["probes"] += bool(batch_stats.get("probe"))
             if batch_stats.get("crossover") is not None:
                 st["crossover"] = batch_stats["crossover"]
-            st["sharing_sum"] += batch_stats["sharing"]
+            if batch_stats.get("sharing_deferred"):
+                sharing = batch_stats["sharing"]
+                if self._sharing_dev is None:
+                    self._sharing_dev = torch.zeros(
+                        (), dtype=torch.float64, device=sharing.device)
+                self._sharing_dev.add_(sharing)
+                st["sharing_deferred"] += 1
+            else:
+                st["sharing_sum"] += batch_stats["sharing"]
             st["eff_nprobe_sum"] += batch_stats["eff_nprobe"]
             st["batches"] += 1
         return out

@@ -31,6 +31,7 @@ from repro_torch.kernels import hamming as _hm
 from repro_torch.kernels import ivf_adc as _ivf
 from repro_torch.kernels import pq_adc as _pq
 from repro_torch.kernels import topk_distance as _tk
+from repro_torch.kernels import visit_sharing as _vs
 from repro_torch.kernels.autotune import LEDGER
 from repro_torch.kernels.topk_distance import NEG_INF
 
@@ -38,7 +39,7 @@ ADC_LUT_DTYPES = _pq.LUT_DTYPES
 ADC_MODES = ("auto", "blocked", "per_query", "run_resident")
 LAUNCH_COUNTERS = (_tk.LAUNCHES, _pq.LAUNCHES, _ivf.LAUNCHES,
                    _ivf.LAUNCHES_BLOCKED, _ivf.LAUNCHES_RUN_RESIDENT,
-                   _hm.LAUNCHES, _fa.LAUNCHES)
+                   _hm.LAUNCHES, _fa.LAUNCHES, _vs.LAUNCHES)
 
 # The untuned dispatch constants of the grouped grids, used only with
 # ``autotune=False``; the board bound caps the grouped plain versions'
@@ -222,11 +223,15 @@ def ivf_adc_topk(bucket_codes, bucket_ids, visit, luts, *, k: int,
     schedule cache misses.
     ``autotune=False`` uses the untuned constants instead. A grouped grid
     runs only where the (Q+1, T, blk) board fits BLOCKED_MAX_BOARD_SLOTS,
-    as in the reference. ``sched_cache``/``sched_key``: the plan ledger's
-    ``ScheduleCache`` and its (bucket, generation, nprobe) context, so
-    repeated batches skip the sort. ``stats`` (a dict) receives the
-    decision: 'mode', 'sharing', 'pairs', 'blocks', 'groups', 'qblk',
-    'probe', 'crossover'.
+    as in the reference; where it cannot, 'auto' serves the per-query grid
+    with no host sync and counts the sharing on the device
+    (``kernels.visit_sharing``). ``sched_cache``/``sched_key``: the plan
+    ledger's ``ScheduleCache`` and its (bucket, generation, nprobe)
+    context, so repeated batches skip the sort. ``stats`` (a dict)
+    receives the decision: 'mode', 'sharing', 'pairs', 'blocks',
+    'groups', 'qblk', 'probe', 'crossover'; on the sync-free path
+    'pairs', 'blocks' and 'sharing' are 0-dim device tensors and
+    'sharing_deferred' is True.
 
     ``allowed`` (a (n,) bool bitmap over the id space, the predicate's)
     rewrites ``bucket_ids`` through ``mask_allowed_ids`` before any grid
@@ -252,33 +257,40 @@ def ivf_adc_topk(bucket_codes, bucket_ids, visit, luts, *, k: int,
               "groups": 0, "qblk": 0, "probe": False, "crossover": None}
     grid = "per_query"
     eff_qblk = DEFAULT_QBLK if qblk is None else qblk
-    probe_cfg = tuner = tkey = None
-    if mode != "per_query":
+    probe_cfg = tuner = entry = None
+    tkey = (backend, m, luts.shape[-1], blk, lut_dtype)
+    if mode == "auto" and autotune is not False:
+        tuner = LEDGER if autotune is None else autotune
+        entry = tuner.lookup(tkey)
+        if entry is not None:
+            sstats["crossover"] = entry["crossover"]
+    if mode == "auto" and (Q + 1) * T * blk > BLOCKED_MAX_BOARD_SLOTS:
+        # no grouped grid fits, so the sharing decides nothing: it is
+        # counted on the device for ``stats`` and read only when asked for
+        if stats is not None:
+            sstats.update(_vs.visit_sharing_device(
+                visit, bucket_codes.shape[0], pad_block=pad_block,
+                use_kernel=use_kernel), sharing_deferred=True)
+    elif mode != "per_query":
         sstats.update(visit_sharing(visit, pad_block=pad_block))
-        board_ok = (Q + 1) * T * blk <= BLOCKED_MAX_BOARD_SLOTS
         if mode != "auto":
             grid = mode
         elif autotune is False:
-            if (Q >= BLOCKED_MIN_QUERIES and board_ok
+            if (Q >= BLOCKED_MIN_QUERIES
                     and sstats["sharing"] >= BLOCKED_MIN_SHARING):
                 grid = "blocked"
-        else:
-            tuner = LEDGER if autotune is None else autotune
-            tkey = (backend, m, luts.shape[-1], blk, lut_dtype)
-            entry = tuner.lookup(tkey)
-            if entry is not None:
-                sstats["crossover"] = entry["crossover"]
-                if (sstats["pairs"] > 0 and board_ok
-                        and sstats["sharing"] >= entry["crossover"]):
-                    grid = entry["grouped_mode"]
-                    eff_qblk = entry["qblk"] if qblk is None else qblk
-            elif sstats["pairs"] > 0 and board_ok:
-                probe_cfg = tuner.next_probe(tkey)
-                if probe_cfg is not None:
-                    grid = probe_cfg[0]
-                    if probe_cfg[1]:
-                        eff_qblk = probe_cfg[1]
-                    sstats["probe"] = True
+        elif entry is not None:
+            if (sstats["pairs"] > 0
+                    and sstats["sharing"] >= entry["crossover"]):
+                grid = entry["grouped_mode"]
+                eff_qblk = entry["qblk"] if qblk is None else qblk
+        elif sstats["pairs"] > 0:
+            probe_cfg = tuner.next_probe(tkey)
+            if probe_cfg is not None:
+                grid = probe_cfg[0]
+                if probe_cfg[1]:
+                    eff_qblk = probe_cfg[1]
+                sstats["probe"] = True
     kw = dict(k=k, steps_per_probe=steps_per_probe, lut_dtype=lut_dtype,
               use_kernel=use_kernel)
 

@@ -1845,12 +1845,9 @@ def test_a_cuda_dtensor_never_takes_the_plain_version(nccl_mesh):
 def test_host_syncs_match_the_sync_debug_mode(engine, monkeypatch):
     """The recorder's ``host_syncs`` over one ``VectorDB.query`` equals the
     synchronizing operations the card reports under
-    ``set_sync_debug_mode("warn")``: two on ``ivf_pq`` under ``auto`` (the
-    sharing probe's mask and ``unique``, before the per-query grid, as on
-    the MS MARCO layout, where the grouped grids' board never fits), none
-    on ``flat``."""
-    import warnings
-    from repro_torch import trace
+    ``set_sync_debug_mode("warn")``: none on ``ivf_pq`` under ``auto``
+    where the grouped grids' board cannot fit, as on the MS MARCO layout
+    (the sharing is counted on the card), none on ``flat``."""
     dev = _card()
     monkeypatch.setattr(ops, "BLOCKED_MAX_BOARD_SLOTS", 0)
     g = torch.Generator(device=dev).manual_seed(31)
@@ -1861,7 +1858,22 @@ def test_host_syncs_match_the_sync_debug_mode(engine, monkeypatch):
     db.load(corpus)
     q = torch.randn(512 if engine == "ivf_pq" else 16, 64, generator=g,
                     device=dev)
-    db.query(q, k=10)   # plans, launch configurations and the tuner settle
+    counted, syncs = _syncs_of_one_call(db, q)
+    assert counted == len(syncs), syncs
+    assert counted == 0
+    if engine == "ivf_pq":
+        st = db.adc_stats
+        assert st["sharing_deferred"] == st["batches"] == 2
+        assert type(st["sharing_sum"]) is float and st["sharing_sum"] > 0
+
+
+def _syncs_of_one_call(db, q):
+    """(``host_syncs`` counted, the sync debug mode's warnings) over the
+    second of two ``db.query(q)`` calls: the first settles plans, launch
+    configurations and the tuner."""
+    import warnings
+    from repro_torch import trace
+    db.query(q, k=10)
     torch.cuda.synchronize()
     trace.enable()
     try:
@@ -1878,6 +1890,70 @@ def test_host_syncs_match_the_sync_debug_mode(engine, monkeypatch):
     torch.cuda.synchronize()
     syncs = [str(w.message) for w in caught
              if "called a synchronizing" in str(w.message)]
-    counted = got["counters"].get("host_syncs", 0)
-    assert counted == len(syncs), syncs
-    assert counted == (2 if engine == "ivf_pq" else 0)
+    return got["counters"].get("host_syncs", 0), syncs
+
+
+def test_host_syncs_match_the_sync_debug_mode_where_the_board_fits(
+        monkeypatch):
+    """Where the board fits, ``auto`` on ``ivf_pq`` reads the sharing
+    probe's mask and ``unique`` on the host to weigh the grouped grids:
+    two syncs, counted and reported alike (a settled tuner keeps the
+    per-query grid)."""
+    from repro_torch.kernels.autotune import AutoTuner
+
+    class Settled(AutoTuner):
+        def lookup(self, key):
+            return {"grouped_mode": "blocked", "qblk": 8,
+                    "crossover": float("inf")}
+
+    dev = _card()
+    monkeypatch.setattr(ops, "LEDGER", Settled())
+    g = torch.Generator(device=dev).manual_seed(31)
+    db = VectorDB("ivf_pq", device=dev, n_clusters=200, m=8, nprobe=8,
+                  refine=32)
+    db.load(torch.randn(40_000, 64, generator=g, device=dev))
+    counted, syncs = _syncs_of_one_call(
+        db, torch.randn(32, 64, generator=g, device=dev))
+    assert counted == len(syncs) == 2, syncs
+    assert db.adc_stats["sharing_deferred"] == 0
+
+
+@pytest.mark.parametrize("pad_share,pad", [(0.3, True), (0.3, False),
+                                           (1.0, True), (0.0, True)])
+@pytest.mark.parametrize("Q,T,B", [(512, 96, 4_001), (3, 5, 70),
+                                   (0, 8, 33), (512, 4_096, 300_001)])
+def test_visit_sharing_kernel_matches_the_host_probe(Q, T, B, pad_share, pad):
+    """On the card the sharing count's kernel gives ``visit_sharing``'s
+    numbers, as its plain version does there, in one launch that
+    synchronizes nothing: many repeats, no pad block, all pad, none, an
+    empty table, and the MS MARCO layout's shape at Q = 512 (2.1 M ids,
+    more than the grid's 1,056 x 256 threads cover in one pass, so the
+    grid-stride loop and the last block's finish run)."""
+    import warnings
+    from repro_torch.core.ivf import visit_sharing
+    from repro_torch.kernels import visit_sharing as vs
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(7)
+    visit = torch.randint(0, B - 1, (Q, T), generator=g, device=dev,
+                          dtype=torch.int32)
+    visit[torch.rand(visit.shape, generator=g, device=dev) < pad_share] = B - 1
+    pad_block = B - 1 if pad else None
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            got = vs.visit_sharing_device(visit, B, pad_block=pad_block)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "synchronizing" in str(w.message)]
+    assert ops.launch_counts()["visit_sharing"] == 1
+    assert [(v.is_cuda, v.dim(), v.dtype) for v in got.values()] == [
+        (True, 0, torch.int64), (True, 0, torch.int64),
+        (True, 0, torch.float64)]
+    plain = vs.visit_sharing_device(visit, B, pad_block=pad_block,
+                                    use_kernel=False)
+    want = visit_sharing(visit, pad_block=pad_block)
+    assert {k: v.item() for k, v in got.items()} == want
+    assert {k: v.item() for k, v in plain.items()} == want

@@ -31,6 +31,7 @@ from repro_torch.core.convert import from_reference_state  # noqa: E402
 from repro_torch.kernels import autotune as ttune  # noqa: E402
 from repro_torch.kernels import ivf_adc as tadc  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import visit_sharing as tvs  # noqa: E402
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 NEG_INF = -1e30
@@ -79,6 +80,33 @@ def test_block_schedule_matches_reference(rng, case, pad):
     np.testing.assert_array_equal(_np(gs["grun"]), ws["grun"])
     assert tivf.visit_sharing(_t(visit), pad_block=pad_block) == \
         jivf.visit_sharing(visit, pad_block=pad_block)
+
+
+SHARING_CASES = {
+    "repeats, pad block": (dict(Q=37, T=12, B=50, pad_share=0.3), True),
+    "repeats, no pad block": (dict(Q=37, T=12, B=50, pad_share=0.3), False),
+    "heavy repeats": (dict(Q=64, T=16, B=6, pad_share=0.1), True),
+    "all pad": (dict(Q=6, T=4, B=7, pad_share=1.0), True),
+    "no pad in the table": (dict(Q=20, T=8, B=40, pad_share=0.0), True),
+    "empty table": (dict(Q=0, T=4, B=7, pad_share=0.0), True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHARING_CASES))
+def test_visit_sharing_device_matches_the_host_probe(rng, name):
+    """The sync-free count gives ``visit_sharing``'s pairs, blocks and
+    sharing exactly, as 0-dim int64, int64 and float64 tensors, and the
+    reference's host count gives the same numbers."""
+    case, pad = SHARING_CASES[name]
+    visit_np = _visit(rng, **case)
+    visit = _t(visit_np)
+    pad_block = case["B"] - 1 if pad else None
+    got = tvs.visit_sharing_device(visit, case["B"], pad_block=pad_block)
+    assert [(v.dim(), v.dtype) for v in got.values()] == \
+        [(0, torch.int64), (0, torch.int64), (0, torch.float64)]
+    got = {key: v.item() for key, v in got.items()}
+    assert got == tivf.visit_sharing(visit, pad_block=pad_block)
+    assert got == jivf.visit_sharing(visit_np, pad_block=pad_block)
 
 
 def test_schedule_cache_checks_the_visit_table(rng):
@@ -250,6 +278,50 @@ def test_auto_follows_a_seeded_decision(rng, crossover, want):
     finally:
         ops.BLOCKED_MAX_BOARD_SLOTS = old
     assert stats["mode"] == "per_query"
+
+
+@pytest.mark.parametrize("autotune", ["tuner", "untuned"])
+def test_auto_where_no_board_fits_is_the_per_query_grid(rng, monkeypatch,
+                                                        autotune):
+    """With the grouped grids' board past its bound, 'auto' serves the
+    per-query grid bit for bit, probes no candidate, and defers the
+    sharing count: read, it is the host probe's."""
+    codes, slots, visit, luts, coarse, spp = _problem(rng, per_probe=True)
+    pad_block = slots.shape[0] - 1
+    args = (_t(codes), _t(slots), _t(visit), _t(luts))
+    kw = dict(k=25, coarse=_t(coarse), steps_per_probe=spp,
+              pad_block=pad_block)
+    want = ops.ivf_adc_topk(*args, mode="per_query", **kw)
+    monkeypatch.setattr(ops, "BLOCKED_MAX_BOARD_SLOTS", 0)
+    tuner = ttune.AutoTuner(reps=1) if autotune == "tuner" else False
+    stats = {}
+    got = ops.ivf_adc_topk(*args, stats=stats, autotune=tuner, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert stats["mode"] == "per_query" and stats["sharing_deferred"]
+    assert not stats["probe"] and stats["groups"] == 0
+    assert {key: stats[key].item() for key in ("pairs", "blocks", "sharing")} \
+        == tivf.visit_sharing(_t(visit), pad_block=pad_block)
+    if tuner:
+        assert tuner.next_probe(("plain", 8, 32, 8, "float32")) == \
+            ("per_query", 0)
+
+
+def test_auto_where_no_board_fits_counts_nothing_unasked(rng, monkeypatch):
+    """``stats=None`` (the mesh front's shards): no sharing count at all."""
+    codes, slots, visit, luts, coarse, spp = _problem(rng, per_probe=False)
+    args = (_t(codes), _t(slots), _t(visit), _t(luts))
+    kw = dict(k=10, coarse=_t(coarse), steps_per_probe=spp,
+              pad_block=slots.shape[0] - 1, autotune=ttune.AutoTuner())
+    want = ops.ivf_adc_topk(*args, mode="per_query", **kw)
+
+    def refuse(*a, **k):
+        raise AssertionError("a sharing count nobody reads")
+
+    monkeypatch.setattr(ops, "BLOCKED_MAX_BOARD_SLOTS", 0)
+    monkeypatch.setattr(ops, "visit_sharing", refuse)
+    monkeypatch.setattr(tvs, "visit_sharing_device", refuse)
+    got = ops.ivf_adc_topk(*args, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_auto_probes_each_candidate_then_decides(rng):
@@ -446,3 +518,53 @@ def test_schedule_cache_serves_a_repeated_batch(trained):
     db.query(q[:5], k=5)
     assert db.plan_stats == {"hits": 2, "misses": 2}
     assert VectorDB("flat", device="cpu").adc_stats is None
+
+
+def _plain_numbers(st):
+    return all(v is None or type(v) in (int, float) for v in st.values())
+
+
+def test_adc_stats_read_the_deferred_sharing_as_plain_numbers(trained,
+                                                              monkeypatch):
+    """Batches served where no board fits count their sharing on the
+    device; ``adc_stats`` reads it as a plain float, the same sum as the
+    host probe's over the same batches, counts them under
+    'sharing_deferred', and each snapshot keeps its values."""
+    corpus, q, states = trained
+    state = from_reference_state(states["cosine"])
+    kw = dict(metric="cosine", m=8, ksub=32, nprobe=4, block_size=8,
+              device="cpu")
+    batches = (q[:3], q[3:40], q[:40], q[7:8])
+    board = ops.BLOCKED_MAX_BOARD_SLOTS
+    got = {}
+    for name, slots in (("deferred", 0), ("host", board)):
+        monkeypatch.setattr(ops, "BLOCKED_MAX_BOARD_SLOTS", slots)
+        monkeypatch.setattr(ops, "LEDGER", ttune.AutoTuner())
+        db = VectorDB("ivf_pq", **kw).load_state(state)
+        for i, b in enumerate(batches):
+            db.query(b, k=5)
+            if i == 0:
+                snap = db.index.adc_stats
+                first = dict(snap)
+        assert snap == first and snap["batches"] == 1
+        st = db.adc_stats
+        assert _plain_numbers(st) and _plain_numbers(db.index.adc_stats)
+        assert st["batches"] == len(batches)
+        got[name] = st
+    assert got["deferred"]["sharing_deferred"] == len(batches)
+    assert got["deferred"]["per_query"] == len(batches)
+    assert got["host"]["sharing_deferred"] == 0
+    assert got["deferred"]["sharing_sum"] / len(batches) == \
+        got["host"]["sharing_sum"] / len(batches) > 0
+    # batches on both paths: only the deferred ones are counted as such
+    monkeypatch.setattr(ops, "BLOCKED_MAX_BOARD_SLOTS", 0)
+    db = VectorDB("ivf_pq", **kw).load_state(state)
+    db.query(batches[0], k=5)
+    db.query(batches[1], k=5)
+    monkeypatch.setattr(ops, "BLOCKED_MAX_BOARD_SLOTS", board)
+    db.query(batches[2], k=5)
+    db.query(batches[3], k=5)
+    st = db.adc_stats
+    assert st["sharing_deferred"] == 2 and st["batches"] == 4
+    assert st["sharing_sum"] == pytest.approx(got["host"]["sharing_sum"],
+                                              rel=1e-12)

@@ -109,6 +109,13 @@ def test_every_adc_entry_refuses_the_kernel_on_cpu(mode):
                      use_kernel=True)
 
 
+def test_visit_sharing_refuses_the_kernel_on_cpu():
+    from repro_torch.kernels.visit_sharing import visit_sharing_device
+    with pytest.raises(ValueError, match="CUDA"):
+        visit_sharing_device(torch.zeros((1, 2), dtype=torch.int32), 2,
+                             use_kernel=True)
+
+
 class _CudaLike:
     is_cuda = True
     device = "cuda:0"
@@ -153,7 +160,8 @@ def test_flat_query_runs_the_plain_version_on_cpu():
     assert s.shape == (2, 3) and i.device.type == "cpu"
     assert ops.launch_counts() == {
         "topk_distance": 0, "pq_adc": 0, "ivf_adc": 0, "ivf_adc_blocked": 0,
-        "ivf_adc_run_resident": 0, "hamming": 0, "flash_attention": 0}
+        "ivf_adc_run_resident": 0, "hamming": 0, "flash_attention": 0,
+        "visit_sharing": 0}
 
 
 NEW_PORT_MODULES = ["configs/base.py", "configs/thistle_sbert.py",

@@ -12,6 +12,7 @@ from repro_torch import VectorDB
 from repro_torch import trace
 from repro_torch.core.ivf import ScheduleCache
 from repro_torch.kernels import ops
+from repro_torch.kernels.autotune import AutoTuner
 from repro_torch.serve.async_engine import AsyncQueryEngine
 
 torch.set_num_threads(2)
@@ -150,18 +151,43 @@ def test_front_queue_and_inflight_share_ids(flat, recorder):
 
 
 def test_host_syncs_of_one_call(ivfpq, flat, recorder, per_query_only):
-    """``auto`` on IVF-PQ reads the sharing probe's mask and ``unique`` on
-    the host; the exact engine reads nothing."""
+    """Where no grouped grid's board fits, ``auto`` on IVF-PQ counts the
+    sharing on the device and reads nothing on the host; nor does the
+    exact engine."""
     q = _corpus(32, 32, seed=11)
     ivfpq.query(q, k=5)          # the plan and its tuner key settle
     trace.drain()
     ivfpq.query(q, k=5)
     got = trace.drain()
-    assert got["counters"] == {"host_syncs": 2}
-    assert ivfpq.index.adc_stats["per_query"] > 0
+    assert got["counters"] == {}
+    st = ivfpq.index.adc_stats
+    assert st["per_query"] > 0 and st["sharing_deferred"] > 0
     flat.query(q, k=5)
     got = trace.drain()
     assert got["counters"] == {} and len(got["spans"]) == 1
+
+
+class _SettledPerQuery(AutoTuner):
+    """A tuner whose every key is fitted with a crossover no batch clears:
+    ``auto`` weighs the grouped grids and serves the per-query one."""
+
+    def lookup(self, key):
+        return {"grouped_mode": "blocked", "qblk": 8,
+                "crossover": float("inf")}
+
+
+def test_host_syncs_of_one_call_where_the_board_fits(recorder, monkeypatch):
+    """Where the board fits, ``auto`` reads the sharing probe's mask and
+    ``unique`` on the host to weigh the grouped grids."""
+    monkeypatch.setattr(ops, "LEDGER", _SettledPerQuery())
+    db = _db("ivf_pq")
+    q = _corpus(32, 32, seed=11)
+    db.query(q, k=5)
+    trace.drain()
+    db.query(q, k=5)
+    assert trace.drain()["counters"] == {"host_syncs": 2}
+    st = db.index.adc_stats
+    assert st["per_query"] == 2 and st["sharing_deferred"] == 0
 
 
 def test_host_syncs_per_query_mode_is_zero(recorder):
